@@ -1,0 +1,355 @@
+"""The Database: the NAM-DB facade over the port's verb fabric (OLTP half).
+
+The port of ``repro.db.database``'s transaction side.  A
+:class:`Database` owns
+
+  * a :class:`~repro_torch.fabric.NamPool` of named regions (tables
+    allocate their stores there),
+  * ONE transport (``LocalTransport`` on the card by default) through
+    which every verb runs and is counted,
+  * a timestamp oracle: a counter word bumped with the FETCH_ADD verb.
+
+``db.session()`` transactions commit through RSI (or the 2PC baseline) in
+waves: ``db.commit([s1, s2, ...])`` is one routed prepare/install round
+trip for the whole wave, with bounded, deterministic retry of the losers.
+The planner and the OLAP operators (``scan``/``explain``/``execute``) are
+not ported yet.
+"""
+from __future__ import annotations
+
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch import fabric
+from repro_torch._bits import CID_MASK, M32, np_u32
+from repro_torch.core import rsi, twopc
+from repro_torch.db.session import Session
+from repro_torch.db.table import Table, TableSchema
+
+_BACKENDS = {"rsi": rsi.commit, "2pc": twopc.commit}
+
+# one backoff slot of modeled compute between a hot-row abort and its
+# retry round, priced through an attached sim tracer
+BACKOFF_SLOT_S = 1e-6
+
+
+def _dyadic(items: list) -> list:
+    """Split a list into greedy power-of-two-sized chunks (23 -> 16+4+2+1)."""
+    out, i = [], 0
+    while i < len(items):
+        size = 1 << ((len(items) - i).bit_length() - 1)
+        out.append(items[i:i + size])
+        i += size
+    return out
+
+
+def backoff_slots(txn_id: int, attempt: int) -> int:
+    """Bounded-exponential retry backoff, jittered by a Fibonacci hash of
+    the transaction id: deterministic, yet decorrelated across the txns
+    that collided on the same hot row."""
+    h = (int(txn_id) * 0x9E3779B1 + int(attempt) * 0x85EBCA77) & 0xFFFFFFFF
+    return h % (1 << min(int(attempt), 16))
+
+
+class Database:
+    """Tables + sessions over one fabric transport."""
+
+    def __init__(self, transport=None, *, device=None, impl=None):
+        """transport: default ``LocalTransport(device=device, impl=impl)``.
+        device: the card unless the caller asks for the CPU; with no card
+        and no ``device=``, construction raises.  impl: the kernel
+        dispatch (``None`` = the hand-written kernels on the card)."""
+        self.transport = transport or fabric.LocalTransport(device=device,
+                                                            impl=impl)
+        self.device = self.transport.device
+        self.pool = fabric.NamPool()
+        self.tables: dict = {}
+        # timestamp oracle: cid 1 is the load epoch, live txns start at 2
+        self.pool.alloc("oracle/clock", (1,), torch.int32, ("replicated",))
+        self._clock = torch.full((1,), 2, dtype=torch.int32,
+                                 device=self.device)
+        # per-txn outcome economics (the contention side of the ledger)
+        self.txn_stats = {"commits": 0, "aborts": 0, "retries": 0,
+                          "backoff_slots": 0}
+
+    # ------------------------------------------------------------ tables --
+
+    def create_table(self, name: str, num_records: int, *,
+                     payload_words: int = 4, version_slots: int = 1,
+                     partitioning: str = "range",
+                     num_timestamps: int = 60_000) -> Table:
+        schema = TableSchema(name=name, num_records=num_records,
+                             payload_words=payload_words,
+                             version_slots=version_slots,
+                             partitioning=partitioning)
+        t = Table(schema, self.pool, self.transport,
+                  num_timestamps=num_timestamps)
+        self.tables[name] = t
+        return t
+
+    def table(self, name_or_table) -> Table:
+        if isinstance(name_or_table, Table):
+            return name_or_table
+        return self.tables[name_or_table]
+
+    # ---------------------------------------------------- timestamp oracle --
+
+    def claim_cids(self, k: int) -> np.ndarray:
+        """Claim k commit timestamps with one FETCH_ADD on the oracle word.
+        Returns them as numpy u32."""
+        fetched, self._clock = self.transport.fetch_add(
+            self._clock, torch.zeros((k,), dtype=torch.int32,
+                                     device=self.device),
+            torch.ones((k,), dtype=torch.int32, device=self.device),
+            region="oracle/clock")
+        return np_u32(fetched)
+
+    def read_timestamp(self) -> int:
+        """Current read snapshot: every cid below the clock is decided."""
+        return (int(self._clock[0]) & M32) - 1
+
+    # ---------------------------------------------------------- sessions --
+
+    def session(self, isolation: str = "rsi") -> Session:
+        return Session(self, isolation=isolation)
+
+    def snapshot_read(self, table, recs, rid: Optional[int] = None):
+        """Vectorized snapshot read outside any session: the newest version
+        with CID <= rid (default: the oracle's read timestamp), as counted
+        READs.  Returns (payload, read_cids, ok)."""
+        t = self.table(table)
+        rid = self.read_timestamp() if rid is None else int(rid)
+        recs = torch.as_tensor(np.asarray(recs, np.int32), device=t.device)
+        return rsi.read_snapshot(t.store, recs, rid,
+                                 transport=self.transport,
+                                 region_ns=f"{t.schema.name}/")
+
+    def _priority(self, priority):
+        if priority is None:
+            return None
+        return torch.as_tensor(np.asarray(priority, np.int32),
+                               device=self.device)
+
+    def commit(self, sessions: List[Session], *, chunks: int = 1,
+               priority=None, max_retries: int = 0) -> np.ndarray:
+        """Commit a wave of concurrent sessions as ONE batched fabric
+        commit (one plan, one routed prepare and one routed install).
+        Returns the per-session committed mask.
+
+        max_retries: re-run aborted writers up to this many extra rounds,
+        each after :func:`backoff_slots`, with the write set's current
+        words re-read (one counted READ) and a fresh cid.  Outcomes land
+        in ``txn_stats`` and the ``"txn"`` entry of :meth:`fabric_stats`."""
+        if not sessions:
+            return np.zeros((0,), bool)
+        self._commit_wave(sessions, chunks=chunks, priority=priority)
+        self._retry_losers(sessions, chunks=chunks, max_retries=max_retries)
+        return np.asarray([bool(s.committed) for s in sessions], bool)
+
+    def _commit_wave(self, sessions: List[Session], *, chunks: int = 1,
+                     priority=None) -> np.ndarray:
+        """One commit round for one wave — no retries, no accounting."""
+        if not sessions:
+            return np.zeros((0,), bool)
+        isolation = sessions[0].isolation
+        if any(s.isolation != isolation for s in sessions):
+            raise ValueError("mixed isolation levels in one commit wave")
+        # read-only sessions commit trivially under SI
+        wave = sessions
+        for s in wave:
+            if s.table_name is None:
+                s.committed = True
+        sessions = [s for s in wave if s.table_name is not None]
+        if not sessions:
+            return np.ones((len(wave),), bool)
+        names = {s.table_name for s in sessions}
+        if len(names) != 1:
+            raise ValueError(f"one table per commit wave, got {names}")
+        t = self.table(names.pop())
+        txns, cids = self._pack_txns(t, sessions)
+        ok, t.store = _BACKENDS[isolation](
+            t.store, txns, transport=self.transport,
+            priority=self._priority(priority), chunks=chunks,
+            region_ns=f"{t.schema.name}/")
+        self._assign_outcomes(sessions, ok.cpu().numpy(), cids)
+        return np.asarray([s.committed for s in wave], bool)
+
+    def _assign_outcomes(self, sessions, ok, cids):
+        for s, committed, cid in zip(sessions, np.asarray(ok), cids):
+            s.committed = bool(committed)
+            s.cid = int(cid)
+            s.attempts += 1
+            if s.txn_id is None:
+                # stable retry identity: the txn's FIRST claimed cid
+                s.txn_id = int(cid)
+
+    # ------------------------------------------------- retry economics --
+
+    def _retry_losers(self, sessions: List[Session], *, chunks: int,
+                      max_retries: int):
+        """Bounded retry of a wave's aborted writers + outcome accounting
+        for the whole wave (commits include read-only txns)."""
+        losers = [s for s in sessions
+                  if s.table_name is not None and not s.committed]
+        self.txn_stats["aborts"] += len(losers)
+        attempt = 1
+        while losers and attempt <= max_retries:
+            self._backoff(losers, attempt)
+            self._refresh_losers(losers)
+            self.txn_stats["retries"] += len(losers)
+            # retry waves run in power-of-two sizes, as in the JAX
+            # facade, so the two give the same wave shapes and counters
+            for chunk in _dyadic(losers):
+                self._commit_wave(chunk, chunks=chunks)
+            losers = [s for s in losers if not s.committed]
+            self.txn_stats["aborts"] += len(losers)
+            attempt += 1
+        self.txn_stats["commits"] += sum(bool(s.committed) for s in sessions)
+
+    def _refresh_losers(self, losers: List[Session]):
+        """ONE counted READ re-fetches the current word of every loser's
+        write set; each session revalidates against its slice."""
+        t = self.table(losers[0].table_name)
+        per = [np.concatenate(s._recs) for s in losers]
+        words = self.transport.read(
+            t.store["words"],
+            torch.as_tensor(np.concatenate(per), device=t.device),
+            region=f"{t.schema.name}/words")
+        fresh = np_u32(words) & np.uint32(CID_MASK)
+        rid = self.read_timestamp()
+        off = 0
+        for s, recs in zip(losers, per):
+            k = recs.shape[0]
+            s._recs = [recs]
+            s._payload = [np.concatenate(s._payload)]
+            s._read_cids = [fresh[off:off + k]]
+            s.rid = rid
+            off += k
+
+    def _backoff(self, losers: List[Session], attempt: int):
+        slots = sum(backoff_slots(s.txn_id or 0, attempt) for s in losers)
+        self.txn_stats["backoff_slots"] += slots
+        tracer = getattr(self.transport, "tracer", None)
+        if tracer is not None and slots:
+            # losers back off concurrently: the wave waits the LONGEST
+            worst = max(backoff_slots(s.txn_id or 0, attempt)
+                        for s in losers)
+            tracer.emit_compute(worst * BACKOFF_SLOT_S)
+
+    def commit_grouped(self, groups: List[List[Session]], *,
+                       chunks: Optional[int] = None, priority=None,
+                       max_retries: int = 0) -> List[np.ndarray]:
+        """Commit K per-worker session groups as ONE coalesced RSI wave
+        (:func:`repro_torch.core.rsi.commit_grouped`).  Timestamps are
+        claimed group by group.  Returns the per-group committed masks;
+        losers across all groups retry together as plain waves."""
+        groups = [list(g) for g in groups]
+        flat = [s for g in groups for s in g]
+        if not flat:
+            return [np.zeros((0,), bool) for _ in groups]
+        if any(s.isolation != "rsi" for s in flat):
+            raise ValueError("commit_grouped is RSI-only")
+        for s in flat:
+            if s.table_name is None:
+                s.committed = True
+        writer_groups = [[s for s in g if s.table_name is not None]
+                         for g in groups]
+        writer_groups = [g for g in writer_groups if g]
+        if writer_groups:
+            names = {s.table_name for g in writer_groups for s in g}
+            if len(names) != 1:
+                raise ValueError(f"one table per grouped commit, "
+                                 f"got {names}")
+            t = self.table(names.pop())
+            packed = [self._pack_txns(t, g) for g in writer_groups]
+            cids = np.concatenate([c for _, c in packed])
+            oks, t.store = rsi.commit_grouped(
+                t.store, [txns for txns, _ in packed],
+                transport=self.transport,
+                priority=None if priority is None else
+                [self._priority(p) for p in priority],
+                chunks=chunks, region_ns=f"{t.schema.name}/")
+            ok = np.concatenate([o.cpu().numpy() for o in oks])
+            self._assign_outcomes(
+                [s for g in writer_groups for s in g], ok, cids)
+        self._retry_losers(flat, chunks=1, max_retries=max_retries)
+        return [np.asarray([bool(s.committed) for s in g], bool)
+                for g in groups]
+
+    def _pack_txns(self, t: Table, sessions: List[Session]):
+        """Batch one wave of writer sessions into a TxnBatch (T fixed W
+        write slots, record -1 = unused) and claim its commit timestamps."""
+        writes = [s.writes() for s in sessions]
+        T = len(sessions)
+        W = max(r.shape[0] for r, _, _ in writes)
+        m = t.schema.payload_words
+        recs = np.full((T, W), -1, np.int32)
+        pay = np.zeros((T, W, m), np.uint32)
+        rcids = np.zeros((T, W), np.uint32)
+        for i, (r, p, rc) in enumerate(writes):
+            if r.shape[0]:
+                recs[i, :r.shape[0]] = r
+                pay[i, :r.shape[0]] = p
+                rcids[i, :r.shape[0]] = rc
+        cids = self.claim_cids(T)
+        txns = rsi.TxnBatch.from_numpy(recs, rcids, pay, cids,
+                                       device=self.device)
+        return txns, cids
+
+    def commit_pipelined(self, waves: List[List[Session]], *,
+                         chunks: int = 1,
+                         max_retries: int = 0) -> List[np.ndarray]:
+        """Commit K *dependent* session waves with wave i's install round
+        trip overlapping wave i+1's prepare
+        (:func:`repro_torch.core.rsi.commit_pipelined` — RSI only); the
+        same outcome as K sequential :meth:`commit` calls.  Returns the
+        per-wave committed masks."""
+        waves = [list(w) for w in waves]
+        writer_meta = []        # (sessions, cids) per writer wave, in order
+        txns_list = []
+        table = None
+        for w in waves:
+            if any(s.isolation != "rsi" for s in w):
+                raise ValueError("commit_pipelined is RSI-only")
+            for s in w:
+                if s.table_name is None:
+                    s.committed = True
+            writers = [s for s in w if s.table_name is not None]
+            if not writers:
+                continue
+            names = {s.table_name for s in writers}
+            if len(names) != 1:
+                raise ValueError(f"one table per commit wave, got {names}")
+            t = self.table(names.pop())
+            if table is None:
+                table = t
+            elif t is not table:
+                raise ValueError("one table per pipelined commit")
+            txns, cids = self._pack_txns(t, writers)
+            txns_list.append(txns)
+            writer_meta.append((writers, cids))
+        if txns_list:
+            oks, table.store = rsi.commit_pipelined(
+                table.store, txns_list, transport=self.transport,
+                chunks=chunks, region_ns=f"{table.schema.name}/")
+            for (sessions, cids), ok in zip(writer_meta, oks):
+                self._assign_outcomes(sessions, ok.cpu().numpy(), cids)
+        self._retry_losers([s for w in waves for s in w], chunks=chunks,
+                           max_retries=max_retries)
+        return [np.asarray([s.committed for s in w], bool) for w in waves]
+
+    # ------------------------------------------------------- observability --
+
+    def fabric_stats(self) -> dict:
+        """Cumulative per-verb message/byte counters, plus a ``"txn"``
+        pseudo-verb with the commit/abort/retry economics once any
+        transaction has committed through this database."""
+        stats = dict(self.transport.stats())
+        if any(self.txn_stats.values()):
+            stats["txn"] = {"calls": self.txn_stats["commits"]
+                            + self.txn_stats["aborts"],
+                            "msgs": 0, "bytes": 0, **self.txn_stats}
+        return stats
+

@@ -1,0 +1,73 @@
+"""Dispatch between each kernel and its plain version.
+
+``impl=None`` picks by where the tensor lies: the hand-written kernel for
+a CUDA tensor, the plain version (:mod:`repro_torch.kernels.ref`) for a
+CPU tensor.  ``impl="kernel"`` on a CPU tensor raises.  ``impl="plain"``
+runs the plain version on any device; it exists for the tests and for
+``chip_smoke.py``'s comparison, never as a fallback: a kernel that fails
+to build or launch raises.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import cas_lock as _cas
+from repro_torch.kernels import radix_partition as _rp
+from repro_torch.kernels import ref
+
+IMPLS = ("kernel", "plain")
+
+
+def resolve_impl(t: torch.Tensor, impl=None) -> str:
+    if impl is None:
+        return "kernel" if t.is_cuda else "plain"
+    if impl not in IMPLS:
+        raise ValueError(f"impl {impl!r} not in {IMPLS}")
+    if impl == "kernel" and not t.is_cuda:
+        raise ValueError(f"impl='kernel' needs a CUDA tensor, got {t.device}")
+    return impl
+
+
+def launch_counts() -> dict:
+    """Launches of each kernel entry point since the last reset."""
+    return {"radix_partition_rank": _rp.launches["rank"],
+            "radix_partition_scatter": _rp.launches["scatter"],
+            "cas_lock": _cas.launches["cas"]}
+
+
+def reset_launch_counts():
+    _rp.launches.update(rank=0, scatter=0)
+    _cas.launches.update(cas=0)
+
+
+def rank(dest, n: int, cap: int, *, impl=None):
+    """(slot, keep, overflow, counts) of ``dest`` into n buckets of cap."""
+    dest = dest.to(torch.int32).contiguous()
+    if resolve_impl(dest, impl) == "kernel":
+        return _rp.rank(dest, n, cap)
+    return ref.rank(dest, n, cap)
+
+
+def scatter_rows(rows, slot, num_slots: int, *, mask=None, impl=None):
+    """int32 ``rows`` into the (num_slots, w + 1) wire buffer, the valid
+    lane appended."""
+    rows = rows.contiguous()
+    slot = slot.to(torch.int32).contiguous()
+    if mask is not None:
+        mask = mask.to(torch.bool).contiguous()
+    if resolve_impl(rows, impl) == "kernel":
+        return _rp.scatter(rows, slot, num_slots, mask=mask)
+    return ref.scatter(rows, slot, num_slots, mask=mask)
+
+
+def cas(words, idx, expected, new, priority, *, impl=None):
+    """``repro.fabric.verbs.cas`` arbitration; updates ``words`` in place
+    and returns ok (A,) bool."""
+    if words.dtype != torch.int32 or not words.is_contiguous():
+        raise TypeError("cas words must be a contiguous int32 tensor (u32 "
+                        f"bit patterns), got {words.dtype}")
+    args = [t.to(torch.int32).contiguous()
+            for t in (idx, expected, new, priority)]
+    if resolve_impl(words, impl) == "kernel":
+        return _cas.cas(words, *args)
+    return ref.cas(words, *args)
