@@ -8,25 +8,39 @@ exits non-zero:
            limit
   build    nvcc builds every kernel source in src/repro_torch/kernels/csrc
            for sm_90a, one process per source, all at once
-  kernels  each hand-written kernel held bit-exact against its plain
-           PyTorch version over a sweep of shapes, then timed at the main
-           path's shapes (per call between CUDA events, and its device
+  kernels  each hand-written kernel held against its plain PyTorch
+           version over a sweep of shapes (bit-exact; the f32 grouped_agg
+           within atol 1e-3, rtol 1e-4 on random floats), radix_partition
+           also at the joins' A = 128 000 000, then each timed at the
+           main paths' shapes (per call between CUDA events, and its device
            time from torch.profiler) beside its plain version, the nearest
            single PyTorch call and its bound (bytes / 3.35 TB/s)
-  oltp     the main path at the paper's §4.3 width: Database(device="cuda")
+  oltp     the OLTP path at the paper's §4.3 width: Database(device="cuda")
            with 1 000 000 products of 1 KB (+131 072 insert rows), 8 waves
            of 4096 checkout sessions (Session.begin/get/put ->
            Database.commit, max_retries=2), held against the same waves on
            a second Database whose kernels run their plain versions
+  olap     the OLAP path at the paper's §5.4 size (configs OLAP: 128 000 000
+           tuples a relation): Fig 8a's four joins over four bloom
+           selectivities and Fig 8b's two aggregation schemes over the
+           distinct-group sweep up to 67 108 864, through
+           Database.load_table / scan / explain / execute, each held to
+           its independent ground truth and to a second Database whose
+           kernels run their plain versions; times, peak memory, and one
+           profiled execution per variant at sel 0.5, G = 64 and 2**26
   fig6     the fig6 commit batch at the JAX benchmark's sizes and at the
            paper's width (T = 1024, 8192), txn/s from the median of 40
            commits between CUDA events, and their spread
 
-Then three lines: the per-kernel JSON record, the card's name and power
-limit (nvidia-smi), and {"ok": true, "device": ...}.
+Launch counts are set to 0 just before each main path (oltp, olap) and
+read just after; each path must have launched every kernel it runs.
+Then three lines: the per-kernel JSON record (launches summed over both
+paths), the card's name and power limit (nvidia-smi), and
+{"ok": true, "device": ...}.
 
     python3 chip_smoke.py            # everything, one card
     python3 chip_smoke.py --phases env,build,kernels --quick
+    python3 chip_smoke.py --out smoke.jsonl   # also keep every phase line
 """
 from __future__ import annotations
 
@@ -40,14 +54,27 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 peak
-PHASES = ("env", "build", "kernels", "oltp", "fig6")
+PHASES = ("env", "build", "kernels", "oltp", "olap", "fig6")
 MAIN_T, MAIN_WAVES = 4096, 8     # checkouts per wave, waves (the store's
                                  # widths: configs/paper_nam.py::OLTP)
 FIG6_ITERS = 40                  # timed commits per fig6 run
+OLAP_N = 128_000_000             # tuples a relation: configs OLAP
+OLAP_QUICK_N = 1 << 22
+PROFILE_SELS = (0.5,)            # one profiled execution per join here
+PROFILE_GROUPS = (64, 67_108_864)  # ... and per aggregation scheme here
+OLTP_KERNELS = ("radix_partition_rank", "radix_partition_scatter",
+                "cas_lock")
+OLAP_KERNELS = ("radix_partition_rank", "radix_partition_scatter",
+                "grouped_agg", "grouped_sum_u32")
+_OUT = []                        # a file every emitted line also goes to
 
 
 def emit(phase: str, **kw):
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    line = json.dumps({"phase": phase, **kw})
+    print(line, flush=True)
+    for f in _OUT:
+        f.write(line + "\n")
+        f.flush()
 
 
 def smi() -> str:
@@ -99,7 +126,8 @@ def device_ms(fn, kernels, *, setup=None, iters=20) -> float:
     us = sum(e.time_range.elapsed_us() for e in prof.events()
              if e.device_type == torch.autograd.DeviceType.CUDA
              and (e.name.startswith("Memset")
-                  or any(f"::{k}(" in e.name for k in kernels)))
+                  or any(f"::{k}{c}" in e.name for k in kernels
+                         for c in "(<")))
     if us == 0:
         raise AssertionError(f"the profiler saw none of {kernels}")
     return us / 1e3 / iters
@@ -261,6 +289,168 @@ def check_cas(quick: bool, stats: dict):
     return cases
 
 
+def check_grouped(quick: bool, stats: dict):
+    """grouped_sum_u32 bit-exact against ref over random u32 words (sums
+    wrap), grouped_agg (f32) bit-exact on small signed integers and within
+    atol 1e-3, rtol 1e-4 on uniform [0, 1) floats (the f32 atomics add in
+    an order that changes from run to run), over N up to 2**27 and S from 1
+    to 2**24, both sides of the shared-memory limit; uniform slots, and
+    one skewed case per size (90 % of the rows in one slot)."""
+    import torch
+    from repro_torch.kernels import grouped_agg as ga, ref
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(14)
+    lim = ga.max_shared_slots()
+    slots = (1, 64, 2048, 4096, lim, lim + 1, 262_144, 1 << 24)
+    sizes = (1, 1000, 1 << 20) if quick else (1, 1000, 1 << 20, 1 << 27)
+    cases = 0
+    for N in sizes:
+        words = torch.randint(-2 ** 31, 2 ** 31 - 1, (N,), generator=g,
+                              device=dev, dtype=torch.int32)
+        ints = torch.randint(-8, 9, (N,), generator=g, device=dev
+                             ).to(torch.float32)
+        floats = torch.rand((N,), generator=g, device=dev)
+        for S in slots:
+            uni = torch.randint(0, S, (N,), generator=g, device=dev,
+                                dtype=torch.int32)
+            layouts = [("uniform", uni)]
+            if S == 2048:
+                layouts.append(("skewed", torch.where(
+                    torch.rand((N,), generator=g, device=dev) < 0.9, S // 2,
+                    uni)))
+            for skew, slot in layouts:
+                where = f"N={N} S={S} {skew}"
+                got = ga.grouped_sum_u32(slot, words, S)
+                if not torch.equal(got, ref.grouped_sum_u32(slot, words, S)):
+                    raise AssertionError(f"grouped_sum_u32 differs: {where}")
+                got = ga.grouped_agg(slot, ints, S)
+                if not torch.equal(got, ref.grouped_agg(slot, ints, S)):
+                    raise AssertionError(f"grouped_agg (integers) differs: "
+                                         f"{where}")
+                got = ga.grouped_agg(slot, floats, S)
+                want = ref.grouped_agg(slot, floats, S)
+                if not torch.allclose(got, want, atol=1e-3, rtol=1e-4):
+                    raise AssertionError(f"grouped_agg (floats) outside "
+                                         f"atol 1e-3 rtol 1e-4: {where}")
+                stats["grouped_agg"] = max(stats["grouped_agg"], float(
+                    (got - want).abs().max()))
+                cases += 3
+            del uni, layouts
+        del words, ints, floats
+        torch.cuda.empty_cache()
+    # a slot outside [0, S) is skipped, never written
+    slot = torch.tensor([-1, 0, 5, 1], dtype=torch.int32, device=dev)
+    one = torch.ones(4, dtype=torch.int32, device=dev)
+    if ga.grouped_sum_u32(slot, one, 2).tolist() != [1, 1]:
+        raise AssertionError("grouped_sum_u32 wrote an out-of-range slot")
+    return cases + 1
+
+
+def check_radix_join(quick: bool, stats: dict):
+    """rank + scatter bit-exact against ref at a join's route: A requests
+    (10 % filtered), one shard, cap = 2A, rows of (key, value)."""
+    import torch
+    from repro_torch.kernels import radix_partition as rp, ref
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(15)
+    A = OLAP_QUICK_N if quick else OLAP_N
+    dest = (torch.rand((A,), generator=g, device=dev) < 0.1).to(torch.int32)
+    rows = torch.randint(-2 ** 31, 2 ** 31 - 1, (A, 2), generator=g,
+                         device=dev, dtype=torch.int32)
+    got = rp.rank(dest, 1, 2 * A)
+    for x, y, what in zip(got, ref.rank(dest, 1, 2 * A),
+                          ("slot", "keep", "overflow", "counts")):
+        if not torch.equal(x, y):
+            raise AssertionError(f"radix rank {what} differs at A={A}")
+    kb = rp.scatter(rows, got[0], 2 * A)
+    if not torch.equal(kb, ref.scatter(rows, got[0], 2 * A)):
+        raise AssertionError(f"radix scatter differs at A={A}")
+    del kb
+    torch.cuda.empty_cache()
+    return A
+
+
+def time_grouped(quick: bool, record: dict) -> dict:
+    """Both grouped_agg entries at the OLAP path's shapes: N rows (keys
+    uniform in [0, 2**30), unit values) into 2048 slots (Fig 8b's kernel
+    row) and into 2**26 slots (Dist-AGG at 67 108 864 groups).  The JSON
+    record takes the f32 entry at 2048 slots and the u32 entry at 2**26."""
+    import torch
+    from repro_torch.kernels import grouped_agg as ga, ref
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(16)
+    N = OLAP_QUICK_N if quick else OLAP_N
+    keys = torch.randint(0, 1 << 30, (N,), generator=g, device=dev,
+                         dtype=torch.int32)
+    vals = {"grouped_agg": torch.ones((N,), dtype=torch.float32,
+                                      device=dev),
+            "grouped_sum_u32": torch.ones((N,), dtype=torch.int32,
+                                          device=dev)}
+    entry = {"grouped_agg": (ga.grouped_agg, ref.grouped_agg),
+             "grouped_sum_u32": (ga.grouped_sum_u32, ref.grouped_sum_u32)}
+    out = {}
+    for S in (2048, 1 << 26):
+        slot = (keys % S).to(torch.int32)
+        for name, (kern, plain) in entry.items():
+            v = vals[name]
+            lib = torch.zeros((S,), dtype=v.dtype, device=dev)
+            t = {"ms": time_ms(lambda: kern(slot, v, S)),
+                 "device_ms": device_ms(lambda: kern(slot, v, S),
+                                        ("agg_kernel",)),
+                 "plain_ms": time_ms(lambda: plain(slot, v, S), iters=5),
+                 "bound_ms": bound_ms(8 * N + 4 * S), "bound_by": "bytes",
+                 "library_ms": time_ms(
+                     lambda: lib.zero_().index_add_(0, slot, v), iters=5),
+                 "shape": {"N": N, "S": S}}
+            out[f"{name}@S={S}"] = t
+            if (name, S) in (("grouped_agg", 2048),
+                             ("grouped_sum_u32", 1 << 26)):
+                record[name].update(t)
+            del lib
+        del slot
+    torch.cuda.empty_cache()
+    return out
+
+
+def time_radix_join(quick: bool) -> dict:
+    """rank and scatter at a join's route (A rows of (key, value), one
+    shard, cap = 2A), beside their plain versions and index_copy_."""
+    import torch
+    from repro_torch.kernels import radix_partition as rp, ref
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(17)
+    A = OLAP_QUICK_N if quick else OLAP_N
+    dest = torch.zeros((A,), dtype=torch.int32, device=dev)
+    rows = torch.randint(-2 ** 31, 2 ** 31 - 1, (A, 2), generator=g,
+                         device=dev, dtype=torch.int32)
+    out = {"radix_partition_rank@join": {
+        "ms": time_ms(lambda: rp.rank(dest, 1, 2 * A), iters=5),
+        "device_ms": device_ms(lambda: rp.rank(dest, 1, 2 * A),
+                               ("hist_kernel", "scan_kernel", "rank_kernel"),
+                               iters=5),
+        "plain_ms": time_ms(lambda: ref.rank(dest, 1, 2 * A), iters=5),
+        "bound_ms": bound_ms(4 * A + 4 * A + 2 * A + 4), "bound_by": "bytes",
+        "library_ms": None, "shape": {"A": A, "n": 1, "cap": 2 * A}}}
+    slot = rp.rank(dest, 1, 2 * A)[0]
+    wide = torch.cat([rows, torch.ones((A, 1), dtype=torch.int32,
+                                       device=dev)], 1)
+    buf = torch.zeros((2 * A, 3), dtype=torch.int32, device=dev)
+    kslot = slot.to(torch.int64)
+    out["radix_partition_scatter@join"] = {
+        "ms": time_ms(lambda: rp.scatter(rows, slot, 2 * A), iters=5),
+        "device_ms": device_ms(lambda: rp.scatter(rows, slot, 2 * A),
+                               ("scatter_kernel",), iters=5),
+        "plain_ms": time_ms(lambda: ref.scatter(rows, slot, 2 * A), iters=5),
+        "bound_ms": bound_ms(A * 8 + A * 4 + 2 * A * 3 * 4),
+        "bound_by": "bytes",
+        "library_ms": time_ms(lambda: buf.index_copy_(0, kslot, wide),
+                              iters=5),
+        "shape": {"A": A, "w": 2, "slots": 2 * A}}
+    del rows, wide, buf, kslot, slot
+    torch.cuda.empty_cache()
+    return out
+
+
 def time_kernels(record: dict):
     """Each kernel at the main path's shapes: a commit wave of T=4096
     checkouts (A = T*W requests, one shard) on the 1 131 072-record
@@ -355,20 +545,27 @@ def time_kernels(record: dict):
 
 
 def phase_kernels(quick: bool, record: dict):
-    emit("kernels", names=["radix_partition", "cas_lock"])
-    err = {"rank": 0, "scatter": 0, "cas": 0}
+    emit("kernels", names=["radix_partition", "cas_lock", "grouped_agg"])
+    err = {"rank": 0, "scatter": 0, "cas": 0, "grouped_agg": 0.0}
     t0 = time.perf_counter()
     nr = check_radix(quick, err)
     nc = check_cas(quick, err)
+    ng = check_grouped(quick, err)
+    join_a = check_radix_join(quick, err)
     record["radix_partition_rank"]["max_abs_err"] = err["rank"]
     record["radix_partition_scatter"]["max_abs_err"] = err["scatter"]
     record["cas_lock"]["max_abs_err"] = err["cas"]
+    record["grouped_agg"]["max_abs_err"] = err["grouped_agg"]
+    record["grouped_sum_u32"]["max_abs_err"] = 0
     time_kernels(record)
+    timing = {k: {kk: record[k][kk] for kk in (
+        "ms", "device_ms", "plain_ms", "bound_ms", "library_ms", "shape")}
+        for k in OLTP_KERNELS}
+    timing.update(time_grouped(quick, record))
+    timing.update(time_radix_join(quick))
     emit("kernels_checked", radix_cases=nr, cas_cases=nc,
-         seconds=time.perf_counter() - t0, gpu=smi(),
-         timing={k: {kk: v[kk] for kk in ("ms", "device_ms", "plain_ms",
-                                           "bound_ms", "library_ms", "shape")}
-                 for k, v in record.items()})
+         grouped_agg_cases=ng, radix_join_A=join_a,
+         seconds=time.perf_counter() - t0, gpu=smi(), timing=timing)
 
 
 # ----------------------------------------------------------- main path --
@@ -395,10 +592,10 @@ def phase_oltp(quick: bool, record: dict):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = ops.launch_counts()
-    for name, count in launches.items():
-        record[name]["launches"] = count
-        if count == 0:
-            raise AssertionError(f"main path launched no {name}")
+    for name in OLTP_KERNELS:
+        record[name]["launches"] += launches[name]
+        if launches[name] == 0:
+            raise AssertionError(f"the oltp path launched no {name}")
     db_plain = Database(device="cuda", impl="plain")
     masks_p, _, commit_s_p = run(db_plain)
     if ops.launch_counts() != launches:
@@ -435,6 +632,38 @@ def phase_oltp(quick: bool, record: dict):
          launches=launches, fabric=db.fabric_stats(), gpu=smi())
 
 
+def phase_olap(quick: bool, record: dict):
+    """Fig 8a and Fig 8b through the facade at the paper's size; each
+    bench module holds every result to its ground truth and, on a subset,
+    to the plain path, and raises otherwise."""
+    import torch
+    from repro_torch.bench import fig8a_joins, fig8b_agg
+    from repro_torch.kernels import ops
+    n = OLAP_QUICK_N if quick else OLAP_N
+    sels = (0.5,) if quick else fig8a_joins.SELS
+    groups = (1, 64, 1 << 20) if quick else fig8b_agg.GROUPS
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    a = fig8a_joins.run(n, device="cuda", sels=sels, plain_sels=sels,
+                        profile_sels=PROFILE_SELS)
+    t1 = time.perf_counter()
+    b = fig8b_agg.run(n, device="cuda", groups=groups, plain_groups=groups,
+                      profile_groups=PROFILE_GROUPS)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = ops.launch_counts()
+    for name in OLAP_KERNELS:
+        record[name]["launches"] += launches[name]
+        if launches[name] == 0:
+            raise AssertionError(f"the olap path launched no {name}")
+    for row in a.pop("rows"):
+        emit("olap_join", n=n, **row, gpu=smi())
+    for row in b.pop("rows"):
+        emit("olap_agg", n=n, **row, gpu=smi())
+    emit("olap", n=n, joins_s=t1 - t0, aggs_s=t2 - t1, launches=launches,
+         fig8a=a, fig8b=b, gpu=smi())
+
+
 def phase_fig6(quick: bool):
     from repro_torch.bench import fig6_rsi
     runs = [("jax_defaults", {}, None),
@@ -459,6 +688,8 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", default=",".join(PHASES))
     ap.add_argument("--quick", action="store_true",
                     help="small sweep and 2 waves (a first look only)")
+    ap.add_argument("--out", default=None,
+                    help="also append every phase line to this file")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     import torch
@@ -470,6 +701,9 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        _OUT.append(open(args.out, "a"))
     record = {
         "radix_partition_rank": {
             "source": "src/repro_torch/kernels/csrc/radix_partition.cu",
@@ -480,6 +714,12 @@ def main(argv=None) -> int:
         "cas_lock": {
             "source": "src/repro_torch/kernels/csrc/cas_lock.cu",
             "replaces": "src/repro/kernels/cas_lock.py:53"},
+        "grouped_agg": {
+            "source": "src/repro_torch/kernels/csrc/grouped_agg.cu",
+            "replaces": "src/repro/kernels/grouped_agg.py:41"},
+        "grouped_sum_u32": {
+            "source": "src/repro_torch/kernels/csrc/grouped_agg.cu",
+            "replaces": "src/repro/kernels/grouped_agg.py:41"},
     }
     for r in record.values():
         r.update(route="cuda", launches=0)
@@ -491,6 +731,8 @@ def main(argv=None) -> int:
         phase_kernels(args.quick, record)
     if "oltp" in phases:
         phase_oltp(args.quick, record)
+    if "olap" in phases:
+        phase_olap(args.quick, record)
     if "fig6" in phases:
         phase_fig6(args.quick)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -28,6 +28,15 @@ def to_i32(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x >= (1 << 31), x - (1 << 32), x).to(torch.int32)
 
 
+def mul32(a: torch.Tensor, b) -> torch.Tensor:
+    """u32 product mod 2**32 of int64 values in ``[0, 2**32)`` (``b`` a
+    tensor or an int), in int64 without signed overflow: ``b`` is split
+    into 16-bit halves, so no partial product reaches 2**49."""
+    lo = a * (b & 0xFFFF)
+    hi = (a * (b >> 16)) & 0xFFFF
+    return (lo + (hi << 16)) & M32
+
+
 def np_to_i32(a) -> np.ndarray:
     """numpy u32 (or anything castable to it) -> int32 bit view."""
     return np.ascontiguousarray(np.asarray(a).astype(np.uint32)).view(

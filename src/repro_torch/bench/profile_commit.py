@@ -39,7 +39,8 @@ from repro_torch.bench import checkout, fig6_rsi
 from repro_torch.db import Database
 
 PORT_KERNELS = ("hist_kernel", "scan_kernel", "rank_kernel",
-                "scatter_kernel", "cas_match", "cas_resolve", "cas_finish")
+                "scatter_kernel", "cas_match", "cas_resolve", "cas_finish",
+                "agg_kernel")
 
 
 def _short(name: str) -> str:
@@ -58,7 +59,10 @@ def device_summary(prof, commits: int) -> dict:
     the profiled window (``commits`` commits)."""
     by_name: dict = {}
     for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+        # a scheduled profiler's step is a range on the device's timeline,
+        # not an operation: counting it would count the step's work twice
+        if (e.device_type != torch.autograd.DeviceType.CUDA
+                or e.name.startswith("ProfilerStep")):
             continue
         name = _short(e.name)
         n, us = by_name.get(name, (0, 0.0))

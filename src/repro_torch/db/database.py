@@ -1,22 +1,32 @@
-"""The Database: the NAM-DB facade over the port's verb fabric (OLTP half).
+"""The Database: the NAM-DB facade over the port's verb fabric.
 
-The port of ``repro.db.database``'s transaction side.  A
-:class:`Database` owns
+The port of ``repro.db.database``.  A :class:`Database` owns
 
   * a :class:`~repro_torch.fabric.NamPool` of named regions (tables
     allocate their stores there),
   * ONE transport (``LocalTransport`` on the card by default) through
     which every verb runs and is counted,
-  * a timestamp oracle: a counter word bumped with the FETCH_ADD verb.
+  * a timestamp oracle: a counter word bumped with the FETCH_ADD verb,
+  * the network-aware :class:`~repro_torch.db.planner.Planner` that picks
+    shuffle and aggregation strategies from the §5.1/§5.3 cost models.
 
-``db.session()`` transactions commit through RSI (or the 2PC baseline) in
-waves: ``db.commit([s1, s2, ...])`` is one routed prepare/install round
-trip for the whole wave, with bounded, deterministic retry of the losers.
-The planner and the OLAP operators (``scan``/``explain``/``execute``) are
-not ported yet.
+OLTP: ``db.session()`` transactions commit through RSI (or the 2PC
+baseline) in waves: ``db.commit([s1, s2, ...])`` is one routed
+prepare/install round trip for the whole wave, with bounded,
+deterministic retry of the losers.  OLAP:
+``db.scan("R").join(db.scan("S").filter(sel=s)).aggregate()`` builds a
+logical plan; ``db.execute(plan)`` runs the planner's argmin choice (or a
+forced variant) and ``db.explain(plan)`` returns every costed alternative.
+
+Two differences from the JAX facade: PyTorch runs eagerly, so every
+``execute`` counts its traffic into ``stats`` (a jitted JAX shape counts
+only on its first, traced, execution); and ``elapsed_s`` is taken after
+``torch.cuda.synchronize()`` (JAX's ``block_until_ready``).
 """
 from __future__ import annotations
 
+import time
+from dataclasses import dataclass, field
 from typing import List, Optional
 
 import numpy as np
@@ -24,9 +34,15 @@ import torch
 
 from repro_torch import fabric
 from repro_torch._bits import CID_MASK, M32, np_u32
-from repro_torch.core import rsi, twopc
+from repro_torch.core import aggregation, rsi, shuffle, twopc
+from repro_torch.db.plan import Plan
+from repro_torch.db.planner import Planner
 from repro_torch.db.session import Session
 from repro_torch.db.table import Table, TableSchema
+
+# modeled cluster size when running the single-shard degenerate case: the
+# paper's §5.4 deployment, so planner choices match the target NAM cluster
+DEFAULT_MODEL_NODES = 4
 
 _BACKENDS = {"rsi": rsi.commit, "2pc": twopc.commit}
 
@@ -53,18 +69,63 @@ def backoff_slots(txn_id: int, attempt: int) -> int:
     return h % (1 << min(int(attempt), 16))
 
 
-class Database:
-    """Tables + sessions over one fabric transport."""
+@dataclass(frozen=True)
+class QueryResult:
+    value: object                       # operator output (a tensor)
+    variant: str                        # strategy that actually ran
+    alternatives: tuple                 # costed Alternatives, argmin first
+    plan: Plan
+    elapsed_s: float
+    stats: dict = field(default_factory=dict)   # fabric counter delta of
+                                                # one execution
+    dropped: Optional[int] = None       # join rows lost to capacity
+                                        # overflow (None for aggregates)
 
-    def __init__(self, transport=None, *, device=None, impl=None):
+    @property
+    def planned(self) -> str:
+        return next(a.name for a in self.alternatives if a.chosen)
+
+
+@dataclass(frozen=True)
+class Explain:
+    plan: str                           # plan.describe()
+    kind: str                           # join_agg | group_agg
+    alternatives: tuple                 # argmin first
+    inputs: dict                        # cost-model inputs (bytes, sel, ...)
+
+    @property
+    def chosen(self) -> str:
+        return next(a.name for a in self.alternatives if a.chosen)
+
+    def pretty(self) -> str:
+        lines = [f"plan: {self.plan}",
+                 f"inputs: {self.inputs}"]
+        lines += [a.pretty() for a in self.alternatives]
+        return "\n".join(lines)
+
+
+class Database:
+    """Tables + sessions + planner over one fabric transport."""
+
+    def __init__(self, transport=None, *, device=None, impl=None,
+                 net="rdma", model_nodes: Optional[int] = None):
         """transport: default ``LocalTransport(device=device, impl=impl)``.
         device: the card unless the caller asks for the CPU; with no card
         and no ``device=``, construction raises.  impl: the kernel
-        dispatch (``None`` = the hand-written kernels on the card)."""
+        dispatch (``None`` = the hand-written kernels on the card).
+        net: what the planner models the wire as — a
+        :class:`~repro_torch.fabric.NetworkProfile`, a preset name
+        ("ethernet_1g" ... "rdma_edr") or a legacy key.  model_nodes: the
+        cluster size the planner assumes (default: the transport's shard
+        count, or the paper's 4 nodes for one shard)."""
         self.transport = transport or fabric.LocalTransport(device=device,
                                                             impl=impl)
         self.device = self.transport.device
         self.pool = fabric.NamPool()
+        nodes = (model_nodes if model_nodes is not None else
+                 (self.transport.n if self.transport.n > 1
+                  else DEFAULT_MODEL_NODES))
+        self.planner = Planner(net=net, nodes=nodes)
         self.tables: dict = {}
         # timestamp oracle: cid 1 is the load epoch, live txns start at 2
         self.pool.alloc("oracle/clock", (1,), torch.int32, ("replicated",))
@@ -88,6 +149,15 @@ class Database:
                   num_timestamps=num_timestamps)
         self.tables[name] = t
         return t
+
+    def load_table(self, name: str, keys, vals, *,
+                   partitioning: str = "hash") -> Table:
+        """Create + bulk-load an OLAP relation in one call (payload word 0
+        holds the value column; hash partitioning = shuffle by key).
+        Columns as :meth:`Table.load` takes them."""
+        t = self.create_table(name, num_records=len(keys), payload_words=1,
+                              partitioning=partitioning)
+        return t.load(keys, vals)
 
     def table(self, name_or_table) -> Table:
         if isinstance(name_or_table, Table):
@@ -340,7 +410,152 @@ class Database:
                            max_retries=max_retries)
         return [np.asarray([s.committed for s in w], bool) for w in waves]
 
+    # ------------------------------------------------------------ queries --
+
+    def scan(self, table) -> Plan:
+        name = table.schema.name if isinstance(table, Table) else table
+        if name not in self.tables:
+            raise KeyError(f"no table {name!r}")
+        return Plan("scan", table=name)
+
+    def _planner_for(self, profile, load: int = 0) -> Planner:
+        """The db's planner, or a per-(profile, load) one (same modeled
+        cluster) for sweeping the 1GbE -> EDR axis without touching db
+        state.  ``load > 0`` raises (the planner's contention pricing is
+        not ported)."""
+        load = max(int(load), 0)
+        if profile is None and load == self.planner.load:
+            return self.planner
+        base = profile if profile is not None else self.planner.profile
+        return Planner(net=base, nodes=self.planner.nodes, load=load)
+
+    def _analyze(self, plan: Plan, planner: Optional[Planner] = None):
+        """(kind, alternatives argmin-first, cost-model inputs)."""
+        planner = planner or self.planner
+        kind = plan.kind()
+        if kind == "join_agg":
+            join = plan.children[0]
+            left, right = join.children
+            rtab = self.table(left.scan_table())
+            stab = self.table(right.scan_table())
+            sel = left.selectivity() * right.selectivity()
+            nr, ns = rtab.stats()["bytes"], stab.stats()["bytes"]
+            alts = planner.join_alternatives(nr, ns, sel)
+            return kind, alts, {"nr_bytes": nr, "ns_bytes": ns, "sel": sel,
+                                "net": planner.net, "load": planner.load,
+                                "profile": planner.profile.name}
+        if kind == "group_agg":
+            if plan.groups is None:
+                raise ValueError("a group aggregate needs "
+                                 ".aggregate(groups=G); bare .aggregate() "
+                                 "is the scalar join aggregate")
+            child = plan.children[0]
+            tab = self.table(child.scan_table())
+            nb = tab.stats()["bytes"]
+            alts = planner.agg_alternatives(nb, plan.groups)
+            return kind, alts, {"nbytes": nb, "groups": plan.groups,
+                                "nodes": planner.nodes,
+                                "net": planner.net, "load": planner.load,
+                                "profile": planner.profile.name}
+        raise ValueError(f"cannot plan a bare {kind} — add .aggregate()")
+
+    def explain(self, plan: Plan, *, profile=None, load: int = 0) -> Explain:
+        """Costed alternatives for a plan, argmin first — no execution.
+        ``profile`` prices the plan on another point of the network axis
+        (preset name or NetworkProfile) without changing db state."""
+        kind, alts, inputs = self._analyze(plan,
+                                           self._planner_for(profile, load))
+        return Explain(plan.describe(), kind, tuple(alts), inputs)
+
+    def execute(self, plan: Plan, *, force_variant: Optional[str] = None,
+                capacity_factor: float = 2.0,
+                calibrate: bool = False, profile=None,
+                load: int = 0) -> QueryResult:
+        """Run a plan with the planner's choice (or ``force_variant``).
+        Returns the value, the full costed explain, this execution's
+        counter delta (``stats``) and, for a join, the rows lost to
+        capacity overflow (``dropped``).
+
+        calibrate=True runs the operator once more and feeds the planner
+        the first run's byte counters plus the second run's wall clock
+        (kernel builds excluded) minus the variant's modeled compute share,
+        so later plans are priced with the measured wire rate; the result
+        carries the second run's time."""
+        kind, alts, inputs = self._analyze(plan,
+                                           self._planner_for(profile, load))
+        variant = force_variant or Planner.chosen(alts)
+        if force_variant:
+            known = {a.name for a in alts}
+            if force_variant not in known:
+                raise ValueError(f"{force_variant!r} not in {sorted(known)}")
+        if kind == "join_agg":
+            join = plan.children[0]
+            rtab = self.table(join.children[0].scan_table())
+            stab = self.table(join.children[1].scan_table())
+            f = shuffle.make_distributed_join(
+                self.transport, variant, capacity_factor=capacity_factor,
+                return_stats=True)
+            args = rtab.scan_arrays() + stab.scan_arrays()
+        else:
+            tab = self.table(plan.children[0].scan_table())
+            mk = (aggregation.dist_agg if variant == "dist_agg"
+                  else aggregation.rdma_agg)
+            f = mk(self.transport, plan.groups)
+            args = tab.scan_arrays()
+        before = self._stats_totals()
+        out, elapsed = self._timed(f, args)
+        stats = self._stats_delta(before)
+        if calibrate:
+            out, elapsed = self._timed(f, args)
+            if stats:
+                self.planner.calibrate(
+                    stats, elapsed,
+                    compute_s=self.planner.compute_share(kind, variant,
+                                                         inputs))
+        value, dropped = out if kind == "join_agg" else (out, None)
+        return QueryResult(value=value, variant=variant,
+                           alternatives=tuple(alts), plan=plan,
+                           elapsed_s=elapsed, stats=stats,
+                           dropped=None if dropped is None else int(dropped))
+
+    def _timed(self, f, args):
+        """(f(*args), seconds until the device has finished it)."""
+        t0 = time.perf_counter()
+        out = f(*args)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return out, time.perf_counter() - t0
+
     # ------------------------------------------------------- observability --
+
+    def _stats_totals(self) -> dict:
+        return {k: dict(v) for k, v in self.transport.stats().items()}
+
+    def _stats_delta(self, before: dict) -> dict:
+        out = {}
+        for verb, s in self.transport.stats().items():
+            b = before.get(verb, {})
+            d = {}
+            for k, v in s.items():
+                if isinstance(v, dict):
+                    # queue_hist: histogram delta per bucket
+                    bv = b.get(k, {})
+                    hd = {kk: vv - bv.get(kk, 0) for kk, vv in v.items()
+                          if vv - bv.get(kk, 0)}
+                    if hd:
+                        d[k] = hd
+                elif k == "peak_outstanding":
+                    # a high-water mark, not a counter: report the
+                    # current peak, it cannot be differenced
+                    d[k] = v
+                else:
+                    d[k] = v - b.get(k, 0)
+            numeric = {k: v for k, v in d.items()
+                       if k not in ("peak_outstanding",)
+                       and not isinstance(v, dict)}
+            if any(numeric.values()):
+                out[verb] = d
+        return out
 
     def fabric_stats(self) -> dict:
         """Cumulative per-verb message/byte counters, plus a ``"txn"``

@@ -1,9 +1,13 @@
-"""Tables: relations bound to NamPool regions (the OLTP half).
+"""Tables: key/value relations bound to NamPool regions.
 
 The port of ``repro.db.table``.  A :class:`Table` is an RSI version store
 (lock|CID words, version slots, payload, timestamp bitvector — paper
-Table 1) allocated as named regions, with a declared home-shard
-partitioning.  Its lock-word column doubles as a lock service:
+Table 1) plus a join-key column, allocated as named regions, with a
+declared home-shard partitioning.  OLAP relations are bulk-loaded with
+:meth:`Table.load` (or :func:`load_numpy` for columns held as numpy
+arrays, such as a JAX table's ``scan_arrays()``) and read by the operators
+through :meth:`Table.scan_arrays`.  Its lock-word column doubles as a lock
+service:
 :meth:`Table.claim_locks` / :meth:`Table.release_lock` run the RSI CAS
 through the database's transport, counted like every other verb.
 """
@@ -14,7 +18,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from repro_torch._bits import LOCK_BIT, np_to_i32
+from repro_torch._bits import LOCK_BIT, np_to_i32, to_i32
 from repro_torch.core import rsi
 from repro_torch.core.rsi import WORD
 from repro_torch.db import partition
@@ -27,10 +31,29 @@ class TableSchema:
     payload_words: int = 4         # value width in 32-bit words
     version_slots: int = 1
     partitioning: str = "range"    # OLTP home-shard rule: "range" | "hash"
+    key_bytes: int = 4             # join key width on the wire
+    value_bytes: int = 4           # shuffled value width on the wire
+
+    @property
+    def tuple_bytes(self) -> int:
+        """Wire width of one (key, value) tuple in an OLAP shuffle."""
+        return self.key_bytes + self.value_bytes
+
+
+def as_words(x, device) -> torch.Tensor:
+    """A u32 column as a contiguous 1-D int32 bit-pattern tensor on
+    ``device``: an int32 tensor as it is, any other tensor or array
+    through its u32 value."""
+    if isinstance(x, torch.Tensor):
+        if x.dtype != WORD:
+            x = to_i32(x.to(torch.int64))
+        return x.reshape(-1).contiguous().to(device)
+    return torch.from_numpy(np_to_i32(np.asarray(x).reshape(-1))).to(device)
 
 
 class Table:
-    """One relation: an RSI version store on the transport's device."""
+    """One relation: an RSI version store + key column on the transport's
+    device."""
 
     def __init__(self, schema: TableSchema, pool, transport, *,
                  num_timestamps: int = 60_000):
@@ -52,12 +75,39 @@ class Table:
                    ("record", None))
         pool.alloc(f"{schema.name}/bitvec", (num_timestamps,), torch.bool,
                    ("record",))
+        pool.alloc(f"{schema.name}/keys", (R,), WORD, ("record",))
         self.store = rsi.init_store(self.cfg, transport.device)
-        self.rows = 0              # live rows
+        # default join key = record id (OLTP tables); bulk loads replace it
+        self.keys = torch.arange(R, dtype=WORD, device=transport.device)
+        self.rows = 0              # live rows, feeds the planner's stats
 
     @property
     def device(self) -> torch.device:
         return self._transport.device
+
+    def load(self, keys, vals, *, cid: int = 1):
+        """Bulk-load an OLAP relation: row i holds (keys[i], vals[i]) as a
+        committed version at ``cid`` (the load epoch); vals fill payload
+        word 0.  Columns are u32: int32 bit-pattern tensors, or anything
+        :func:`as_words` takes."""
+        keys = as_words(keys, self.device)
+        vals = as_words(vals, self.device)
+        n = keys.shape[0]
+        R = self.schema.num_records
+        if n > R:
+            raise ValueError(f"{n} rows > {R} records")
+        if vals.shape[0] != n:
+            raise ValueError(f"{vals.shape[0]} values for {n} keys")
+        word = int(np_to_i32([cid])[0])
+        self.keys.zero_()
+        self.keys[:n] = keys
+        for leaf in ("payload", "cids", "words"):
+            self.store[leaf].zero_()
+        self.store["payload"][:n, 0, 0] = vals
+        self.store["cids"][:n, 0] = word
+        self.store["words"][:n] = word
+        self.rows = n
+        return self
 
     def seed(self, recs, vals=None, *, cid: int = 1):
         """Mark records ``recs`` as existing at ``cid`` (OLTP base rows);
@@ -79,6 +129,19 @@ class Table:
         n = self._transport.n if num_shards is None else int(num_shards)
         return partition.home_shard(recs, self.schema.num_records, n,
                                     self.schema.partitioning)
+
+    # ------------------------------------------------------------- stats --
+
+    def stats(self) -> dict:
+        """Planner inputs: live rows and their wire bytes in a shuffle."""
+        rows = self.rows or self.schema.num_records
+        return {"rows": rows, "bytes": rows * self.schema.tuple_bytes}
+
+    def scan_arrays(self):
+        """The (keys, vals) u32 columns an OLAP operator eats: vals =
+        payload word 0 of the newest version, live rows only."""
+        rows = self.rows or self.schema.num_records
+        return self.keys[:rows], self.store["payload"][:rows, 0, 0]
 
     # -------------------------------------------------------- lock column --
 
@@ -120,3 +183,15 @@ class Table:
 
     def locked_rows(self) -> int:
         return int((self.store["words"] < 0).sum())
+
+
+def load_numpy(table: Table, keys, vals, *, cid: int = 1) -> Table:
+    """Load (keys, vals) columns held as numpy arrays — a JAX table's
+    ``scan_arrays()``, say — into ``table`` through :meth:`Table.load`, so
+    both packages scan the same relation bit for bit."""
+    keys, vals = np.asarray(keys), np.asarray(vals)
+    for name, a in (("keys", keys), ("vals", vals)):
+        if a.ndim != 1 or a.dtype.kind not in "iu":
+            raise TypeError(f"{name} must be a 1-D integer array, got "
+                            f"{a.dtype} {a.shape}")
+    return table.load(keys, vals, cid=cid)

@@ -108,17 +108,20 @@ def tree_flatten(tree):
     return leaves, TreeDef(kind, keys, children)
 
 
-def tree_unflatten(treedef: TreeDef, leaves):
-    it = iter(leaves)
+def _build(td: TreeDef, it):
+    if td.kind == "leaf":
+        return next(it)
+    items = [_build(c, it) for c in td.children]
+    if td.kind == "dict":
+        return dict(zip(td.keys, items))
+    return tuple(items) if td.kind == "tuple" else items
 
-    def build(td):
-        if td.kind == "leaf":
-            return next(it)
-        items = [build(c) for c in td.children]
-        if td.kind == "dict":
-            return dict(zip(td.keys, items))
-        return tuple(items) if td.kind == "tuple" else items
-    return build(treedef)
+
+def tree_unflatten(treedef: TreeDef, leaves):
+    # a module-level builder: a recursive closure would be a reference
+    # cycle holding the leaves (the routed buffers) until the next garbage
+    # collection, not until the caller drops them
+    return _build(treedef, iter(leaves))
 
 
 # ---------------------------------------------------- packed wire format --

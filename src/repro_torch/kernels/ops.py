@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import cas_lock as _cas
+from repro_torch.kernels import grouped_agg as _ga
 from repro_torch.kernels import radix_partition as _rp
 from repro_torch.kernels import ref
 
@@ -32,12 +33,15 @@ def launch_counts() -> dict:
     """Launches of each kernel entry point since the last reset."""
     return {"radix_partition_rank": _rp.launches["rank"],
             "radix_partition_scatter": _rp.launches["scatter"],
-            "cas_lock": _cas.launches["cas"]}
+            "cas_lock": _cas.launches["cas"],
+            "grouped_agg": _ga.launches["f32"],
+            "grouped_sum_u32": _ga.launches["u32"]}
 
 
 def reset_launch_counts():
     _rp.launches.update(rank=0, scatter=0)
     _cas.launches.update(cas=0)
+    _ga.launches.update(f32=0, u32=0)
 
 
 def rank(dest, n: int, cap: int, *, impl=None):
@@ -71,3 +75,29 @@ def cas(words, idx, expected, new, priority, *, impl=None):
     if resolve_impl(words, impl) == "kernel":
         return _cas.cas(words, *args)
     return ref.cas(words, *args)
+
+
+def grouped_agg(slot, vals, num_slots: int, *, impl=None,
+                check: bool = False):
+    """(num_slots,) f32 per-slot sums of ``vals`` by ``slot`` (the Pallas
+    ``grouped_agg``'s function).  ``check=True`` makes the plain version
+    raise on a slot outside [0, num_slots); the kernel skips such rows."""
+    slot = slot.to(torch.int32).contiguous()
+    vals = vals.to(torch.float32).contiguous()
+    if resolve_impl(slot, impl) == "kernel":
+        return _ga.grouped_agg(slot, vals, num_slots)
+    return ref.grouped_agg(slot, vals, num_slots, check=check)
+
+
+def grouped_sum_u32(slot, vals, num_slots: int, *, impl=None,
+                    check: bool = False):
+    """(num_slots,) u32 per-slot sums mod 2**32 of the u32 words ``vals``
+    (int32 bit patterns) by ``slot``; ``check=`` as in :func:`grouped_agg`."""
+    if vals.dtype != torch.int32:
+        raise TypeError(f"grouped_sum_u32 takes u32 words as int32 bit "
+                        f"patterns, got {vals.dtype}")
+    slot = slot.to(torch.int32).contiguous()
+    vals = vals.contiguous()
+    if resolve_impl(slot, impl) == "kernel":
+        return _ga.grouped_sum_u32(slot, vals, num_slots)
+    return ref.grouped_sum_u32(slot, vals, num_slots, check=check)

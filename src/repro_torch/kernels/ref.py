@@ -10,7 +10,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch._bits import LOCK_BIT
+from repro_torch._bits import LOCK_BIT, to_i32, u32
 
 _IMAX = 2 ** 31 - 1
 
@@ -123,3 +123,36 @@ def cas_lock(words, idx, expected):
             ok[i] = True
     return (torch.from_numpy(ok).to(words.device),
             torch.from_numpy(w).to(words.device))
+
+
+def _agg_slots(slot, num_slots: int, check: bool) -> torch.Tensor:
+    """int64 scatter indices: in-range slots as they are, every other row
+    into one spare slot past the table (the kernel skips those rows).
+    ``check=True`` raises on a slot outside [0, num_slots) instead."""
+    ok = (slot >= 0) & (slot < num_slots)
+    if check and not bool(ok.all()):
+        raise ValueError(f"slot outside [0, {num_slots})")
+    return torch.where(ok, slot, num_slots).to(torch.int64)
+
+
+def grouped_agg(slot, vals, num_slots: int, *, check: bool = False):
+    """Plain twin of ``grouped_agg.grouped_agg``: (num_slots,) f32 sums of
+    ``vals`` by ``slot``, accumulated in f64 by ``index_add_`` and rounded
+    once, so it is the exact sum within one f32 rounding wherever the
+    kernel's order of f32 additions lands."""
+    idx = _agg_slots(slot, num_slots, check)
+    out = torch.zeros((num_slots + 1,), dtype=torch.float64,
+                      device=slot.device)
+    out.index_add_(0, idx, vals.to(torch.float64))
+    return out[:num_slots].to(torch.float32)
+
+
+def grouped_sum_u32(slot, vals, num_slots: int, *, check: bool = False):
+    """Plain twin of ``grouped_agg.grouped_sum_u32``: (num_slots,) u32 sums
+    mod 2**32 (int32 bit patterns) of the u32 words ``vals`` by ``slot``,
+    summed exactly in int64 by ``index_add_`` and wrapped once."""
+    idx = _agg_slots(slot, num_slots, check)
+    out = torch.zeros((num_slots + 1,), dtype=torch.int64,
+                      device=slot.device)
+    out.index_add_(0, idx, u32(vals))
+    return to_i32(out[:num_slots])

@@ -7,17 +7,22 @@
   * ``bench/checkout.py``: the §4.3 checkout waves that ``chip_smoke.py``
     drives on the card keep the facade's invariants, and every committed
     write reads back (``tests/test_torch_db.py`` holds the same facade
-    against the JAX package's).
+    against the JAX package's);
+  * ``bench/fig8a_joins.py`` and ``bench/fig8b_agg.py`` at a tiny N: every
+    join and aggregation meets its independent ground truth and the plain
+    path, and the JAX facade gives the same answers on the same relations.
 """
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
 from repro.core import rsi as jrsi
+from repro.db import Database as JaxDatabase
 from repro.fabric import LocalTransport as JaxLocalTransport
-from repro_torch.bench import checkout, fig6_rsi
+from repro_torch._bits import np_u32
+from repro_torch.bench import checkout, fig6_rsi, fig8a_joins, fig8b_agg
 from repro_torch.core import rsi
-from repro_torch.db import Database
+from repro_torch.db import AGG_VARIANTS, JOIN_VARIANTS, Database
 
 SMALL = {
     "jax_shape": {"num_records": 3000, "T": 32, "insert_base": 2700,
@@ -107,3 +112,55 @@ def test_spread(times, want):
     got = fig6_rsi.spread(times)
     assert {k: got[k] for k in want} == want
     assert got["q1"] <= got["median"] <= got["q3"]
+
+
+def test_fig8a_joins_small_meets_ground_truth_and_jax():
+    n = 2048
+    r = fig8a_joins.run(n, device="cpu", warmup=0, timed=2,
+                        plain_sels=(0.5,), profiles=("rdma_fdr4x", "ipoeth"))
+    assert [row["sel"] for row in r["rows"]] == list(fig8a_joins.SELS)
+    for row in r["rows"]:
+        assert set(row["variants"]) == set(JOIN_VARIANTS)
+        assert set(row["planner"]) == {"rdma_fdr4x", "ipoeth"}
+        for v in row["variants"].values():
+            assert v["value"] == row["truth"] and v["dropped"] == 0
+            assert len(v["times_s"]) == 2 and v["peak_bytes"] is None
+            assert v["stats"]["route"]["calls"] == 2
+        assert ("plain_s" in row["variants"]["ghj"]) == (row["sel"] == 0.5)
+    assert r["rows"][0]["truth"] < r["rows"][-1]["truth"]
+    assert r["shuffle_route"]["rows"] == n
+    assert r["modeled_wire_s"]["rdma_fdr4x"] > 0
+    # the same relations through the JAX facade
+    rk, rv, sk, sv = (np_u32(t) for t in fig8a_joins.relations(0.75, n,
+                                                               device="cpu"))
+    assert sorted(rk.tolist()) == list(range(1, n + 1))
+    truth = int(np.where(sk <= n, sk.astype(np.int64), 0).sum()) % 2 ** 32
+    assert truth == r["rows"][2]["truth"]
+    jdb = JaxDatabase()
+    jdb.load_table("R", jnp.asarray(rk), jnp.asarray(rv))
+    jdb.load_table("S", jnp.asarray(sk), jnp.asarray(sv))
+    q = jdb.scan("R").join(jdb.scan("S").filter(sel=0.75)).aggregate()
+    assert int(jdb.execute(q, force_variant="rrj").value) == truth
+
+
+def test_fig8b_agg_small_meets_ground_truth_and_jax():
+    n = 4096
+    groups = (1, 64, 4096)
+    r = fig8b_agg.run(n, device="cpu", groups=groups, warmup=0, timed=1,
+                      plain_groups=(64,))
+    assert [row["groups"] for row in r["rows"]] == list(groups)
+    for row in r["rows"]:
+        assert set(row["schemes"]) == set(AGG_VARIANTS)
+        assert ("plain_s" in row["schemes"]["dist_agg"]) == \
+            (row["groups"] == 64)
+    assert r["kernel_row"]["rows"] == n and r["kernel_row"]["slots"] == 2048
+    keys, vals = (np_u32(t) for t in fig8b_agg.table(n, device="cpu"))
+    assert vals.tolist() == [1] * n and keys.max() < 1 << 30
+    jdb = JaxDatabase()
+    jdb.load_table("T", jnp.asarray(keys), jnp.asarray(vals))
+    got = fig8b_agg.ground_truth(fig8b_agg.table(n, device="cpu")[0], 64)
+    want = jdb.execute(jdb.scan("T").aggregate(groups=64),
+                       force_variant="rdma_agg").value
+    np.testing.assert_array_equal(np_u32(got), np.asarray(want))
+    np.testing.assert_array_equal(np_u32(got),
+                                  np.bincount(keys % 64, minlength=64))

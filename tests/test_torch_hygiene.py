@@ -16,7 +16,7 @@ from repro_torch import fabric
 from repro_torch._bits import resolve_device
 from repro_torch.core import rsi
 from repro_torch.db import Database
-from repro_torch.kernels import cas_lock, ops, radix_partition
+from repro_torch.kernels import cas_lock, grouped_agg, ops, radix_partition
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
@@ -44,7 +44,7 @@ def test_port_files_found():
     names = {p.name for p in PORT_FILES}
     assert {"chip_smoke.py", "rsi.py", "router.py", "ops.py"} <= names
     assert len(list((ROOT / "src" / "repro_torch" / "kernels" / "csrc")
-                    .glob("*.cu"))) == 2
+                    .glob("*.cu"))) == 3
 
 
 @pytest.fixture
@@ -74,6 +74,13 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         radix_partition.scatter(d.reshape(4, 1), d, 4)
     with pytest.raises(ValueError, match="CUDA"):
         cas_lock.cas(d, d, d, d, d)
+    with pytest.raises(ValueError, match="CUDA"):
+        grouped_agg.grouped_agg(d, d.float(), 4)
+    with pytest.raises(ValueError, match="CUDA"):
+        grouped_agg.grouped_sum_u32(d, d, 4)
+    with pytest.raises(ValueError, match="kernel"):
+        ops.grouped_sum_u32(d, d, 4, impl="kernel")
     before = ops.launch_counts()
     ops.cas(d.clone(), d, d, d + 1, d)            # plain on the CPU
+    ops.grouped_agg(d, d.float(), 4)
     assert ops.launch_counts() == before
