@@ -27,16 +27,22 @@ exits non-zero:
            Database.load_table / scan / explain / execute, each held to
            its independent ground truth and to a second Database whose
            kernels run their plain versions; times, peak memory, and one
-           profiled execution per variant at sel 0.5, G = 64 and 2**26
+           profiled execution per variant at sel 0.5, G = 64 and 2**26.
+           Then, outside those queries: Fig 8b's kernel row (a direct
+           ops.grouped_agg call, f32, 2048 slots) and the shuffle
+           microbench's two legs (direct LocalTransport.route calls)
   fig6     the fig6 commit batch at the JAX benchmark's sizes and at the
            paper's width (T = 1024, 8192), txn/s from the median of 40
            commits between CUDA events, and their spread
 
-Launch counts are set to 0 just before each main path (oltp, olap) and
-read just after; each path must have launched every kernel it runs.
-Then three lines: the per-kernel JSON record (launches summed over both
-paths), the card's name and power limit (nvidia-smi), and
-{"ok": true, "device": ...}.
+Launch counts are set to 0 just before each path and read just after:
+the oltp sessions and commits, the olap queries (Database.execute
+alone), and Fig 8b's kernel row, the one path of the f32 grouped_agg
+entry; each path must have launched every kernel it runs.  The shuffle
+microbench's launches are reported beside it and counted on no path.
+Then three lines: the per-kernel JSON record (launches summed over the
+paths named in its "paths"), the card's name and power limit
+(nvidia-smi), and {"ok": true, "device": ...}.
 
     python3 chip_smoke.py            # everything, one card
     python3 chip_smoke.py --phases env,build,kernels --quick
@@ -65,7 +71,8 @@ PROFILE_GROUPS = (64, 67_108_864)  # ... and per aggregation scheme here
 OLTP_KERNELS = ("radix_partition_rank", "radix_partition_scatter",
                 "cas_lock")
 OLAP_KERNELS = ("radix_partition_rank", "radix_partition_scatter",
-                "grouped_agg", "grouped_sum_u32")
+                "grouped_sum_u32")
+KERNEL_ROW_KERNELS = ("grouped_agg",)
 _OUT = []                        # a file every emitted line also goes to
 
 
@@ -570,6 +577,18 @@ def phase_kernels(quick: bool, record: dict):
 
 # ----------------------------------------------------------- main path --
 
+def _count(names, launches: dict, record: dict, path: str):
+    """Add a path's launches to the record; fail if it launched none of
+    a kernel it runs, or a kernel it does not run."""
+    for name in names:
+        record[name]["launches"] += launches[name]
+        if launches[name] == 0:
+            raise AssertionError(f"the {path} path launched no {name}")
+    other = {k: v for k, v in launches.items() if v and k not in names}
+    if other:
+        raise AssertionError(f"the {path} path launched {other}")
+
+
 def phase_oltp(quick: bool, record: dict):
     import numpy as np
     import torch
@@ -592,10 +611,7 @@ def phase_oltp(quick: bool, record: dict):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = ops.launch_counts()
-    for name in OLTP_KERNELS:
-        record[name]["launches"] += launches[name]
-        if launches[name] == 0:
-            raise AssertionError(f"the oltp path launched no {name}")
+    _count(OLTP_KERNELS, launches, record, "oltp")
     db_plain = Database(device="cuda", impl="plain")
     masks_p, _, commit_s_p = run(db_plain)
     if ops.launch_counts() != launches:
@@ -633,9 +649,10 @@ def phase_oltp(quick: bool, record: dict):
 
 
 def phase_olap(quick: bool, record: dict):
-    """Fig 8a and Fig 8b through the facade at the paper's size; each
-    bench module holds every result to its ground truth and, on a subset,
-    to the plain path, and raises otherwise."""
+    """Fig 8a's and Fig 8b's queries through the facade at the paper's
+    size; each bench module holds every result to its ground truth and,
+    on a subset, to the plain path, and raises otherwise.  Then Fig 8b's
+    kernel row and the shuffle microbench, each with its own counts."""
     import torch
     from repro_torch.bench import fig8a_joins, fig8b_agg
     from repro_torch.kernels import ops
@@ -644,23 +661,40 @@ def phase_olap(quick: bool, record: dict):
     groups = (1, 64, 1 << 20) if quick else fig8b_agg.GROUPS
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    a = fig8a_joins.run(n, device="cuda", sels=sels, plain_sels=sels,
-                        profile_sels=PROFILE_SELS)
+    a = fig8a_joins.joins(n, device="cuda", sels=sels, plain_sels=sels,
+                          profile_sels=PROFILE_SELS)
     t1 = time.perf_counter()
-    b = fig8b_agg.run(n, device="cuda", groups=groups, plain_groups=groups,
-                      profile_groups=PROFILE_GROUPS)
+    keys, vals = fig8b_agg.table(n, device="cuda")
+    b = fig8b_agg.aggregations(keys, vals, groups=groups,
+                               plain_groups=groups,
+                               profile_groups=PROFILE_GROUPS)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     launches = ops.launch_counts()
-    for name in OLAP_KERNELS:
-        record[name]["launches"] += launches[name]
-        if launches[name] == 0:
-            raise AssertionError(f"the olap path launched no {name}")
+    _count(OLAP_KERNELS, launches, record, "olap")
+
+    ops.reset_launch_counts()
+    b["kernel_row"] = fig8b_agg.kernel_row(keys, vals)
+    row_launches = ops.launch_counts()
+    _count(KERNEL_ROW_KERNELS, row_launches, record, "fig8b kernel row")
+    del keys, vals
+    torch.cuda.empty_cache()
+
+    shuffle = {"rows": n, "chunks": fig8a_joins.ROUTE_CHUNKS}
+    for leg, kw in (("overlap_on", {"overlap": True,
+                                    "chunks": fig8a_joins.ROUTE_CHUNKS}),
+                    ("overlap_off", {})):
+        ops.reset_launch_counts()
+        shuffle[f"{leg}_s"] = fig8a_joins.shuffle_route_bench(
+            n, device="cuda", **kw)
+        shuffle[f"{leg}_launches"] = {
+            k: v for k, v in ops.launch_counts().items() if v}
     for row in a.pop("rows"):
         emit("olap_join", n=n, **row, gpu=smi())
     for row in b.pop("rows"):
         emit("olap_agg", n=n, **row, gpu=smi())
     emit("olap", n=n, joins_s=t1 - t0, aggs_s=t2 - t1, launches=launches,
+         kernel_row_launches=row_launches, shuffle_route=shuffle,
          fig8a=a, fig8b=b, gpu=smi())
 
 
@@ -721,8 +755,11 @@ def main(argv=None) -> int:
             "source": "src/repro_torch/kernels/csrc/grouped_agg.cu",
             "replaces": "src/repro/kernels/grouped_agg.py:41"},
     }
-    for r in record.values():
-        r.update(route="cuda", launches=0)
+    paths = {"radix_partition_rank": "oltp, olap",
+             "radix_partition_scatter": "oltp, olap", "cas_lock": "oltp",
+             "grouped_agg": "fig8b kernel row", "grouped_sum_u32": "olap"}
+    for name, r in record.items():
+        r.update(route="cuda", launches=0, paths=paths[name])
     if "env" in phases:
         phase_env()
     if "build" in phases:
@@ -736,7 +773,7 @@ def main(argv=None) -> int:
     if "fig6" in phases:
         phase_fig6(args.quick)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "paths")
     print(json.dumps({"kernels": [
         {k: ({"name": name, **r}).get(k) for k in keys}
         for name, r in record.items()]}))

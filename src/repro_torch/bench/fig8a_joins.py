@@ -21,9 +21,14 @@ ground truth.
 The shuffle microbench routes one (keys, vals) relation of N rows, the
 motion inside every join, with ``overlap`` on and off.  A
 ``LocalTransport`` has no wire for the overlap to hide, so unlike the JAX
-benchmark nothing asserts that it wins.  The JAX benchmark's replay
-pricing of the route schedule needs the contention simulator, which the
-port does not have yet.
+benchmark nothing asserts that it wins.  The two legs also differ in how
+they pack: the overlap leg gathers through the inverted plan in plain
+torch and launches no scatter kernel, the other runs the scatter kernel.
+The JAX benchmark's replay pricing of the route schedule needs the
+contention simulator, which the port does not have yet.
+
+:func:`joins` runs the queries alone, :func:`shuffle_route_bench` one
+leg of the microbench, and :func:`run` the whole figure.
 
     PYTHONPATH=src python -m repro_torch.bench.fig8a_joins --n 1048576
 """
@@ -91,13 +96,14 @@ def shuffle_route_bench(n_rows: int, *, device=None, overlap: bool = False,
                              for _ in range(3))
 
 
-def run(n: int, *, device=None, seed: int = 0, sels=SELS,
-        profiles=DEFAULT_PROFILES, warmup: int = 1, timed: int = 3,
-        plain_sels=(), profile_sels=()) -> dict:
-    """The figure at N rows a relation.  Raises if a join misses its
-    ground truth, drops a row, or differs from the plain path on
-    ``plain_sels``.  ``profile_sels`` adds one profiled execution per
-    variant (card only).  Returns JSON-ready rows."""
+def joins(n: int, *, device=None, seed: int = 0, sels=SELS,
+          profiles=DEFAULT_PROFILES, warmup: int = 1, timed: int = 3,
+          plain_sels=(), profile_sels=()) -> dict:
+    """The figure's queries at N rows a relation, through the facade and
+    nothing else.  Raises if a join misses its ground truth, drops a row,
+    or differs from the plain path on ``plain_sels``.  ``profile_sels``
+    adds one profiled execution per variant (card only).  Returns
+    JSON-ready rows."""
     dev = resolve_device(device)
     db = Database(device=dev, net=profiles[0])
     plain = Database(device=dev, impl="plain", net=profiles[0]) \
@@ -138,14 +144,20 @@ def run(n: int, *, device=None, seed: int = 0, sels=SELS,
     stats = db.fabric_stats()
     modeled = {p: netsim.get_profile(p).modeled_time(stats)
                for p in profiles}
-    del db, plain
-    on = shuffle_route_bench(n, device=dev, overlap=True, chunks=ROUTE_CHUNKS,
-                             seed=seed)
-    off = shuffle_route_bench(n, device=dev, seed=seed)
     return {"figure": "fig8a", "n": n, "device": str(dev), "rows": rows,
-            "shuffle_route": {"rows": n, "overlap_on_s": on,
-                              "overlap_off_s": off, "chunks": ROUTE_CHUNKS},
             "modeled_wire_s": modeled}
+
+
+def run(n: int, *, device=None, seed: int = 0, **kw) -> dict:
+    """The whole figure: :func:`joins` (``kw`` goes there), then the
+    shuffle microbench with overlap on and off."""
+    out = joins(n, device=device, seed=seed, **kw)
+    on = shuffle_route_bench(n, device=device, overlap=True,
+                             chunks=ROUTE_CHUNKS, seed=seed)
+    off = shuffle_route_bench(n, device=device, seed=seed)
+    out["shuffle_route"] = {"rows": n, "overlap_on_s": on,
+                            "overlap_off_s": off, "chunks": ROUTE_CHUNKS}
+    return out
 
 
 def main(argv=None):

@@ -16,7 +16,11 @@ keys uniform in [0, 2**30), vals = 1.  So each group's sum is its count,
 The kernel row times the grouped-aggregation kernel's own function
 (``ops.grouped_agg``, f32) on the table's rows into 2048 slots, as the
 JAX benchmark's kernel row does, and holds it bit for bit to the counts
-(integers below 2**24 a slot are exact in f32).
+(integers below 2**24 a slot are exact in f32).  It calls the kernel
+directly, not through the facade.
+
+:func:`aggregations` runs the queries alone, :func:`kernel_row` the
+kernel row, and :func:`run` the whole figure.
 
     PYTHONPATH=src python -m repro_torch.bench.fig8b_agg --n 1048576
 """
@@ -73,15 +77,15 @@ def kernel_row(keys, vals, *, impl=None, iters: int = 3) -> dict:
             "median_s": statistics.median(times), "times_s": times}
 
 
-def run(n: int, *, device=None, seed: int = 0, groups=GROUPS,
-        profiles=DEFAULT_PROFILES, warmup: int = 1, timed: int = 3,
-        plain_groups=(), profile_groups=()) -> dict:
-    """The figure at N rows.  Raises if a scheme misses the ground truth,
-    the two schemes differ, or (on ``plain_groups``) the plain path
+def aggregations(keys, vals, *, groups=GROUPS, profiles=DEFAULT_PROFILES,
+                 warmup: int = 1, timed: int = 3, plain_groups=(),
+                 profile_groups=()) -> dict:
+    """The figure's queries over the table (``keys``, ``vals``), through
+    the facade and nothing else.  Raises if a scheme misses the ground
+    truth, the two schemes differ, or (on ``plain_groups``) the plain path
     differs.  ``profile_groups`` adds one profiled execution per scheme
     (card only).  Returns JSON-ready rows."""
-    dev = resolve_device(device)
-    keys, vals = table(n, seed=seed, device=dev)
+    dev = keys.device
     db = Database(device=dev, net=profiles[0])
     db.load_table("T", keys, vals)
     plain = None
@@ -109,10 +113,19 @@ def run(n: int, *, device=None, seed: int = 0, groups=GROUPS,
         rows.append(row)
         del truth
     stats = db.fabric_stats()
-    return {"figure": "fig8b", "n": n, "device": str(dev), "rows": rows,
-            "kernel_row": kernel_row(keys, vals),
+    return {"figure": "fig8b", "n": keys.shape[0], "device": str(dev),
+            "rows": rows,
             "modeled_wire_s": {p: netsim.get_profile(p).modeled_time(stats)
                                for p in profiles}}
+
+
+def run(n: int, *, device=None, seed: int = 0, **kw) -> dict:
+    """The whole figure at N rows: :func:`aggregations` (``kw`` goes
+    there), then the kernel row on the same table."""
+    keys, vals = table(n, seed=seed, device=device)
+    out = aggregations(keys, vals, **kw)
+    out["kernel_row"] = kernel_row(keys, vals)
+    return out
 
 
 def main(argv=None):

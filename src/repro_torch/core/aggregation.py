@@ -55,13 +55,11 @@ def dist_agg(transport, num_groups: int):
                                             out_reps=True)
 
 
-def rdma_agg(transport, num_groups: int, *, table_slots: int = 4096,
-             chunks: int = 4):
+def rdma_agg(transport, num_groups: int, *, chunks: int = 4):
     """RDMA-optimized aggregation.  Groups are hash-partitioned across
     shards (owner = slot // (groups/n)); each chunk pre-aggregates into
     per-owner tables that stream to their owners through the router, and
-    each owner post-aggregates only its slice.  ``table_slots`` is kept for
-    the JAX signature; the tables are sized by the groups."""
+    each owner post-aggregates only its slice."""
     n = transport.n
     if not (num_groups % n == 0 or num_groups < n):
         raise ValueError(f"num_groups={num_groups} not a multiple of the "

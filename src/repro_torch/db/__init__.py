@@ -19,11 +19,11 @@ from repro_torch.db.plan import Plan
 from repro_torch.db.planner import (AGG_VARIANTS, JOIN_VARIANTS,
                                     Alternative, Planner)
 from repro_torch.db.session import ISOLATION_LEVELS, Session
-from repro_torch.db.table import Table, TableSchema, load_numpy
+from repro_torch.db.table import Table, TableSchema
 
 __all__ = [
     "Database", "Explain", "QueryResult", "Plan",
     "Planner", "Alternative", "JOIN_VARIANTS", "AGG_VARIANTS",
-    "Session", "ISOLATION_LEVELS", "Table", "TableSchema", "load_numpy",
+    "Session", "ISOLATION_LEVELS", "Table", "TableSchema",
     "assign_workers", "home_shard", "local_fraction", "backoff_slots",
 ]

@@ -4,10 +4,10 @@ The port of ``repro.db.table``.  A :class:`Table` is an RSI version store
 (lock|CID words, version slots, payload, timestamp bitvector — paper
 Table 1) plus a join-key column, allocated as named regions, with a
 declared home-shard partitioning.  OLAP relations are bulk-loaded with
-:meth:`Table.load` (or :func:`load_numpy` for columns held as numpy
-arrays, such as a JAX table's ``scan_arrays()``) and read by the operators
-through :meth:`Table.scan_arrays`.  Its lock-word column doubles as a lock
-service:
+:meth:`Table.load` (or :meth:`Database.load_table`), which also takes
+columns held as numpy arrays, such as a JAX table's ``scan_arrays()``,
+and read by the operators through :meth:`Table.scan_arrays`.  Its
+lock-word column doubles as a lock service:
 :meth:`Table.claim_locks` / :meth:`Table.release_lock` run the RSI CAS
 through the database's transport, counted like every other verb.
 """
@@ -42,13 +42,18 @@ class TableSchema:
 
 def as_words(x, device) -> torch.Tensor:
     """A u32 column as a contiguous 1-D int32 bit-pattern tensor on
-    ``device``: an int32 tensor as it is, any other tensor or array
-    through its u32 value."""
+    ``device``: an int32 tensor as it is, any other tensor through its u32
+    value, an array (a JAX table's ``scan_arrays()``, say) only if it is
+    1-D and of integers."""
     if isinstance(x, torch.Tensor):
         if x.dtype != WORD:
             x = to_i32(x.to(torch.int64))
         return x.reshape(-1).contiguous().to(device)
-    return torch.from_numpy(np_to_i32(np.asarray(x).reshape(-1))).to(device)
+    a = np.asarray(x)
+    if a.ndim != 1 or a.dtype.kind not in "iu":
+        raise TypeError(f"a column must be a 1-D integer array, got "
+                        f"{a.dtype} {a.shape}")
+    return torch.from_numpy(np_to_i32(a)).to(device)
 
 
 class Table:
@@ -184,14 +189,3 @@ class Table:
     def locked_rows(self) -> int:
         return int((self.store["words"] < 0).sum())
 
-
-def load_numpy(table: Table, keys, vals, *, cid: int = 1) -> Table:
-    """Load (keys, vals) columns held as numpy arrays — a JAX table's
-    ``scan_arrays()``, say — into ``table`` through :meth:`Table.load`, so
-    both packages scan the same relation bit for bit."""
-    keys, vals = np.asarray(keys), np.asarray(vals)
-    for name, a in (("keys", keys), ("vals", vals)):
-        if a.ndim != 1 or a.dtype.kind not in "iu":
-            raise TypeError(f"{name} must be a 1-D integer array, got "
-                            f"{a.dtype} {a.shape}")
-    return table.load(keys, vals, cid=cid)

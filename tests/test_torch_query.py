@@ -1,7 +1,7 @@
 """The port's planned queries against the JAX facade.
 
 Both databases load the same relations (drawn once with numpy; the port
-takes the JAX tables' ``scan_arrays()`` through ``load_numpy``):
+takes the JAX tables' ``scan_arrays()`` through ``Database.load_table``):
 
   * ``explain`` gives the same alternatives (names, ``chosen``, feasibility,
     ``cost_s`` to 1e-12 relative) and cost-model inputs over
@@ -18,8 +18,7 @@ import torch
 
 from repro.db import Database as JaxDatabase
 from repro_torch._bits import np_u32
-from repro_torch.db import (AGG_VARIANTS, JOIN_VARIANTS, Database, Planner,
-                            load_numpy)
+from repro_torch.db import AGG_VARIANTS, JOIN_VARIANTS, Database, Planner
 
 SELS = (0.25, 0.5, 0.75, 1.0)
 
@@ -44,9 +43,7 @@ def _port_db(jdb, net="rdma"):
     """The port's database holding the JAX tables' scanned columns."""
     db = Database(device="cpu", net=net)
     for name, t in jdb.tables.items():
-        k, v = (np.asarray(a) for a in t.scan_arrays())
-        load_numpy(db.create_table(name, k.shape[0], payload_words=1,
-                                   partitioning="hash"), k, v)
+        db.load_table(name, *(np.asarray(a) for a in t.scan_arrays()))
     return db
 
 
@@ -167,8 +164,10 @@ def test_load_numpy_scans_the_jax_relation(cols):
         assert db.table(name).stats() == jdb.table(name).stats()
     assert {"R/keys", "S/keys", "R/words"} <= set(db.pool.regions)
     with pytest.raises(TypeError, match="integer"):
-        load_numpy(db.table("R"), np.zeros(4, np.float32),
-                   np.zeros(4, np.uint32))
+        db.table("R").load(np.zeros(4, np.float32), np.zeros(4, np.uint32))
+    with pytest.raises(TypeError, match="1-D"):
+        db.table("R").load(np.zeros((2, 2), np.uint32),
+                           np.zeros(4, np.uint32))
     with pytest.raises(ValueError, match="records"):
         db.table("R").load(np.zeros(4096, np.uint32),
                            np.zeros(4096, np.uint32))
