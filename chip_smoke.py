@@ -10,11 +10,14 @@ exits non-zero:
            for sm_90a, one process per source, all at once
   kernels  each hand-written kernel held against its plain PyTorch
            version over a sweep of shapes (bit-exact; the f32 grouped_agg
-           within atol 1e-3, rtol 1e-4 on random floats), radix_partition
+           within atol 1e-3, rtol 1e-4 on random floats; flash_attention
+           within 2e-5 in f32 and 2e-2 in bf16, ssd_scan within 2e-3),
+           radix_partition
            also at the joins' A = 128 000 000, then each timed at the
            main paths' shapes (per call between CUDA events, and its device
            time from torch.profiler) beside its plain version, the nearest
-           single PyTorch call and its bound (bytes / 3.35 TB/s)
+           single PyTorch call and its bound (the larger of bytes / 3.35
+           TB/s and operations / 989 TFLOP/s)
   oltp     the OLTP path at the paper's §4.3 width: Database(device="cuda")
            with 1 000 000 products of 1 KB (+131 072 insert rows), 8 waves
            of 4096 checkout sessions (Session.begin/get/put ->
@@ -34,11 +37,21 @@ exits non-zero:
   fig6     the fig6 commit batch at the JAX benchmark's sizes and at the
            paper's width (T = 1024, 8192), txn/s from the median of 40
            commits between CUDA events, and their spread
+  serve    model serving at full published width and depth
+           (src/repro_torch/bench/serve.py): glm4-9b and mamba2-370m with
+           bf16 weights drawn on the card; the prefill step (glm4 B=1,
+           mamba2 B=8, S=8192; median of 3 after a warm-up) must launch
+           flash_attention / ssd_scan once a layer, its logits are held
+           against the plain path (on the first layer group; reported at
+           full depth); then ServeEngine(slots=8,
+           max_seq=1024) serves 16 requests in two waves, each wave must
+           launch cas_lock, and its tokens must equal a plain engine's
 
 Launch counts are set to 0 just before each path and read just after:
 the oltp sessions and commits, the olap queries (Database.execute
-alone), and Fig 8b's kernel row, the one path of the f32 grouped_agg
-entry; each path must have launched every kernel it runs.  The shuffle
+alone), Fig 8b's kernel row, the one path of the f32 grouped_agg
+entry, and in serve each timed prefill step and each engine wave; each
+path must have launched every kernel it runs.  The shuffle
 microbench's launches are reported beside it and counted on no path.
 Then three lines: the per-kernel JSON record (launches summed over the
 paths named in its "paths"), the card's name and power limit
@@ -60,7 +73,11 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 peak
-PHASES = ("env", "build", "kernels", "oltp", "olap", "fig6")
+BF16_FLOP_PER_S = 989e12           # H100 SXM dense bf16 tensor cores
+PHASES = ("env", "build", "kernels", "oltp", "olap", "fig6", "serve")
+SERVE_ARCHS = {"glm4-9b": "flash_attention", "mamba2-370m": "ssd_scan"}
+LOGIT_TOL = 0.1                  # bf16 logits, kernel path vs plain path,
+                                 # first layer group (PERF.md)
 MAIN_T, MAIN_WAVES = 4096, 8     # checkouts per wave, waves (the store's
                                  # widths: configs/paper_nam.py::OLTP)
 FIG6_ITERS = 40                  # timed commits per fig6 run
@@ -551,10 +568,209 @@ def time_kernels(record: dict):
         shape={"R": R, "A": A, "winners": winners})
 
 
+FLASH_SWEEP = (     # (B, S, T, H, KH, D, causal): tests/test_kernels.py:47-52,
+    (2, 128, 128, 4, 4, 32, True),      # then ragged S/T, GQA 1/8/16 and
+    (2, 256, 256, 4, 2, 32, True),      # D from 8 to 128
+    (2, 128, 256, 8, 1, 64, False),
+    (2, 100, 100, 8, 2, 24, True),
+    (1, 77, 133, 4, 4, 40, False),
+    (1, 64, 100, 4, 2, 64, True),
+    (1, 65, 65, 2, 2, 8, True),
+    (1, 300, 300, 32, 4, 128, True),
+    (1, 200, 200, 16, 1, 128, True),
+    (2, 257, 257, 32, 2, 128, True),
+)
+SSD_SWEEP = (       # (B, S, H, hd, N): tests/test_kernels.py:70-74, then
+    (2, 64, 8, 16, 16),                 # ragged S, N = 8 and 128, and the
+    (2, 128, 4, 32, 8),                 # mamba2 head (hd 64, N 128)
+    (2, 256, 16, 16, 32),
+    (2, 100, 4, 16, 16),
+    (1, 300, 32, 64, 128),
+    (2, 1000, 4, 64, 128),
+)
+FLASH_PATH = (1, 8192, 32, 2, 128)      # glm4 prefill: B, S, H, KH, D
+SSD_PATH = (8, 8192, 32, 64, 128)       # mamba2 prefill: B, S, H, hd, N
+
+
+def _normal(g, shape, dtype, dev, scale=1.0):
+    import torch
+    return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
+
+
+def check_flash(stats: dict):
+    """flash_attention against ref.flash_attention over FLASH_SWEEP in f32
+    (within 2e-5) and bf16 (within 2e-2), the tolerances of
+    tests/test_kernels.py:62."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa, ref
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(18)
+    cases = 0
+    for B, S, T, H, KH, D, causal in FLASH_SWEEP:
+        for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
+            q = _normal(g, (B, S, H, D), dtype, dev)
+            k = _normal(g, (B, T, KH, D), dtype, dev)
+            v = _normal(g, (B, T, KH, D), dtype, dev)
+            got = fa.flash_attention(q, k, v, causal=causal).float()
+            want = ref.flash_attention(q, k, v, causal=causal).float()
+            if not torch.allclose(got, want, atol=tol, rtol=tol):
+                raise AssertionError(
+                    f"flash_attention outside {tol}: B={B} S={S} T={T} H={H} "
+                    f"KH={KH} D={D} causal={causal} {dtype}: max "
+                    f"{float((got - want).abs().max())}")
+            key = "flash_f32" if dtype == torch.float32 else "flash_bf16"
+            stats[key] = max(stats[key], float((got - want).abs().max()))
+            cases += 1
+    return cases
+
+
+def check_ssd(stats: dict):
+    """ssd_scan against ref.ssd_scan over SSD_SWEEP: f32 y and final state
+    within 2e-3 (tests/test_kernels.py:84), with and without an initial
+    state; bf16 inputs, y within 2e-2 relative (one bf16 rounding of y)
+    and the f32 state within 2e-3."""
+    import torch
+    from repro_torch.kernels import ref, ssd_scan as sk
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(19)
+    cases = 0
+    for B, S, H, P, N in SSD_SWEEP:
+        for dtype, tol in ((torch.float32, 2e-3), (torch.bfloat16, 2e-2)):
+            xh = _normal(g, (B, S, H, P), dtype, dev, 0.5)
+            bv = _normal(g, (B, S, N), dtype, dev, 0.5)
+            cv = _normal(g, (B, S, N), dtype, dev, 0.5)
+            dt = torch.nn.functional.softplus(
+                torch.randn((B, S, H), generator=g, device=dev))
+            a = -torch.exp(torch.randn((H,), generator=g, device=dev) * 0.3)
+            for s0 in (None, _normal(g, (B, H, P, N), torch.float32, dev)):
+                y, st = sk.ssd_scan(xh, bv, cv, dt, a, s0)
+                yr, str_ = ref.ssd_scan(xh, bv, cv, dt, a, s0)
+                where = (f"B={B} S={S} H={H} hd={P} N={N} {dtype} "
+                         f"state0={s0 is not None}")
+                if not torch.allclose(y.float(), yr.float(), atol=tol,
+                                      rtol=tol):
+                    raise AssertionError(
+                        f"ssd_scan y outside {tol}: {where}: max "
+                        f"{float((y.float() - yr.float()).abs().max())}")
+                if not torch.allclose(st, str_, atol=2e-3, rtol=2e-3):
+                    raise AssertionError(
+                        f"ssd_scan state outside 2e-3: {where}: max "
+                        f"{float((st - str_).abs().max())}")
+                stats["ssd"] = max(stats["ssd"], float(
+                    (y.float() - yr.float()).abs().max()))
+                cases += 1
+    return cases
+
+
+def time_flash(record: dict) -> dict:
+    """flash_attention at one glm4 layer's prefill (B=1, S=8192, H=32,
+    KH=2, D=128, bf16, causal), held to its plain version there, beside
+    scaled_dot_product_attention (timed only: the port never calls it).
+    Bound: the larger of the causal FLOPs (4 D H per unmasked pair,
+    S(S+1)/2 pairs) at 989 TFLOP/s and q, k, v, o once at 3.35 TB/s."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa, ref
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(20)
+    B, S, H, KH, D = FLASH_PATH
+    q = _normal(g, (B, S, H, D), torch.bfloat16, dev)
+    k = _normal(g, (B, S, KH, D), torch.bfloat16, dev)
+    v = _normal(g, (B, S, KH, D), torch.bfloat16, dev)
+    got = fa.flash_attention(q, k, v).float()
+    want = ref.flash_attention(q, k, v).float()
+    err = float((got - want).abs().max())
+    if not torch.allclose(got, want, atol=2e-2, rtol=2e-2):
+        raise AssertionError(f"flash_attention outside 2e-2 at the glm4 "
+                             f"prefill shape: max {err}")
+    del got, want
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    flops = 4 * B * H * D * S * (S + 1) // 2
+    nbytes = 2 * (q.numel() * 2 + k.numel() * 2)
+    t = {"ms": time_ms(lambda: fa.flash_attention(q, k, v), iters=10),
+         "device_ms": device_ms(lambda: fa.flash_attention(q, k, v),
+                                ("flash_bf16",), iters=5),
+         "plain_ms": time_ms(lambda: ref.flash_attention(q, k, v), iters=3,
+                             warmup=1),
+         "bound_ms": max(bound_ms(nbytes), flops / BF16_FLOP_PER_S * 1e3),
+         "bound_by": ("operations" if flops / BF16_FLOP_PER_S
+                      > nbytes / HBM_BYTES_PER_S else "bytes"),
+         "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+             qt, kt, vt, is_causal=True, enable_gqa=True), iters=10),
+         "flops": flops, "bytes": nbytes, "path_max_abs_err": err,
+         "shape": {"B": B, "S": S, "H": H, "KH": KH, "D": D,
+                   "dtype": "bf16", "causal": True}}
+    record["flash_attention"].update(t)
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    return t
+
+
+def ssd_chunked_flops(B, S, H, P, N, L=256) -> int:
+    """Operations of the chunked SSD at chunk L (the JAX model's form):
+    per chunk C B^T (2 L^2 N), and per head the causal intra-chunk product
+    (L(L+1) P), the inter-chunk read of the state and its update
+    (2 L N P each)."""
+    chunks = -(-S // L)
+    return B * chunks * (2 * L * L * N + H * (L * (L + 1) * P
+                                              + 4 * L * N * P))
+
+
+def time_ssd(record: dict) -> dict:
+    """ssd_scan at one mamba2 layer's prefill (B=8, S=8192, H=32, hd=64,
+    N=128, bf16 x/B/C, f32 dt and state), held to its plain version
+    there.  Bound: the larger of its bytes (each input read once, y and
+    the final state written once) at 3.35 TB/s and the chunked form's
+    operations at 989 TFLOP/s.  No single PyTorch call computes it."""
+    import torch
+    from repro_torch.kernels import ref, ssd_scan as sk
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(21)
+    B, S, H, P, N = SSD_PATH
+    xh = _normal(g, (B, S, H, P), torch.bfloat16, dev, 0.5)
+    bv = _normal(g, (B, S, N), torch.bfloat16, dev, 0.5)
+    cv = _normal(g, (B, S, N), torch.bfloat16, dev, 0.5)
+    dt = torch.nn.functional.softplus(
+        torch.randn((B, S, H), generator=g, device=dev))
+    a = -torch.exp(torch.randn((H,), generator=g, device=dev) * 0.3)
+    y, st = sk.ssd_scan(xh, bv, cv, dt, a)
+    yr, sr = ref.ssd_scan(xh, bv, cv, dt, a)
+    err = float((y.float() - yr.float()).abs().max())
+    serr = float((st - sr).abs().max())
+    if not (torch.allclose(y.float(), yr.float(), atol=2e-2, rtol=2e-2)
+            and torch.allclose(st, sr, atol=2e-3, rtol=2e-3)):
+        raise AssertionError(f"ssd_scan off at the mamba2 prefill shape: y "
+                             f"{err}, state {serr}")
+    del y, st, yr, sr
+    nbytes = (2 * xh.numel() * 2 + 2 * bv.numel() * 2 + dt.numel() * 4
+              + H * 4 + B * H * P * N * 4)
+    flops = ssd_chunked_flops(B, S, H, P, N)
+    t = {"ms": time_ms(lambda: sk.ssd_scan(xh, bv, cv, dt, a), iters=10),
+         "device_ms": device_ms(lambda: sk.ssd_scan(xh, bv, cv, dt, a),
+                                ("ssd_kernel",), iters=5),
+         "plain_ms": time_ms(lambda: ref.ssd_scan(xh, bv, cv, dt, a),
+                             iters=3, warmup=1),
+         "bound_ms": max(bound_ms(nbytes), flops / BF16_FLOP_PER_S * 1e3),
+         "bound_by": ("operations" if flops / BF16_FLOP_PER_S
+                      > nbytes / HBM_BYTES_PER_S else "bytes"),
+         "library_ms": None, "flops_chunked": flops,
+         "flops_recurrence": 4 * B * S * H * P * N, "bytes": nbytes,
+         "path_max_abs_err": err, "path_state_max_abs_err": serr,
+         "shape": {"B": B, "S": S, "H": H, "hd": P, "N": N}}
+    record["ssd_scan"].update(t)
+    del xh, bv, cv, dt
+    torch.cuda.empty_cache()
+    return t
+
+
 def phase_kernels(quick: bool, record: dict):
-    emit("kernels", names=["radix_partition", "cas_lock", "grouped_agg"])
-    err = {"rank": 0, "scatter": 0, "cas": 0, "grouped_agg": 0.0}
+    emit("kernels", names=["radix_partition", "cas_lock", "grouped_agg",
+                           "flash_attention", "ssd_scan"])
+    err = {"rank": 0, "scatter": 0, "cas": 0, "grouped_agg": 0.0,
+           "flash_f32": 0.0, "flash_bf16": 0.0, "ssd": 0.0}
     t0 = time.perf_counter()
+    nf = check_flash(err)
+    ns = check_ssd(err)
     nr = check_radix(quick, err)
     nc = check_cas(quick, err)
     ng = check_grouped(quick, err)
@@ -564,15 +780,21 @@ def phase_kernels(quick: bool, record: dict):
     record["cas_lock"]["max_abs_err"] = err["cas"]
     record["grouped_agg"]["max_abs_err"] = err["grouped_agg"]
     record["grouped_sum_u32"]["max_abs_err"] = 0
+    record["flash_attention"]["max_abs_err"] = max(err["flash_f32"],
+                                                   err["flash_bf16"])
+    record["ssd_scan"]["max_abs_err"] = err["ssd"]
+    timing = {"flash_attention": time_flash(record),
+              "ssd_scan": time_ssd(record)}
     time_kernels(record)
-    timing = {k: {kk: record[k][kk] for kk in (
+    timing.update({k: {kk: record[k][kk] for kk in (
         "ms", "device_ms", "plain_ms", "bound_ms", "library_ms", "shape")}
-        for k in OLTP_KERNELS}
+        for k in OLTP_KERNELS})
     timing.update(time_grouped(quick, record))
     timing.update(time_radix_join(quick))
-    emit("kernels_checked", radix_cases=nr, cas_cases=nc,
-         grouped_agg_cases=ng, radix_join_A=join_a,
-         seconds=time.perf_counter() - t0, gpu=smi(), timing=timing)
+    emit("kernels_checked", flash_cases=nf, ssd_cases=ns, radix_cases=nr,
+         cas_cases=nc, grouped_agg_cases=ng, radix_join_A=join_a,
+         max_abs_err=err, seconds=time.perf_counter() - t0, gpu=smi(),
+         timing=timing)
 
 
 # ----------------------------------------------------------- main path --
@@ -715,13 +937,91 @@ def phase_fig6(quick: bool):
              plan_builds=r["plan_builds"], stats=r["stats"], gpu=smi())
 
 
+def phase_serve(quick: bool, record: dict):
+    """Each model at its full published config (--quick: 4 layers, S=1024)
+    through src/repro_torch/bench/serve.py.  Every timed prefill step must
+    launch its model's kernel once a layer and nothing else; every engine
+    wave must launch cas_lock and nothing else; the engine's tokens must
+    equal the plain engine's; the lock words end at 0.  Logits: the step
+    on the weights cut to their first layer group (all of the path's code,
+    one launch of the kernel) within LOGIT_TOL of the plain path's, and
+    finite at full depth, where the difference and the argmax agreement
+    are reported: 40 and 48 bf16 layers amplify any difference of rounding
+    (PERF.md).  The phase line is printed before a failure is raised."""
+    import torch
+    from repro_torch.bench import serve
+    for arch, kernel in SERVE_ARCHS.items():
+        cfg = serve.config(arch, 4 if quick else None)
+        batch, seq = serve.PREFILL[arch]
+        seq = 1024 if quick else seq
+        t0 = time.perf_counter()
+        params = serve.weights(cfg, device="cuda")
+        torch.cuda.synchronize()
+        nbytes = sum(t.numel() * t.element_size() for t in
+                     _leaves(params))
+        pre = serve.prefill(cfg, params, batch=batch, seq=seq)
+        eng = serve.engine(cfg, params)
+        plain = serve.engine(cfg, params, impl="plain")
+        failures = []
+        for launches in pre["launches"]:
+            if launches[kernel] != cfg.num_layers:
+                failures.append(f"prefill launched {kernel} "
+                                f"{launches[kernel]} times, not "
+                                f"{cfg.num_layers}")
+        for name in ("first_group", "full"):
+            if not pre[name]["finite"]:
+                failures.append(f"prefill logits ({name}) not finite")
+        pre["first_group"]["held_to"] = LOGIT_TOL
+        if pre["first_group"]["max_abs_diff"] > LOGIT_TOL:
+            failures.append(
+                f"prefill logits of the first layer group differ from the "
+                f"plain path by {pre['first_group']['max_abs_diff']} > "
+                f"{LOGIT_TOL}")
+        if not pre["full"]["step_agrees"]:
+            failures.append("the prefill step's token is not the argmax of "
+                            "its logits")
+        if any(v for w in plain["waves"] for v in w["launches"].values()):
+            failures.append("the plain engine launched a kernel")
+        if eng["outs"] != plain["outs"]:
+            failures.append("engine tokens differ from the plain engine's")
+        if not (eng["lock_words_zero"] and plain["lock_words_zero"]):
+            failures.append("the engine left slot locks held")
+        if len(eng["outs"]) != serve.REQUESTS:
+            failures.append(f"the engine finished {len(eng['outs'])} "
+                            "requests")
+        emit("serve", arch=arch, layers=cfg.num_layers,
+             weights_bytes=nbytes, prefill=pre,
+             engine={k: v for k, v in eng.items() if k != "outs"},
+             engine_plain_s=plain["seconds"],
+             tokens_equal=eng["outs"] == plain["outs"], failures=failures,
+             seconds=time.perf_counter() - t0, gpu=smi())
+        if failures:
+            raise AssertionError(f"serve {arch}: " + "; ".join(failures))
+        for launches in pre["launches"]:
+            _count((kernel,), launches, record, f"serve {arch} prefill")
+        for w in eng["waves"]:
+            _count(("cas_lock",), w["launches"], record,
+                   f"serve {arch} engine wave")
+        del params, pre, eng, plain
+        torch.cuda.empty_cache()
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
 # ---------------------------------------------------------------- main ---
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES))
     ap.add_argument("--quick", action="store_true",
-                    help="small sweep and 2 waves (a first look only)")
+                    help="small sweep, 2 waves, serve at 4 layers and "
+                    "S=1024 (a first look only)")
     ap.add_argument("--out", default=None,
                     help="also append every phase line to this file")
     args = ap.parse_args(argv)
@@ -754,10 +1054,19 @@ def main(argv=None) -> int:
         "grouped_sum_u32": {
             "source": "src/repro_torch/kernels/csrc/grouped_agg.cu",
             "replaces": "src/repro/kernels/grouped_agg.py:41"},
+        "flash_attention": {
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:67"},
+        "ssd_scan": {
+            "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+            "replaces": "src/repro/kernels/ssd_scan.py:55"},
     }
     paths = {"radix_partition_rank": "oltp, olap",
-             "radix_partition_scatter": "oltp, olap", "cas_lock": "oltp",
-             "grouped_agg": "fig8b kernel row", "grouped_sum_u32": "olap"}
+             "radix_partition_scatter": "oltp, olap",
+             "cas_lock": "oltp, serve engine waves",
+             "grouped_agg": "fig8b kernel row", "grouped_sum_u32": "olap",
+             "flash_attention": "serve glm4-9b prefill",
+             "ssd_scan": "serve mamba2-370m prefill"}
     for name, r in record.items():
         r.update(route="cuda", launches=0, paths=paths[name])
     if "env" in phases:
@@ -772,6 +1081,8 @@ def main(argv=None) -> int:
         phase_olap(args.quick, record)
     if "fig6" in phases:
         phase_fig6(args.quick)
+    if "serve" in phases:
+        phase_serve(args.quick, record)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "paths")
     print(json.dumps({"kernels": [

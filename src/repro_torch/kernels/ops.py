@@ -12,9 +12,11 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import cas_lock as _cas
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import grouped_agg as _ga
 from repro_torch.kernels import radix_partition as _rp
 from repro_torch.kernels import ref
+from repro_torch.kernels import ssd_scan as _ssd
 
 IMPLS = ("kernel", "plain")
 
@@ -35,13 +37,17 @@ def launch_counts() -> dict:
             "radix_partition_scatter": _rp.launches["scatter"],
             "cas_lock": _cas.launches["cas"],
             "grouped_agg": _ga.launches["f32"],
-            "grouped_sum_u32": _ga.launches["u32"]}
+            "grouped_sum_u32": _ga.launches["u32"],
+            "flash_attention": _fa.launches["flash"],
+            "ssd_scan": _ssd.launches["ssd"]}
 
 
 def reset_launch_counts():
     _rp.launches.update(rank=0, scatter=0)
     _cas.launches.update(cas=0)
     _ga.launches.update(f32=0, u32=0)
+    _fa.launches.update(flash=0)
+    _ssd.launches.update(ssd=0)
 
 
 def rank(dest, n: int, cap: int, *, impl=None):
@@ -101,3 +107,20 @@ def grouped_sum_u32(slot, vals, num_slots: int, *, impl=None,
     if resolve_impl(slot, impl) == "kernel":
         return _ga.grouped_sum_u32(slot, vals, num_slots)
     return ref.grouped_sum_u32(slot, vals, num_slots, check=check)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, impl=None):
+    """Blockwise GQA attention (the Pallas ``flash_attention``'s
+    function): q (B, S, H, D), k/v (B, T, KH, D) -> (B, S, H, D) in q's
+    dtype, head h reading kv head h // (H // KH)."""
+    if resolve_impl(q, impl) == "kernel":
+        return _fa.flash_attention(q, k, v, causal=causal)
+    return ref.flash_attention(q, k, v, causal=causal)
+
+
+def ssd_scan(xh, bv, cv, dt, a, state0=None, *, impl=None):
+    """The Mamba2 SSD scan: (y (B, S, H, hd) in xh's dtype, final state
+    (B, H, hd, N) f32), from ``state0`` (zeros if None)."""
+    if resolve_impl(xh, impl) == "kernel":
+        return _ssd.ssd_scan(xh, bv, cv, dt, a, state0)
+    return ref.ssd_scan(xh, bv, cv, dt, a, state0)

@@ -156,3 +156,82 @@ def grouped_sum_u32(slot, vals, num_slots: int, *, check: bool = False):
                       device=slot.device)
     out.index_add_(0, idx, u32(vals))
     return to_i32(out[:num_slots])
+
+
+NEG_INF = -1e30
+_ATTN_ROWS = 1024      # query rows a block of the plain attention
+_SSD_CHUNK = 64        # steps a block of the plain SSD
+
+
+def flash_attention(q, k, v, *, causal: bool = True):
+    """Plain twin of ``flash_attention.flash_attention`` (the JAX
+    ``ref.flash_attention``): full softmax in f32 over every key, masked
+    scores at -1e30, out in q's dtype.  q (B, S, H, D), k/v (B, T, KH, D),
+    head h reads kv head h // (H // KH).  It takes 1024 query rows at a
+    time, so the scores of a long prompt never fill memory at once; rows
+    are independent, so that changes nothing."""
+    B, S, H, D = q.shape
+    T, KH = k.shape[1], k.shape[2]
+    G = H // KH
+    kk = k.to(torch.float32).repeat_interleave(G, dim=2)
+    vv = v.to(torch.float32).repeat_interleave(G, dim=2)
+    kpos = torch.arange(T, device=q.device)
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    for s0 in range(0, S, _ATTN_ROWS):
+        qc = q[:, s0:s0 + _ATTN_ROWS].to(torch.float32)
+        sc = torch.einsum("bshd,bthd->bhst", qc, kk) * D ** -0.5
+        if causal:
+            qpos = torch.arange(s0, s0 + qc.shape[1], device=q.device)
+            sc = torch.where(kpos[None, :] <= qpos[:, None], sc, NEG_INF)
+        p = torch.softmax(sc, dim=-1)
+        out[:, s0:s0 + _ATTN_ROWS] = torch.einsum(
+            "bhst,bthd->bshd", p, vv).to(q.dtype)
+    return out
+
+
+def ssd_scan(xh, bv, cv, dt, a, state0=None):
+    """Plain twin of ``ssd_scan.ssd_scan``: the SSD recurrence in its
+    chunked form (``repro.models.ssm.ssd_chunked``'s arithmetic, in f32),
+    over any S (the last chunk is padded with dt = 0, which leaves the
+    state alone).  xh (B, S, H, hd), bv/cv (B, S, N), dt (B, S, H) f32,
+    a (H,) f32, state0 (B, H, hd, N) f32 or None.  Returns (y in xh's
+    dtype, final state f32).  It takes ``_SSD_CHUNK`` steps a block; the
+    kernel runs the recurrence step by step."""
+    Bsz, S, H, P = xh.shape
+    N = bv.shape[-1]
+    L = _SSD_CHUNK
+    pad = (-S) % L
+    f32 = torch.float32
+
+    def blocks(t, *tail):
+        t = t.to(f32)
+        if pad:
+            t = torch.cat([t, t.new_zeros((Bsz, pad) + tuple(tail))], 1)
+        return t.reshape((Bsz, (S + pad) // L, L) + tuple(tail))
+
+    x, b, c, d = (blocks(xh, H, P), blocks(bv, N), blocks(cv, N),
+                  blocks(dt, H))
+    a = a.to(f32)
+    state = (torch.zeros((Bsz, H, P, N), dtype=f32, device=xh.device)
+             if state0 is None else state0.to(f32).clone())
+    mask = torch.tril(torch.ones((L, L), dtype=torch.bool,
+                                 device=xh.device))[None, :, :, None]
+    ys = []
+    for ci in range(x.shape[1]):
+        xc, bc, cc, dc = x[:, ci], b[:, ci], c[:, ci], d[:, ci]
+        seg = torch.cumsum(dc * a, dim=1)                    # (B, L, H)
+        # inter-chunk: y_i += C_i . state * exp(seg_i)
+        y_inter = (torch.einsum("bln,bhpn->blhp", cc, state)
+                   * torch.exp(seg)[..., None])
+        # intra-chunk: (C_i . B_j) exp(seg_i - seg_j) dt_j x_j, j <= i
+        cb = torch.einsum("bin,bjn->bij", cc, bc)
+        decay = torch.exp(seg[:, :, None, :] - seg[:, None, :, :])
+        m = torch.where(mask, decay * dc[:, None, :, :], 0.0)  # (B,i,j,H)
+        y_intra = torch.einsum("bijh,bjhp->bihp", cb[..., None] * m, xc)
+        # state update
+        w = torch.exp(seg[:, -1:, :] - seg) * dc             # (B, L, H)
+        state = (state * torch.exp(seg[:, -1])[:, :, None, None]
+                 + torch.einsum("blhp,bln->bhpn", w[..., None] * xc, bc))
+        ys.append(y_inter + y_intra)
+    y = torch.stack(ys, 1).reshape(Bsz, S + pad, H, P)[:, :S]
+    return y.to(xh.dtype), state

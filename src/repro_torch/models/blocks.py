@@ -1,0 +1,183 @@
+"""Layer-group machinery (a port of ``repro.models.blocks``).
+
+Every architecture is normalized to a *group pattern*: a short list of
+blocks (each a tuple of sublayers) that repeats G times.  Parameters are
+stacked over G as in the JAX package; the port runs the groups in a Python
+loop instead of a ``lax.scan``.  The JAX ``RS_OUTPUTS`` sharding toggle has
+no meaning on one card and is not copied.
+
+The port runs the sublayer kinds ``attn`` (GQA), ``ssm`` and ``mlp``.
+MoE, MLA and cross-attention raise ``NotImplementedError`` naming the
+ROADMAP item that brings them.
+"""
+from __future__ import annotations
+
+from repro_torch.models import attention as A
+from repro_torch.models import ssm as S
+from repro_torch.models.common import apply_mlp, build_mlp, rmsnorm
+
+_LATER = {
+    "moe": "MoE layers (models/moe.py, RRJ dispatch over the port's router) "
+           "come with ROADMAP queue 1 item 6",
+    "mla": "MLA attention (deepseek) comes with ROADMAP queue 1 item 6",
+    "cross": "cross-attention (vlm, encdec) comes with ROADMAP queue 1 "
+             "item 6",
+}
+
+
+def not_ported(what: str):
+    return NotImplementedError(f"not ported yet: {_LATER[what]}")
+
+
+def group_pattern(cfg):
+    """Returns (pattern, G, has_pre_layer). pattern: list of block tuples.
+    Plain data for every family, ported or not."""
+    fam = cfg.family
+    if fam in ("dense", "vlm") or (fam == "moe" and cfg.moe is None):
+        pat = [("attn", "mlp")]
+        if fam == "vlm" and cfg.cross_attn_every:
+            per = cfg.cross_attn_every
+            pat = [("attn", "mlp")] * (per - 1) + [("cross", "mlp")]
+        G, r = divmod(cfg.num_layers, len(pat))
+        assert r == 0, (cfg.name, cfg.num_layers, len(pat))
+        return pat, G, False
+    if fam == "moe":
+        m = cfg.moe
+        pre = m.first_dense > 0
+        layers = cfg.num_layers - m.first_dense
+        pat = []
+        for o in range(m.period):
+            gi = m.first_dense + o
+            pat.append(("attn", "moe" if (gi + 1) % m.period == 0
+                        or m.period == 1 else "mlp"))
+        if m.period == 1:
+            pat = [("attn", "moe")]
+        G, r = divmod(layers, len(pat))
+        assert r == 0, (cfg.name, layers, len(pat))
+        return pat, G, pre
+    if fam == "ssm":
+        return [("ssm",)], cfg.num_layers, False
+    if fam == "hybrid":
+        per = cfg.attn_every
+        m = cfg.moe
+        pat = []
+        for o in range(per):
+            mixer = "attn" if o == per - 1 else "ssm"
+            ffn = "mlp"
+            if m is not None and (o + 1) % m.period == 0:
+                ffn = "moe"
+            pat.append((mixer, ffn))
+        G, r = divmod(cfg.num_layers, per)
+        assert r == 0, (cfg.name, cfg.num_layers, per)
+        return pat, G, False
+    if fam == "encdec":
+        return [("attn", "cross", "mlp")], cfg.num_layers, False
+    raise ValueError(fam)
+
+
+def build_sublayer(cfg, mk, kind: str):
+    p = {"norm": mk((cfg.d_model,), "zeros")}
+    if kind == "attn":
+        if cfg.mla:
+            raise not_ported("mla")
+        p.update(A.build_gqa(cfg, mk))
+    elif kind == "ssm":
+        p.update(S.build_ssm(cfg, mk))
+    elif kind == "mlp":
+        p.update(build_mlp(cfg, mk))
+    elif kind in ("moe", "cross"):
+        raise not_ported(kind)
+    else:
+        raise ValueError(kind)
+    return p
+
+
+def build_group(cfg, mk, pattern):
+    return {f"b{i}_{'_'.join(blk)}":
+            {f"s{j}_{kind}": build_sublayer(cfg, mk, kind)
+             for j, kind in enumerate(blk)}
+            for i, blk in enumerate(pattern)}
+
+
+def _sublayers(gp):
+    """(block name, sublayer name, kind) in the JAX package's order."""
+    for bname in sorted(gp):
+        for sname in sorted(gp[bname]):
+            yield bname, sname, sname.split("_", 1)[1]
+
+
+def apply_sublayer(cfg, p, kind, x, *, impl=None):
+    """Full-sequence sublayer with pre-norm and residual."""
+    h = rmsnorm(x, p["norm"], cfg.norm_eps)
+    if kind == "attn":
+        if cfg.mla:
+            raise not_ported("mla")
+        y = A.apply_gqa(cfg, p, h, impl=impl)
+    elif kind == "ssm":
+        y = S.apply_ssm(cfg, p, h, impl=impl)
+    elif kind == "mlp":
+        y = apply_mlp(cfg, p, h)
+    elif kind in ("moe", "cross"):
+        raise not_ported(kind)
+    else:
+        raise ValueError(kind)
+    return x + y
+
+
+def apply_group(cfg, gp, x, *, impl=None):
+    for bname, sname, kind in _sublayers(gp):
+        x = apply_sublayer(cfg, gp[bname][sname], kind, x, impl=impl)
+    return x
+
+
+# ------------------------------------------------------------- decode -----
+
+def sublayer_cache_shape(cfg, kind: str, batch: int, seq: int, kve: int):
+    """{leaf: (shape, dtype)} of one sublayer's decode state, or None."""
+    if kind == "attn":
+        if cfg.mla:
+            raise not_ported("mla")
+        return A.gqa_cache_shape(cfg, batch, seq, kve)
+    if kind == "cross":
+        raise not_ported("cross")
+    if kind == "ssm":
+        return S.ssm_state_shape(cfg, batch)
+    return None
+
+
+def group_cache_shape(cfg, pattern, batch: int, seq: int, kve: int):
+    out = {}
+    for i, blk in enumerate(pattern):
+        b = {}
+        for j, kind in enumerate(blk):
+            cs = sublayer_cache_shape(cfg, kind, batch, seq, kve)
+            if cs is not None:
+                b[f"s{j}_{kind}"] = cs
+        if b:
+            out[f"b{i}_{'_'.join(blk)}"] = b
+    return out
+
+
+def apply_sublayer_decode(cfg, p, kind, x, cache, pos):
+    """One-token sublayer; its cache is updated in place."""
+    h = rmsnorm(x, p["norm"], cfg.norm_eps)
+    if kind == "attn":
+        if cfg.mla:
+            raise not_ported("mla")
+        y, cache = A.apply_gqa_decode(cfg, p, h, cache, pos)
+    elif kind == "ssm":
+        y, cache = S.apply_ssm_decode(cfg, p, h, cache)
+    elif kind == "mlp":
+        y = apply_mlp(cfg, p, h)
+    elif kind in ("moe", "cross"):
+        raise not_ported(kind)
+    else:
+        raise ValueError(kind)
+    return x + y, cache
+
+
+def apply_group_decode(cfg, gp, x, caches, pos):
+    for bname, sname, kind in _sublayers(gp):
+        c = caches.get(bname, {}).get(sname)
+        x, _ = apply_sublayer_decode(cfg, gp[bname][sname], kind, x, c, pos)
+    return x

@@ -3,7 +3,9 @@
   * no module of ``src/repro_torch`` and not ``chip_smoke.py`` imports
     ``jax`` or anything of the JAX package ``repro``;
   * with no card present, every entry point that was not given
-    ``device=`` raises instead of running on the CPU;
+    ``device=`` (the database, the transport, the store, the model's
+    parameters, the serving engine and its launcher) raises instead of
+    running on the CPU;
   * a kernel wrapper given a CPU tensor raises before it builds anything.
 """
 import ast
@@ -15,8 +17,13 @@ import torch
 from repro_torch import fabric
 from repro_torch._bits import resolve_device
 from repro_torch.core import rsi
+from repro_torch.configs import get_config, reduce_config
 from repro_torch.db import Database
-from repro_torch.kernels import cas_lock, grouped_agg, ops, radix_partition
+from repro_torch.kernels import (cas_lock, flash_attention, grouped_agg, ops,
+                                 radix_partition, ssd_scan)
+from repro_torch.launch import serve as launch_serve
+from repro_torch.models import api
+from repro_torch.serving import ServeEngine
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
@@ -44,7 +51,7 @@ def test_port_files_found():
     names = {p.name for p in PORT_FILES}
     assert {"chip_smoke.py", "rsi.py", "router.py", "ops.py"} <= names
     assert len(list((ROOT / "src" / "repro_torch" / "kernels" / "csrc")
-                    .glob("*.cu"))) == 3
+                    .glob("*.cu"))) == 5
 
 
 @pytest.fixture
@@ -61,7 +68,17 @@ def test_entry_points_raise_without_a_card(no_card):
         rsi.init_store(rsi.StoreCfg(num_records=4))
     with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device("cuda")
+    cfg = reduce_config(get_config("glm4-9b"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        api.init_params(cfg)
+    params = api.init_params(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ServeEngine(cfg, params)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        launch_serve.main(["--arch", "glm4-9b", "--smoke"])
     assert Database(device="cpu").device == torch.device("cpu")
+    assert ServeEngine(cfg, params, device="cpu").device == \
+        torch.device("cpu")
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -80,7 +97,20 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         grouped_agg.grouped_sum_u32(d, d, 4)
     with pytest.raises(ValueError, match="kernel"):
         ops.grouped_sum_u32(d, d, 4, impl="kernel")
+    q = torch.zeros((1, 4, 2, 8))
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention.flash_attention(q, q, q)
+    with pytest.raises(ValueError, match="kernel"):
+        ops.flash_attention(q, q, q, impl="kernel")
+    x, bc, dt = torch.zeros((1, 4, 2, 8)), torch.zeros((1, 4, 16)), \
+        torch.zeros((1, 4, 2))
+    with pytest.raises(ValueError, match="CUDA"):
+        ssd_scan.ssd_scan(x, bc, bc, dt, torch.zeros(2))
+    with pytest.raises(ValueError, match="kernel"):
+        ops.ssd_scan(x, bc, bc, dt, torch.zeros(2), impl="kernel")
     before = ops.launch_counts()
     ops.cas(d.clone(), d, d, d + 1, d)            # plain on the CPU
     ops.grouped_agg(d, d.float(), 4)
+    ops.flash_attention(q, q, q)
+    ops.ssd_scan(x, bc, bc, dt, torch.zeros(2))
     assert ops.launch_counts() == before
