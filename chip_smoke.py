@@ -11,7 +11,10 @@ exits non-zero:
   kernels  each hand-written kernel held against its plain PyTorch
            version over a sweep of shapes (bit-exact; the f32 grouped_agg
            within atol 1e-3, rtol 1e-4 on random floats; flash_attention
-           within 2e-5 in f32 and 2e-2 in bf16, ssd_scan within 2e-3),
+           within 2e-5 in f32 and 2e-2 in bf16, and in bf16 each query
+           row's rms difference within ROW_TOL of its rms, at S up to 2048
+           and at glm4's S = 8192, where a control with one key tile
+           dropped must read above ROW_TOL; ssd_scan within 2e-3),
            radix_partition
            also at the joins' A = 128 000 000, then each timed at the
            main paths' shapes (per call between CUDA events, and its device
@@ -41,9 +44,13 @@ exits non-zero:
            (src/repro_torch/bench/serve.py): glm4-9b and mamba2-370m with
            bf16 weights drawn on the card; the prefill step (glm4 B=1,
            mamba2 B=8, S=8192; median of 3 after a warm-up) must launch
-           flash_attention / ssd_scan once a layer, its logits are held
-           against the plain path (on the first layer group; reported at
-           full depth); then ServeEngine(slots=8,
+           flash_attention / ssd_scan once a layer; every layer's kernel is
+           held to its plain version on that layer's inputs at every
+           position (within ROW_TOL, a faulty plain version reading above
+           it), and the full-depth logits with f32 weights within
+           F32_LOGIT_TOL wherever a 2^-20 nudge of the embedding moves the
+           plain path's less (the bf16 full-depth difference is
+           reported); then ServeEngine(slots=8,
            max_seq=1024) serves 16 requests in two waves, each wave must
            launch cas_lock, and its tokens must equal a plain engine's
 
@@ -64,6 +71,7 @@ paths named in its "paths"), the card's name and power limit
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import statistics
 import subprocess
@@ -76,8 +84,11 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 peak
 BF16_FLOP_PER_S = 989e12           # H100 SXM dense bf16 tensor cores
 PHASES = ("env", "build", "kernels", "oltp", "olap", "fig6", "serve")
 SERVE_ARCHS = {"glm4-9b": "flash_attention", "mamba2-370m": "ssd_scan"}
-LOGIT_TOL = 0.1                  # bf16 logits, kernel path vs plain path,
-                                 # first layer group (PERF.md)
+ROW_TOL = 2 ** -6        # bf16, kernel vs plain: rms(diff) / rms(plain)
+                         # per row (a query row of one head; an SSD output
+                         # row of one head), the worst row
+F32_LOGIT_TOL = 0.05     # f32 weights and activations, full depth: last-
+                         # position logits, kernel path vs plain path
 MAIN_T, MAIN_WAVES = 4096, 8     # checkouts per wave, waves (the store's
                                  # widths: configs/paper_nam.py::OLTP)
 FIG6_ITERS = 40                  # timed commits per fig6 run
@@ -579,6 +590,8 @@ FLASH_SWEEP = (     # (B, S, T, H, KH, D, causal): tests/test_kernels.py:47-52,
     (1, 300, 300, 32, 4, 128, True),
     (1, 200, 200, 16, 1, 128, True),
     (2, 257, 257, 32, 2, 128, True),
+    (1, 2048, 2048, 4, 2, 64, True),    # long: tiles far from the start,
+    (1, 2048, 2048, 8, 2, 128, True),   # f32 held at 2e-5
 )
 SSD_SWEEP = (       # (B, S, H, hd, N): tests/test_kernels.py:70-74, then
     (2, 64, 8, 16, 16),                 # ragged S, N = 8 and 128, and the
@@ -600,8 +613,11 @@ def _normal(g, shape, dtype, dev, scale=1.0):
 def check_flash(stats: dict):
     """flash_attention against ref.flash_attention over FLASH_SWEEP in f32
     (within 2e-5) and bf16 (within 2e-2), the tolerances of
-    tests/test_kernels.py:62."""
+    tests/test_kernels.py:62; in bf16 also each query row's rms difference
+    within ROW_TOL of its rms (2e-2 is about the size of a late row's
+    values at long S, so it alone would not see a fault there)."""
     import torch
+    from repro_torch.bench.serve import row_rel_err
     from repro_torch.kernels import flash_attention as fa, ref
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(18)
@@ -618,6 +634,14 @@ def check_flash(stats: dict):
                     f"flash_attention outside {tol}: B={B} S={S} T={T} H={H} "
                     f"KH={KH} D={D} causal={causal} {dtype}: max "
                     f"{float((got - want).abs().max())}")
+            if dtype == torch.bfloat16:
+                row = row_rel_err(got, want)
+                if row > ROW_TOL:
+                    raise AssertionError(
+                        f"flash_attention bf16 row error {row} > {ROW_TOL}: "
+                        f"B={B} S={S} T={T} H={H} KH={KH} D={D} "
+                        f"causal={causal}")
+                stats["flash_bf16_row"] = max(stats["flash_bf16_row"], row)
             key = "flash_f32" if dtype == torch.float32 else "flash_bf16"
             stats[key] = max(stats[key], float((got - want).abs().max()))
             cases += 1
@@ -666,10 +690,13 @@ def time_flash(record: dict) -> dict:
     """flash_attention at one glm4 layer's prefill (B=1, S=8192, H=32,
     KH=2, D=128, bf16, causal), held to its plain version there, beside
     scaled_dot_product_attention (timed only: the port never calls it).
-    Bound: the larger of the causal FLOPs (4 D H per unmasked pair,
-    S(S+1)/2 pairs) at 989 TFLOP/s and q, k, v, o once at 3.35 TB/s."""
+    Held within 2e-2 and, row by row, within ROW_TOL; a control, the plain
+    version with one key tile dropped, must read above ROW_TOL.  Bound: the
+    larger of the causal FLOPs (4 D H per unmasked pair, S(S+1)/2 pairs) at
+    989 TFLOP/s and q, k, v, o once at 3.35 TB/s."""
     import torch
     import torch.nn.functional as F
+    from repro_torch.bench.serve import row_rel_err
     from repro_torch.kernels import flash_attention as fa, ref
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(20)
@@ -680,9 +707,15 @@ def time_flash(record: dict) -> dict:
     got = fa.flash_attention(q, k, v).float()
     want = ref.flash_attention(q, k, v).float()
     err = float((got - want).abs().max())
+    row = row_rel_err(got, want)
+    control = row_rel_err(_attn_tile_dropped(q, k, v), want)
     if not torch.allclose(got, want, atol=2e-2, rtol=2e-2):
         raise AssertionError(f"flash_attention outside 2e-2 at the glm4 "
                              f"prefill shape: max {err}")
+    if not row <= ROW_TOL < control:
+        raise AssertionError(f"flash_attention at the glm4 prefill shape: "
+                             f"row error {row}, control {control}, limit "
+                             f"{ROW_TOL}")
     del got, want
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     flops = 4 * B * H * D * S * (S + 1) // 2
@@ -698,6 +731,7 @@ def time_flash(record: dict) -> dict:
          "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
              qt, kt, vt, is_causal=True, enable_gqa=True), iters=10),
          "flops": flops, "bytes": nbytes, "path_max_abs_err": err,
+         "path_row_err": row, "path_row_err_control": control,
          "shape": {"B": B, "S": S, "H": H, "KH": KH, "D": D,
                    "dtype": "bf16", "causal": True}}
     record["flash_attention"].update(t)
@@ -767,7 +801,8 @@ def phase_kernels(quick: bool, record: dict):
     emit("kernels", names=["radix_partition", "cas_lock", "grouped_agg",
                            "flash_attention", "ssd_scan"])
     err = {"rank": 0, "scatter": 0, "cas": 0, "grouped_agg": 0.0,
-           "flash_f32": 0.0, "flash_bf16": 0.0, "ssd": 0.0}
+           "flash_f32": 0.0, "flash_bf16": 0.0, "flash_bf16_row": 0.0,
+           "ssd": 0.0}
     t0 = time.perf_counter()
     nf = check_flash(err)
     ns = check_ssd(err)
@@ -937,17 +972,87 @@ def phase_fig6(quick: bool):
              plan_builds=r["plan_builds"], stats=r["stats"], gpu=smi())
 
 
+# ------------------------------------------------------------ controls --
+# Plain versions with a fault a kernel could have: a control reading of a
+# check must land above its limit, or the check could not see that fault.
+
+def _attn_tile_dropped(q, k, v, *, causal: bool = True):
+    """ref.flash_attention (causal) with the 64-key tile [S/2, S/2 + 64)
+    hidden from every query after it, as a kernel that skipped one tile
+    would compute."""
+    import torch
+    B, S, H, D = q.shape
+    G = H // k.shape[2]
+    lo = S // 2 // 64 * 64
+    kk = k.float().repeat_interleave(G, dim=2)
+    vv = v.float().repeat_interleave(G, dim=2)
+    kpos = torch.arange(k.shape[1], device=q.device)
+    out = torch.empty_like(q)
+    for s0 in range(0, S, 1024):
+        qc = q[:, s0:s0 + 1024].float()
+        qpos = torch.arange(s0, s0 + qc.shape[1], device=q.device)[:, None]
+        keep = (kpos <= qpos) & ~((kpos >= lo) & (kpos < lo + 64)
+                                  & (qpos >= lo + 64))
+        sc = torch.einsum("bshd,bthd->bhst", qc, kk) * D ** -0.5
+        p = torch.softmax(sc.masked_fill(~keep, -1e30), dim=-1)
+        out[:, s0:s0 + 1024] = torch.einsum("bhst,bthd->bshd", p,
+                                            vv).to(q.dtype)
+    return out
+
+
+def _ssd_state_dropped(xh, bv, cv, dt, a, state0=None):
+    """ref.ssd_scan with the state not carried across the chunk boundary
+    nearest S/2, as a kernel that lost its state there would compute."""
+    import torch
+    from repro_torch.kernels import ref
+    mid = max(xh.shape[1] // 2 // 256 * 256, 1)
+    y1, _ = ref.ssd_scan(xh[:, :mid], bv[:, :mid], cv[:, :mid], dt[:, :mid],
+                         a, state0)
+    y2, st = ref.ssd_scan(xh[:, mid:], bv[:, mid:], cv[:, mid:], dt[:, mid:],
+                          a)
+    return torch.cat([y1, y2], dim=1), st
+
+
+@contextlib.contextmanager
+def faulty_plain(kernel: str):
+    """Within the block, ``ops.<kernel>`` with impl="plain" runs the faulty
+    control above; the kernel path is left alone."""
+    from repro_torch.kernels import ops
+    orig = getattr(ops, kernel)
+    fault = {"flash_attention": _attn_tile_dropped,
+             "ssd_scan": _ssd_state_dropped}[kernel]
+
+    def patched(*args, impl=None, **kw):
+        if impl == "plain":
+            return fault(*args, **kw)
+        return orig(*args, impl=impl, **kw)
+    setattr(ops, kernel, patched)
+    try:
+        yield
+    finally:
+        setattr(ops, kernel, orig)
+
+
 def phase_serve(quick: bool, record: dict):
     """Each model at its full published config (--quick: 4 layers, S=1024)
     through src/repro_torch/bench/serve.py.  Every timed prefill step must
     launch its model's kernel once a layer and nothing else; every engine
     wave must launch cas_lock and nothing else; the engine's tokens must
-    equal the plain engine's; the lock words end at 0.  Logits: the step
-    on the weights cut to their first layer group (all of the path's code,
-    one launch of the kernel) within LOGIT_TOL of the plain path's, and
-    finite at full depth, where the difference and the argmax agreement
-    are reported: 40 and 48 bf16 layers amplify any difference of rounding
-    (PERF.md).  The phase line is printed before a failure is raised."""
+    equal the plain engine's; the lock words end at 0.  Logits and layers:
+
+    * every layer's kernel against its plain version on that layer's own
+      inputs in a kernel-path forward over the prefill prompt, at every
+      position, within ROW_TOL; the same check with a faulty plain path (a
+      dropped key tile, a state not carried) on the first layer must read
+      above ROW_TOL;
+    * the full-depth last-position logits with f32 weights and activations
+      within F32_LOGIT_TOL, argmax equal, wherever the plain path with its
+      embedding nudged by 2^-20 stays within F32_LOGIT_TOL of itself (a
+      model whose depth amplifies that nudge beyond the limit cannot be
+      held at full depth; its witness is reported, and the layer check
+      holds its kernel).  The bf16 full-depth difference is reported.
+
+    The phase line is printed before a failure is raised."""
     import torch
     from repro_torch.bench import serve
     for arch, kernel in SERVE_ARCHS.items():
@@ -960,26 +1065,46 @@ def phase_serve(quick: bool, record: dict):
         nbytes = sum(t.numel() * t.element_size() for t in
                      _leaves(params))
         pre = serve.prefill(cfg, params, batch=batch, seq=seq)
+        tokens = serve.prompt(cfg, batch, seq, params["embed"].device)
+        layers = serve.layer_check(cfg, params, tokens)
+        with faulty_plain(kernel):
+            layers["control"] = serve.layer_check(cfg, params, tokens,
+                                                  groups=1)["max"]
+        del tokens
         eng = serve.engine(cfg, params)
         plain = serve.engine(cfg, params, impl="plain")
+        del params
+        torch.cuda.empty_cache()
+        f32 = serve.f32_witness(cfg, batch=batch, seq=seq, device="cuda")
+        torch.cuda.empty_cache()
         failures = []
         for launches in pre["launches"]:
             if launches[kernel] != cfg.num_layers:
                 failures.append(f"prefill launched {kernel} "
                                 f"{launches[kernel]} times, not "
                                 f"{cfg.num_layers}")
-        for name in ("first_group", "full"):
-            if not pre[name]["finite"]:
-                failures.append(f"prefill logits ({name}) not finite")
-        pre["first_group"]["held_to"] = LOGIT_TOL
-        if pre["first_group"]["max_abs_diff"] > LOGIT_TOL:
-            failures.append(
-                f"prefill logits of the first layer group differ from the "
-                f"plain path by {pre['first_group']['max_abs_diff']} > "
-                f"{LOGIT_TOL}")
+        if not (pre["full"]["finite"] and f32["kernel"]["finite"]):
+            failures.append("prefill logits not finite")
         if not pre["full"]["step_agrees"]:
             failures.append("the prefill step's token is not the argmax of "
                             "its logits")
+        if len(layers["per_layer"]) != cfg.num_layers:
+            failures.append(f"the layer check read "
+                            f"{len(layers['per_layer'])} kernel calls")
+        if layers["max"] > ROW_TOL:
+            failures.append(f"layer {layers['worst_layer']}'s {kernel} "
+                            f"differs from the plain path by "
+                            f"{layers['max']} > {ROW_TOL}")
+        if not layers["control"] > ROW_TOL:
+            failures.append(f"the layer check read {layers['control']} on "
+                            f"a faulty plain path, not above {ROW_TOL}")
+        f32["held"] = f32["nudged"]["max_abs_diff"] <= F32_LOGIT_TOL
+        if f32["held"] and (f32["kernel"]["max_abs_diff"] > F32_LOGIT_TOL
+                            or f32["kernel"]["argmax_agree"] < 1):
+            failures.append(f"f32 full-depth logits differ from the plain "
+                            f"path by {f32['kernel']['max_abs_diff']} "
+                            f"(limit {F32_LOGIT_TOL}), argmax agreement "
+                            f"{f32['kernel']['argmax_agree']}")
         if any(v for w in plain["waves"] for v in w["launches"].values()):
             failures.append("the plain engine launched a kernel")
         if eng["outs"] != plain["outs"]:
@@ -990,7 +1115,9 @@ def phase_serve(quick: bool, record: dict):
             failures.append(f"the engine finished {len(eng['outs'])} "
                             "requests")
         emit("serve", arch=arch, layers=cfg.num_layers,
-             weights_bytes=nbytes, prefill=pre,
+             weights_bytes=nbytes, prefill=pre, layer_check=layers,
+             layer_check_held_to=ROW_TOL, f32_full=f32,
+             f32_held_to=F32_LOGIT_TOL,
              engine={k: v for k, v in eng.items() if k != "outs"},
              engine_plain_s=plain["seconds"],
              tokens_equal=eng["outs"] == plain["outs"], failures=failures,
@@ -1002,8 +1129,7 @@ def phase_serve(quick: bool, record: dict):
         for w in eng["waves"]:
             _count(("cas_lock",), w["launches"], record,
                    f"serve {arch} engine wave")
-        del params, pre, eng, plain
-        torch.cuda.empty_cache()
+        del pre, eng, plain
 
 
 def _leaves(tree):

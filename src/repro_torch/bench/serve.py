@@ -1,29 +1,27 @@
 """Model serving on the card: a prefill step and the dense engine.
 
-The runner behind ``chip_smoke.py`` phase ``serve``.  For one architecture
-at its full published config (``config(arch, layers)`` cuts the depth for
-a quick look), with bf16 weights drawn on the device from seed 0:
+The library behind ``chip_smoke.py`` phase ``serve``.  For one
+architecture at its full published config (``config(arch, layers)`` cuts
+the depth for a quick look), with bf16 weights drawn on the device from
+seed 0:
 
-* **prefill**: ``build_prefill_step`` on a (batch, seq) prompt of random
-  tokens, one warm-up step, then ``iters`` timed steps (host clock around
-  a synchronized step), each between a reset and a read of the kernel
-  launch counts.  Then the last-position logits of the kernel path and of
-  the plain path (``impl="plain"``) on the same tokens, at full depth and
-  on the first layer group alone, and one profiled step: device time by
-  kernel.
-* **engine**: ``ServeEngine(slots, max_seq)`` runs ``requests`` requests
-  (prompts of 16-64 tokens from a numpy seed, ``max_new`` new tokens each)
-  in waves of ``slots``; launches are counted per wave.  A second engine
-  with ``impl="plain"`` runs the same requests on the same weights; the
-  tokens must agree bit for bit and every slot lock word must end at 0.
-
-    PYTHONPATH=src python -m repro_torch.bench.serve --arch glm4-9b
+* :func:`prefill`: ``build_prefill_step`` on a (batch, seq) prompt of
+  random tokens, one warm-up step, then ``iters`` timed steps (host clock
+  around a synchronized step), each between a reset and a read of the
+  kernel launch counts; the full-depth last-position logits of the kernel
+  path against the plain path (``impl="plain"``); one profiled step.
+* :func:`layer_check`: every layer's kernel against its plain version on
+  that layer's own inputs in a kernel-path forward, at every position.
+* :func:`f32_witness`: the full-depth logits of both paths with f32
+  weights and activations, and of the plain path against itself with its
+  embedding nudged.
+* :func:`engine`: ``ServeEngine(slots, max_seq)`` runs ``requests``
+  requests (prompts of 16-64 tokens from a numpy seed, ``max_new`` new
+  tokens each) in waves of ``slots``; launches are counted per wave.
 """
 from __future__ import annotations
 
-import argparse
 import dataclasses
-import json
 import statistics
 import time
 
@@ -41,6 +39,10 @@ from repro_torch.train.train_step import build_prefill_step
 PREFILL = {"glm4-9b": (1, 8192), "mamba2-370m": (8, 8192)}
 SLOTS, MAX_SEQ, REQUESTS, MAX_NEW = 8, 1024, 16, 32
 PROMPT_LENS = (16, 64)
+KERNELS = ("flash_attention", "ssd_scan")     # the model path's kernels
+NUDGE = 2.0 ** -20     # relative, about the kernel and plain paths' f32
+                       # difference in one layer (the f32 flash sweep's
+                       # error, 9.5e-7)
 
 
 def config(arch: str, layers=None):
@@ -49,23 +51,45 @@ def config(arch: str, layers=None):
                                                           num_layers=layers)
 
 
-def weights(cfg, *, device=None):
-    """bf16 parameters drawn on the device from seed 0."""
+def weights(cfg, *, device=None, dtype=torch.bfloat16):
+    """Parameters drawn on the device from seed 0."""
     device = resolve_device(device)
     return api.init_params(cfg, torch.Generator(device).manual_seed(0),
-                           dtype=torch.bfloat16, device=device)
+                           dtype=dtype, device=device)
 
 
-def first_group(params):
-    """The same weights cut to their first layer group."""
-    return dict(params, groups=lm.tree_map(lambda t: t[:1],
-                                           params["groups"]))
+def prompt(cfg, batch: int, seq: int, device) -> torch.Tensor:
+    """(batch, seq) random tokens from seed 1."""
+    g = torch.Generator(device).manual_seed(1)
+    return torch.randint(0, cfg.vocab_size, (batch, seq), generator=g,
+                         device=device)
 
 
 def last_logits(cfg, params, tokens, *, impl=None) -> torch.Tensor:
-    """f32 logits of the last position (the prefill step's argmax input)."""
-    logits, _ = api.forward(cfg, params, tokens, impl=impl)
-    return logits[:, -1].float()
+    """f32 logits of the last position (the prefill step's argmax input);
+    the head runs on that position alone."""
+    x = lm.forward_hidden(cfg, params, tokens, impl=impl)
+    return lm._head(cfg, params, x[:, -1:])[:, 0].float()
+
+
+def row_rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The largest over rows (every index but the last) of rms(got - want)
+    / rms(want) along the last axis: a difference measured against the
+    size of the values it compares, row by row, so that rows of small
+    values are held as tightly as rows of large ones."""
+    want = want.float()
+    num = (got.float() - want).pow(2).mean(-1).sqrt()
+    den = want.pow(2).mean(-1).sqrt().clamp_min(1e-30)
+    return float((num / den).max())
+
+
+def compare(k: torch.Tensor, pl: torch.Tensor) -> dict:
+    """Kernel-path logits k against plain-path logits pl, (B, V)."""
+    return {"max_abs_diff": float((k - pl).abs().max()),
+            "max_abs_logit": float(pl.abs().max()),
+            "finite": bool(torch.isfinite(k).all()),
+            "argmax_agree": float((k.argmax(-1) == pl.argmax(-1))
+                                  .float().mean())}
 
 
 def _sync_s(fn, dev):
@@ -93,12 +117,10 @@ def _peak(dev):
 
 def prefill(cfg, params, *, batch: int, seq: int, iters: int = 3,
             profiled: bool = True) -> dict:
-    """Time the prefill step; compare its logits with the plain path's;
-    profile one step (``profiled``, the card only)."""
+    """Time the prefill step; compare its full-depth logits with the plain
+    path's; profile one step (``profiled``, the card only)."""
     dev = params["embed"].device
-    g = torch.Generator(dev).manual_seed(1)
-    tokens = torch.randint(0, cfg.vocab_size, (batch, seq), generator=g,
-                           device=dev)
+    tokens = prompt(cfg, batch, seq, dev)
     step = build_prefill_step(cfg)
     batch_in = {"tokens": tokens}
     step(params, batch_in)                                   # warm-up
@@ -114,21 +136,78 @@ def prefill(cfg, params, *, batch: int, seq: int, iters: int = 3,
     out = {"batch": batch, "seq": seq, "times_s": times, "median_s": med,
            "tokens_per_s": batch * seq / med, "peak_bytes": peak,
            "launches": launches}
-    for name, p in (("full", params), ("first_group", first_group(params))):
-        k = last_logits(cfg, p, tokens)
-        pl = last_logits(cfg, p, tokens, impl="plain")
-        out[name] = {
-            "max_abs_diff": float((k - pl).abs().max()),
-            "max_abs_logit": float(pl.abs().max()),
-            "finite": bool(torch.isfinite(k).all()),
-            "argmax_agree": float((k.argmax(-1) == pl.argmax(-1))
-                                  .float().mean()),
-            "step_agrees": bool(torch.equal(nxt[:, 0], k.argmax(-1)))
-            if name == "full" else None}
-        del k, pl
+    k = last_logits(cfg, params, tokens)
+    out["full"] = dict(compare(k, last_logits(cfg, params, tokens,
+                                              impl="plain")),
+                       step_agrees=bool(torch.equal(nxt[:, 0],
+                                                    k.argmax(-1))))
     if profiled:
         out["profile"] = profile(lambda: step(params, batch_in))
         torch.cuda.empty_cache()
+    return out
+
+
+@torch.inference_mode()
+def layer_check(cfg, params, tokens, *, groups=None) -> dict:
+    """A forward over ``tokens`` on the kernel path in which every kernel
+    call (``ops.flash_attention``, ``ops.ssd_scan``) is also run plain on
+    the same inputs: each layer's kernel, on that layer's own inputs, held
+    at every position by :func:`row_rel_err` (rows along the head width).
+    The forward carries the kernel's output on, so no layer's difference
+    carries into the next one's reading.  ``groups`` cuts the forward to
+    the first groups."""
+    readings = []
+
+    def both(name, fn):
+        def call(*args, impl=None, **kw):
+            out = fn(*args, impl=impl, **kw)
+            plain = fn(*args, impl="plain", **kw)
+            if name == "ssd_scan":                  # (y, final state)
+                readings.append(row_rel_err(out[0], plain[0]))
+            else:
+                readings.append(row_rel_err(out, plain))
+            return out
+        return call
+    if groups is not None:
+        params = dict(params, groups=lm.tree_map(lambda t: t[:groups],
+                                                 params["groups"]))
+    saved = {n: getattr(ops, n) for n in KERNELS}
+    for n, fn in saved.items():
+        setattr(ops, n, both(n, fn))
+    try:
+        lm.forward_hidden(cfg, params, tokens)
+    finally:
+        for n, fn in saved.items():
+            setattr(ops, n, fn)
+    return {"per_layer": readings, "max": max(readings),
+            "worst_layer": readings.index(max(readings))}
+
+
+def f32_witness(cfg, *, batch: int, seq: int, device=None) -> dict:
+    """The prefill's last-position logits with f32 weights (seed 0) and
+    f32 activations, the same model as the bf16 runs with the bf16
+    rounding taken away: ``kernel``, the kernel path against the plain
+    path; ``nudged``, the plain path against itself with every embedding
+    weight moved by ``NUDGE`` relative.  Where ``nudged`` is as far apart
+    as ``kernel``, the depth amplifies any difference of rounding and the
+    full-depth logits cannot tell a sound kernel from a faulty one."""
+    saved = lm.ACT_DTYPE
+    lm.ACT_DTYPE = torch.float32
+    try:
+        params = weights(cfg, device=device, dtype=torch.float32)
+        dev = params["embed"].device
+        tokens = prompt(cfg, batch, seq, dev)
+        pl = last_logits(cfg, params, tokens, impl="plain")
+        out = {"kernel": compare(last_logits(cfg, params, tokens), pl)}
+        emb = params["embed"]
+        noise = torch.randn(emb.shape, generator=torch.Generator(dev)
+                            .manual_seed(3), device=dev)
+        params["embed"] = emb * (1.0 + NUDGE * noise)
+        del emb, noise
+        out["nudged"] = compare(last_logits(cfg, params, tokens,
+                                            impl="plain"), pl)
+    finally:
+        lm.ACT_DTYPE = saved
     return out
 
 
@@ -209,19 +288,3 @@ def engine(cfg, params, *, slots: int = SLOTS, max_seq: int = MAX_SEQ,
             "peak_bytes": _peak(dev),
             "lock_words_zero": bool((eng.slot_words == 0).all()),
             "fabric": eng.db.fabric_stats()}
-
-
-def main(argv=None):
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--arch", default="glm4-9b", choices=sorted(PREFILL))
-    args = ap.parse_args(argv)
-    cfg = config(args.arch)
-    params = weights(cfg)
-    batch, seq = PREFILL[args.arch]
-    print(json.dumps({"prefill": prefill(cfg, params, batch=batch, seq=seq),
-                      "engine": {k: v for k, v in engine(cfg, params).items()
-                                 if k != "outs"}}, default=str))
-
-
-if __name__ == "__main__":
-    main()

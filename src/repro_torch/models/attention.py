@@ -12,7 +12,6 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ops
 from repro_torch.models.common import apply_rope, rope_angles
 
@@ -40,15 +39,15 @@ def grouped_attend(q, k, v, *, causal: bool, q_pos=None, kv_len=None,
     0..S-1); kv_len: valid KV prefix length (decode), None = all valid.
     Returns (B, S, K, G, hd_v).
 
-    The causal full-sequence case (no kv_len, default positions, T == S,
-    a head width the kernel takes) goes to the flash kernel, with heads
-    flattened so that head k*G + g reads kv head k.  Otherwise scores are
+    The causal full-sequence case (no kv_len, default positions, T == S)
+    goes to the flash kernel, with heads flattened so that head k*G + g
+    reads kv head k; the kernel's wrapper raises on a shape it does not
+    take.  Otherwise scores are
     taken in f32 over query chunks, masked at -1e30, softmaxed, and p is
     cast to v's dtype before P.V, as in the JAX chunked path."""
     B, S, K, G, hd = q.shape
     T = k.shape[1]
-    if (causal and kv_len is None and q_pos is None and T == S
-            and v.shape[-1] == hd and _fa.takes_head_dim(hd)):
+    if causal and kv_len is None and q_pos is None and T == S:
         out = ops.flash_attention(q.reshape(B, S, K * G, hd), k, v,
                                   causal=True, impl=impl)
         return out.reshape(B, S, K, G, hd)

@@ -9,9 +9,12 @@
   logits against its f32 ones), as in tests/test_torch_models.py.
 * The prefill step's tokens equal JAX's ``build_prefill_step``'s (f32).
 * ``paged=True`` raises; the launcher runs on the CPU; the card's serve
-  runner (``repro_torch.bench.serve``) rehearses at a small size.
+  runner (``repro_torch.bench.serve``) rehearses at a small size, and its
+  layer check reads above ``chip_smoke.ROW_TOL`` when the plain path has
+  the faults of ``chip_smoke``'s controls.
 """
 import dataclasses
+import importlib.util
 import os
 import subprocess
 import sys
@@ -170,4 +173,54 @@ def test_serve_runner_rehearses_on_cpu():
     assert a["outs"] == b["outs"] and len(a["outs"]) == 6
     assert a["lock_words_zero"] and [w["requests"] for w in a["waves"]] == \
         [4, 2]
+    tokens = bench_serve.prompt(cfg, 2, 32, torch.device("cpu"))
+    layers = bench_serve.layer_check(cfg, params, tokens)
+    assert layers["per_layer"] == [0.0] * cfg.num_layers  # both plain here
+    f32 = bench_serve.f32_witness(cfg, batch=2, seq=32, device="cpu")
+    assert f32["kernel"]["max_abs_diff"] == 0.0
+    assert f32["kernel"]["argmax_agree"] == 1.0
+    assert 0.0 < f32["nudged"]["max_abs_diff"] < 1e-3
+    assert lm.ACT_DTYPE == torch.bfloat16               # restored
     assert not any(ops.launch_counts().values())
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("arch,kernel", [("glm4-9b", "flash_attention"),
+                                         ("mamba2-370m", "ssd_scan")])
+def test_layer_check_sees_a_faulty_plain_path(arch, kernel):
+    """chip_smoke's control: with one key tile dropped from the plain
+    attention, or the SSM state not carried across the middle chunk
+    boundary, the serve runner's layer check reads above ROW_TOL on the
+    first layer, where the sound paths read 0 on the CPU; the layer check
+    leaves ops as it found it."""
+    smoke = _chip_smoke()
+    cfg = reduce_config(get_config(arch))
+    params = bench_serve.weights(cfg, device="cpu")
+    tokens = bench_serve.prompt(cfg, 2, 512, torch.device("cpu"))
+    assert bench_serve.layer_check(cfg, params, tokens, groups=1)["max"] \
+        == 0.0
+    with smoke.faulty_plain(kernel):
+        control = bench_serve.layer_check(cfg, params, tokens, groups=1)
+    assert control["max"] > smoke.ROW_TOL
+    assert ops.flash_attention.__module__ == ops.__name__
+    assert ops.ssd_scan.__module__ == ops.__name__
+    assert bench_serve.layer_check(cfg, params, tokens, groups=1)["max"] \
+        == 0.0                                           # restored
+
+
+def test_row_rel_err_reads_rows_on_their_own_scale():
+    """A difference of 1 % of a row's rms reads 0.01 in a row of small
+    values as in a row of large ones; the worst row is reported."""
+    want = torch.tensor([[100.0, -100.0], [0.01, -0.01]])
+    got = want.clone()
+    got[1] += 1e-4
+    assert bench_serve.row_rel_err(got, want) == pytest.approx(1e-2, rel=1e-3)
+    got[0] += 10.0
+    assert bench_serve.row_rel_err(got, want) == pytest.approx(0.1, rel=1e-3)
