@@ -7,12 +7,14 @@ exits non-zero:
   env      torch / CUDA / nvcc / triton versions, the card and its power
            limit
   build    nvcc builds every kernel source in src/repro_torch/kernels/csrc
-           for sm_90a, one process per source, all at once
+           for sm_90a, one process per source, all at once; the flash
+           library's SASS must hold HGMMA and UTMALDG (the bf16 body's
+           wgmma and TMA loads)
   kernels  each hand-written kernel held against its plain PyTorch
            version over a sweep of shapes (bit-exact; the f32 grouped_agg
            within atol 1e-3, rtol 1e-4 on random floats; flash_attention
            within 2e-5 in f32 and 2e-2 in bf16, and in bf16 each query
-           row's rms difference within ROW_TOL of its rms, at S up to 2048
+           row's rms difference within ROW_TOL of its rms, at S up to 4096
            and at glm4's S = 8192, where a control with one key tile
            dropped must read above ROW_TOL; ssd_scan within 2e-3),
            radix_partition
@@ -20,7 +22,8 @@ exits non-zero:
            main paths' shapes (per call between CUDA events, and its device
            time from torch.profiler) beside its plain version, the nearest
            single PyTorch call and its bound (the larger of bytes / 3.35
-           TB/s and operations / 989 TFLOP/s)
+           TB/s and operations / 989 TFLOP/s; flash also its TFLOP/s
+           and share of the bound)
   oltp     the OLTP path at the paper's §4.3 width: Database(device="cuda")
            with 1 000 000 products of 1 KB (+131 072 insert rows), 8 waves
            of 4096 checkout sessions (Session.begin/get/put ->
@@ -73,6 +76,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -194,17 +198,34 @@ def _nvcc():
     return build.nvcc()
 
 
+def sass_counts(name: str, ops=("HGMMA", "UTMALDG")) -> dict:
+    """How often each instruction occurs in a built library's SASS
+    (``cuobjdump -sass``)."""
+    from repro_torch.kernels import build
+    cuobjdump = str(Path(build.nvcc()).parent / "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(build.library_path(name))],
+                          capture_output=True, text=True, check=True).stdout
+    return {op: len(re.findall(rf"\b{op}\b", sass)) for op in ops}
+
+
 def phase_build():
     from repro_torch.kernels import build
     t0 = time.perf_counter()
     report = build.build()
     secs = time.perf_counter() - t0
-    # ptxas -v: registers / shared memory / spills per kernel
+    # ptxas -v: registers / shared memory / spills per kernel, and what it
+    # says of setmaxnreg and wgmma
     ptxas = {name: [ln.strip() for ln in log.splitlines()
-                    if "registers" in ln or "spill" in ln]
+                    if any(w in ln for w in ("registers", "spill",
+                                             "setmaxnreg", "wgmma"))]
              for name, log in report.items()}
+    # the bf16 flash body is wgmma fed by TMA, or the build fails
+    flash_sass = sass_counts("flash_attention")
     emit("build", seconds=secs, sources=list(report), ptxas=ptxas,
-         dir=str(build.BUILD_DIR.relative_to(ROOT)))
+         flash_sass=flash_sass, dir=str(build.BUILD_DIR.relative_to(ROOT)))
+    if not all(flash_sass.values()):
+        raise AssertionError(f"flash_attention's SASS lacks an instruction "
+                             f"of its design: {flash_sass}")
 
 
 def _rand_dest(g, A, n, dev):
@@ -592,6 +613,8 @@ FLASH_SWEEP = (     # (B, S, T, H, KH, D, causal): tests/test_kernels.py:47-52,
     (2, 257, 257, 32, 2, 128, True),
     (1, 2048, 2048, 4, 2, 64, True),    # long: tiles far from the start,
     (1, 2048, 2048, 8, 2, 128, True),   # f32 held at 2e-5
+    (2, 200, 330, 16, 2, 128, False),   # ragged across the bf16 body's
+    (1, 4096, 4096, 8, 1, 64, True),    # 128-row tiles; long at D = 64
 )
 SSD_SWEEP = (       # (B, S, H, hd, N): tests/test_kernels.py:70-74, then
     (2, 64, 8, 16, 16),                 # ragged S, N = 8 and 128, and the
@@ -734,6 +757,8 @@ def time_flash(record: dict) -> dict:
          "path_row_err": row, "path_row_err_control": control,
          "shape": {"B": B, "S": S, "H": H, "KH": KH, "D": D,
                    "dtype": "bf16", "causal": True}}
+    t["tflop_per_s"] = flops / t["ms"] / 1e9
+    t["bound_share"] = t["bound_ms"] / t["ms"]
     record["flash_attention"].update(t)
     del q, k, v, qt, kt, vt
     torch.cuda.empty_cache()

@@ -15,26 +15,37 @@
 //   asserts block multiples; that is Pallas's limit, not the function's).
 //
 // Bound: operations at long S (a causal glm4 layer at S = 8192: 4 S^2 D H / 2
-// = 550 GFLOP against 0.25 GB of q, k, v and o).  The design is the simple
-// one: one block of 4 warps per (64-row query tile, head, batch); each key
-// tile of 64 rows is staged in shared memory, zero-padded to DP columns.
+// = 550 GFLOP against 0.25 GB of q, k, v and o).
 //
-//   bf16: both products on the tensor cores through nvcuda::wmma 16x16x16
-//         fragments (f32 accumulators).  Each warp owns 16 query rows: it
-//         writes its scores to shared memory, two lanes a row run the
-//         online softmax, and the f32 output accumulator lives in shared
-//         memory, rescaled by the lanes and reloaded as a wmma accumulator
-//         for P.V.  D a multiple of 8 up to 128, padded to a multiple of 16.
-//   f32:  FMA on the CUDA cores, no TF32, so it agrees with an f32
-//         reference to 2e-5.  Two threads a query row, each with its half of
-//         the tile's scores and of the output in registers; a row's
-//         probabilities pass between the pair by shuffles.
-//
-// No TMA, no wgmma, no pipelining of loads against math: that is the work
-// of the PRs that make it fast.
+//   bf16 (flash_bf16): one block of three warpgroups per (128-row query
+//     tile, head, batch).  Warpgroup 0 is the producer: one thread issues
+//     every load by TMA (Q once; K and V tiles of 128 keys into a ring of
+//     kStages stages, each with full and empty mbarriers) and the group
+//     gives up its registers (setmaxnreg).  Warpgroups 1 and 2 own 64
+//     query rows each and take those registers.  S = Q.K^T is one wgmma
+//     m64n128k16 per 16 columns of D, both operands read from shared
+//     memory through 128-byte-swizzle descriptors, the f32 scores left in
+//     registers (64 a thread).  The online softmax runs there: a row's max
+//     over the quad of lanes that holds it by two shuffles, exp2 with
+//     D^-0.5 log2(e) folded in, the masks only on the diagonal tile and
+//     on the ragged last tile.  P goes to bf16 in registers in wgmma's
+//     A-operand layout (the accumulator's layout is that layout), and
+//     O += P.V is a register-A wgmma with V read MN-major through the
+//     descriptor's transpose bit, so nothing transposes V.  O (64 f32 a
+//     thread), m and l stay in registers to the end.  Tensor maps carry
+//     the true D, so TMA zero-fills columns D..DP-1 and rows past S or T;
+//     DP is 64 or 128.  Query tiles run longest first (the causal tail).
+//     Each consumer runs a tile's S, softmax and P.V in order, waiting on
+//     each product; the two consumers' phases interleave on the SM.
+//   f32 (flash_f32): FMA on the CUDA cores, no TF32, so it agrees with an
+//     f32 reference to 2e-5.  64-row query tiles, one block of 4 warps;
+//     two threads a query row, each with its half of the tile's scores and
+//     of the output in registers; a row's probabilities pass between the
+//     pair by shuffles.
+#include <cuda.h>             // CUtensorMap and its enums (no -lcuda: the
+                              // encoder is found at run time)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include <cmath>
@@ -42,12 +53,11 @@
 namespace {
 
 using bf16 = __nv_bfloat16;
-namespace wmma = nvcuda::wmma;
 
 constexpr float kNegInf = -1e30f;
-constexpr int kBQ = 64;       // query rows a block
-constexpr int kBK = 64;       // key rows a tile
-constexpr int kThreads = 128;
+constexpr int kBQ = 64;       // f32: query rows a block
+constexpr int kBK = 64;       // f32: key rows a tile
+constexpr int kThreads = 128; // f32: threads a block
 constexpr unsigned kFull = 0xffffffffu;
 
 // Rows [0, 64) of a strided (rows, D) matrix into shared memory with row
@@ -68,152 +78,527 @@ __device__ __forceinline__ void load_tile(T* dst, int ldd, const T* src,
   }
 }
 
-// ------------------------------------------------------ bf16, wmma ------
+// ------------------------------------------- bf16, wgmma + TMA ring ------
+
+constexpr int kTile = 128;         // query rows a block, key rows a tile
+constexpr int kStages = 2;         // K/V ring depth
+constexpr int kWg = 128;           // threads a warpgroup
+constexpr int kBfThreads = 3 * kWg;
+constexpr int kHalf = kTile * 128; // bytes of 128 rows x 64 bf16 columns:
+                                   // one TMA box, one 128-byte swizzle span
+constexpr int kProducerRegs = 40, kConsumerRegs = 232;
+// 40 * 128 + 232 * 256 = 168 * 384: the registers at launch, redistributed
 
 template <int DP>
 struct BfLayout {
-  static constexpr int LDQ = DP + 8;    // bf16 rows of the Q, K and V tiles
-  static constexpr int LDS = kBK + 4;   // f32 scores
-  static constexpr int LDP = kBK + 8;   // bf16 probabilities
-  static constexpr int LDO = DP + 4;    // f32 output accumulator
-  static constexpr size_t q_off = 0;
-  static constexpr size_t k_off = q_off + sizeof(bf16) * kBQ * LDQ;
-  static constexpr size_t v_off = k_off + sizeof(bf16) * kBK * LDQ;
-  static constexpr size_t s_off = v_off + sizeof(bf16) * kBK * LDQ;
-  static constexpr size_t p_off = s_off + sizeof(float) * kBQ * LDS;
-  static constexpr size_t o_off = p_off + sizeof(bf16) * kBQ * LDP;
-  static constexpr size_t m_off = o_off + sizeof(float) * kBQ * LDO;
-  static constexpr size_t bytes = m_off + sizeof(float) * 2 * kBQ;
+  static constexpr int halves = DP / 64;
+  static constexpr int tile = halves * kHalf;  // a Q, K or V tile
+  static constexpr int q_off = 0;
+  static constexpr int k_off = q_off + tile;
+  static constexpr int v_off = k_off + kStages * tile;
+  static constexpr int bar_off = v_off + kStages * tile;
+  // q_full, then k_full, v_full, k_empty, v_empty: kStages each
+  static constexpr int bars = 1 + 4 * kStages;
+  // + 1024: the swizzle needs 1024-byte aligned tiles
+  static constexpr size_t bytes = bar_off + 8 * bars + 1024;
 };
 
-template <int DP>
-__global__ void __launch_bounds__(kThreads)
-flash_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-           const bf16* __restrict__ v, bf16* __restrict__ o, int S, int T,
-           int H, int KH, int D, int causal, float scale) {
-  using L = BfLayout<DP>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem + L::q_off);
-  bf16* Ks = reinterpret_cast<bf16*>(smem + L::k_off);
-  bf16* Vs = reinterpret_cast<bf16*>(smem + L::v_off);
-  float* Ss = reinterpret_cast<float*>(smem + L::s_off);
-  bf16* Ps = reinterpret_cast<bf16*>(smem + L::p_off);
-  float* Os = reinterpret_cast<float*>(smem + L::o_off);
-  float* Ms = reinterpret_cast<float*>(smem + L::m_off);
-  float* Ls = Ms + kBQ;
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
-  const int q0 = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z;
-  const int kh = h / (H / KH);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const long long q_ld = (long long)H * D, kv_ld = (long long)KH * D;
-  const bf16* kb = k + (long long)b * T * kv_ld + (long long)kh * D;
-  const bf16* vb = v + (long long)b * T * kv_ld + (long long)kh * D;
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
+               "r"(count) : "memory");
+}
 
-  load_tile<bf16, DP>(Qs, L::LDQ,
-                      q + ((long long)b * S + q0) * q_ld + (long long)h * D,
-                      q_ld, min(kBQ, S - q0), D);
-  for (int i = threadIdx.x; i < kBQ * L::LDO; i += kThreads) Os[i] = 0.f;
-  if (threadIdx.x < kBQ) {
-    Ms[threadIdx.x] = kNegInf;
-    Ls[threadIdx.x] = 0.f;
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
+               : "memory");
+}
+
+// Returns once the phase of the given parity has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// One box of a 4-D tensor map (coordinates innermost first) into shared
+// memory; its bytes complete on the barrier.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1, int c2,
+                                         int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(bar) : "memory");
+}
+
+// wgmma's shared-memory matrix descriptor for a 128-byte swizzled operand:
+// start address, leading and stride byte offsets (16-byte units), layout 1.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+// Returns once at most N committed groups of this warpgroup are pending.
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving reads or writes of registers that an
+// asynchronous wgmma owns across the fences around it.
+template <int N>
+__device__ __forceinline__ void pin(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void pin(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// The scores of a 64 x 128 tile, laid out as a wgmma accumulator (below),
+// set to -inf where a key is past T or, with `causal`, after the query.
+__device__ __forceinline__ void mask_tile(float (&sc)[64], int k0, int row0,
+                                          int col0, int T, int causal) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    const int kpos = k0 + 8 * (i / 4) + col0 + (i % 2);
+    const int qpos = row0 + 8 * ((i / 2) % 2);
+    if (kpos >= T || (causal && kpos > qpos)) sc[i] = -INFINITY;
   }
-  // keys a query of this tile can see: k_pos <= q0 + 63 when causal
-  const int kv_end = causal ? min(T, q0 + kBQ) : T;
-  const int r = warp * 16 + lane / 2;   // this lane's softmax row ...
-  const int half = lane & 1;            // ... and half of its 64 keys
-  const int qpos = q0 + r;
+}
 
-  for (int k0 = 0; k0 < kv_end; k0 += kBK) {
-    __syncthreads();                    // the last tile's K, V are spent
-    load_tile<bf16, DP>(Ks, L::LDQ, kb + (long long)k0 * kv_ld, kv_ld,
-                        min(kBK, T - k0), D);
-    load_tile<bf16, DP>(Vs, L::LDQ, vb + (long long)k0 * kv_ld, kv_ld,
-                        min(kBK, T - k0), D);
-    __syncthreads();
+// One key tile of the online softmax for this thread's rows row0 (i = 0)
+// and row0 + 8 (i = 1): the scores become p = 2^(s scale_log2 - m) in
+// place, m moves on, and the output so far is to be scaled by corr.  l is
+// this thread's part of each row's sum; the quad's parts are added at the
+// end (they share m, so they take the same corr).
+__device__ __forceinline__ void softmax_step(float (&sc)[64], float (&m)[2],
+                                             float (&l)[2], float (&corr)[2],
+                                             float scale_log2) {
+  float use[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float mx = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+      mx = fmaxf(mx, fmaxf(sc[4 * j + 2 * i], sc[4 * j + 2 * i + 1]));
+    mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 2));
+    const float m_new = fmaxf(m[i], mx * scale_log2);
+    use[i] = m_new == -INFINITY ? 0.f : m_new;   // a row with no key yet
+    corr[i] = ex2(m[i] - use[i]);
+    m[i] = m_new;
+  }
+  float sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int pp = 0; pp < 32; ++pp) {
+    const int i = pp % 2;
+    sc[2 * pp] = ex2(fmaf(sc[2 * pp], scale_log2, -use[i]));
+    sc[2 * pp + 1] = ex2(fmaf(sc[2 * pp + 1], scale_log2, -use[i]));
+    sum[i] += sc[2 * pp] + sc[2 * pp + 1];
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) l[i] = l[i] * corr[i] + sum[i];
+}
 
-    // scores of the warp's 16 rows against the 64 keys
-    {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[kBK / 16];
+// The output so far, rows row0 and row0 + 8, brought to the new running
+// max.
+template <int N>
+__device__ __forceinline__ void rescale(float (&acc)[N],
+                                        const float (&corr)[2]) {
 #pragma unroll
-      for (int j = 0; j < kBK / 16; ++j) wmma::fill_fragment(acc[j], 0.f);
+  for (int i = 0; i < N; ++i) acc[i] *= corr[(i / 2) % 2];
+}
+
+// p to bf16 pairs: pa[4kk .. 4kk + 3] is the A operand of k-step kk.
+__device__ __forceinline__ void pack_p(const float (&sc)[64],
+                                       uint32_t (&pa)[32]) {
 #pragma unroll
-      for (int kk = 0; kk < DP; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-        wmma::load_matrix_sync(fa, Qs + warp * 16 * L::LDQ + kk, L::LDQ);
+  for (int pp = 0; pp < 32; ++pp)
+    pa[pp] = pack_bf16(sc[2 * pp], sc[2 * pp + 1]);
+}
+
+// d = A (64 x 16, K-major in shared memory)
+// . B (16 x 128), B K-major in shared memory.
+__device__ __forceinline__ void wgmma_ss_n128_init(float (&d)[64], uint64_t a,
+                                                  uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]),
+        "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]),
+        "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]),
+        "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]),
+        "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]),
+        "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]),
+        "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]),
+        "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31]),
+        "=f"(d[32]), "=f"(d[33]), "=f"(d[34]), "=f"(d[35]),
+        "=f"(d[36]), "=f"(d[37]), "=f"(d[38]), "=f"(d[39]),
+        "=f"(d[40]), "=f"(d[41]), "=f"(d[42]), "=f"(d[43]),
+        "=f"(d[44]), "=f"(d[45]), "=f"(d[46]), "=f"(d[47]),
+        "=f"(d[48]), "=f"(d[49]), "=f"(d[50]), "=f"(d[51]),
+        "=f"(d[52]), "=f"(d[53]), "=f"(d[54]), "=f"(d[55]),
+        "=f"(d[56]), "=f"(d[57]), "=f"(d[58]), "=f"(d[59]),
+        "=f"(d[60]), "=f"(d[61]), "=f"(d[62]), "=f"(d[63])
+      : "l"(a), "l"(b), "r"(0));
+}
+
+// d += A (64 x 16, K-major in shared memory)
+// . B (16 x 128), B K-major in shared memory.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a,
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// d += A (64 x 16 bf16 in registers)
+// . B (16 x 128), B MN-major in shared memory (transposed read).
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d += A (64 x 16 bf16 in registers)
+// . B (16 x 64), B MN-major in shared memory (transposed read).
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
+                                         uint64_t b) {
+  wgmma_rs_n128(d, a, b);
+}
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
+                                         uint64_t b) {
+  wgmma_rs_n64(d, a, b);
+}
+
+// S = Q.K^T for 64 query rows at qa and a 128-key tile at kt, issued as
+// one group: one wgmma a 16 columns of DP, both operands K-major.  The
+// first k-step writes sc without reading it, so sc holds nothing live
+// before the product and its registers serve other values in between.
+template <int DP>
+__device__ __forceinline__ void issue_scores(float (&sc)[64], uint32_t qa,
+                                             uint32_t kt) {
+  // Each k-step's descriptors are the base's plus a constant.  The empty
+  // asm hides qa's constancy, so that the compiler derives them here and
+  // does not keep eight loop-invariant ones in registers.
+  asm volatile("" : "+r"(qa));
+  const uint64_t dq = sw128_desc(qa, 16, 1024), dk = sw128_desc(kt, 16, 1024);
+  wg_fence();
+  wgmma_ss_n128_init(sc, dq, dk);
 #pragma unroll
-        for (int j = 0; j < kBK / 16; ++j) {
-          // K stored (key, d) row-major is K^T column-major
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>
-              fb;
-          wmma::load_matrix_sync(fb, Ks + j * 16 * L::LDQ + kk, L::LDQ);
-          wmma::mma_sync(acc[j], fa, fb, acc[j]);
+  for (int kk = 1; kk < DP / 16; ++kk) {
+    const uint32_t off = ((kk / 4) * kHalf + (kk % 4) * 32) >> 4;
+    wgmma_ss_n128(sc, dq + off, dk + off);
+  }
+  wg_commit();
+  pin(sc);
+}
+
+// O += P.V for the 128-key tile of V at vt, issued as one group: one wgmma
+// a 16 keys, P from registers, V read MN-major (rows 16kk .. 16kk + 15;
+// the second 64 columns one half on).
+template <int N>
+__device__ __forceinline__ void issue_pv(float (&acc)[N], uint32_t (&pa)[32],
+                                         uint32_t vt) {
+  const uint64_t dv = sw128_desc(vt, kHalf, 1024);
+  pin(acc);
+  pin(pa);
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < kTile / 16; ++kk) {
+    const uint32_t a[4] = {pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2],
+                           pa[4 * kk + 3]};
+    wgmma_rs(acc, a, dv + ((kk * 16 * 128) >> 4));
+  }
+  wg_commit();
+  pin(acc);
+}
+
+// The K/V ring in shared memory: stages of K and of V tiles, and after the
+// Q barrier, kStages each of full-K, full-V, empty-K and empty-V barriers.
+struct Ring {
+  uint32_t k, v, bars, tile;
+  __device__ uint32_t k_full(int s) const { return bars + 8u * (1 + s); }
+  __device__ uint32_t v_full(int s) const {
+    return bars + 8u * (1 + kStages + s);
+  }
+  __device__ uint32_t k_empty(int s) const {
+    return bars + 8u * (1 + 2 * kStages + s);
+  }
+  __device__ uint32_t v_empty(int s) const {
+    return bars + 8u * (1 + 3 * kStages + s);
+  }
+};
+
+// One consumer step on tile j: S_j = Q.K_j^T, its masks (on the diagonal
+// tile and the ragged last one only) and the online softmax, O rescaled,
+// P_j packed, O += P_j.V_j.
+template <int DP>
+__device__ __forceinline__ void tile_step(
+    int j, const Ring& ring, uint32_t qa, float (&sc)[64],
+    uint32_t (&pa)[32], float (&acc)[DP / 2], float (&m)[2], float (&l)[2],
+    int row0, int col0, int first_row, int T, int causal,
+    float scale_log2) {
+  const int s = j % kStages;
+  const uint32_t parity = (j / kStages) & 1;
+  mbar_wait(ring.k_full(s), parity);
+  issue_scores<DP>(sc, qa, ring.k + s * ring.tile);
+  wg_wait<0>();
+  pin(sc);
+  mbar_arrive(ring.k_empty(s));
+  const int k0 = j * kTile;
+  if (k0 + kTile > T || (causal && k0 + kTile - 1 > first_row))
+    mask_tile(sc, k0, row0, col0, T, causal);
+  float corr[2];
+  softmax_step(sc, m, l, corr, scale_log2);
+  rescale(acc, corr);
+  pack_p(sc, pa);
+  mbar_wait(ring.v_full(s), parity);
+  issue_pv(acc, pa, ring.v + s * ring.tile);
+  wg_wait<0>();
+  pin(acc);
+  pin(pa);
+  mbar_arrive(ring.v_empty(s));
+}
+
+// The accumulator of a 64 x N wgmma: thread t of the warpgroup holds rows
+// r = 16 (t / 32) + (t % 32) / 4 and r + 8, columns 8j + 2 (t % 4) + {0, 1};
+// register 4j + 2i + e is row r + 8i, column 8j + 2 (t % 4) + e.  Its pairs
+// 4kk + {0, 1, 2, 3} (columns 16kk .. 16kk + 15) are, cast to bf16, the
+// register A operand of the k-step kk of the next product.
+template <int DP>
+__global__ void __launch_bounds__(kBfThreads, 1)
+flash_bf16(const __grid_constant__ CUtensorMap tq,
+           const __grid_constant__ CUtensorMap tk,
+           const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o,
+           int S, int T, int H, int KH, int D, int causal, float scale_log2) {
+  using L = BfLayout<DP>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sq = base + L::q_off, sk = base + L::k_off,
+                 sv = base + L::v_off, bars = base + L::bar_off;
+  const uint32_t q_full = bars;
+  const Ring ring{sk, sv, bars, L::tile};
+
+  // heads vary fastest, so every head's longest query tile starts first
+  const int h = blockIdx.x, b = blockIdx.z;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTile;
+  const int kh = h / (H / KH);
+  const int kv_end = causal ? min(T, q0 + kTile) : T;
+  const int n_kt = (kv_end + kTile - 1) / kTile;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(ring.k_full(s), 1);
+      mbar_init(ring.v_full(s), 1);
+      mbar_init(ring.k_empty(s), 2 * kWg);
+      mbar_init(ring.v_empty(s), 2 * kWg);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < kWg) {
+    // ---- producer: one thread keeps the ring full ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(kProducerRegs));
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(q_full, L::tile);
+      for (int hf = 0; hf < L::halves; ++hf)
+        tma_load(sq + hf * kHalf, &tq, q_full, 64 * hf, h, q0, b);
+      for (int j = 0; j < n_kt; ++j) {
+        const int s = j % kStages;
+        const uint32_t free_parity = ((j / kStages) & 1) ^ 1;
+        mbar_wait(ring.k_empty(s), free_parity);
+        mbar_expect_tx(ring.k_full(s), L::tile);
+        for (int hf = 0; hf < L::halves; ++hf)
+          tma_load(sk + s * L::tile + hf * kHalf, &tk, ring.k_full(s),
+                   64 * hf, kh, j * kTile, b);
+        mbar_wait(ring.v_empty(s), free_parity);
+        mbar_expect_tx(ring.v_full(s), L::tile);
+        for (int hf = 0; hf < L::halves; ++hf)
+          tma_load(sv + s * L::tile + hf * kHalf, &tv, ring.v_full(s),
+                   64 * hf, kh, j * kTile, b);
+      }
+    }
+  } else {
+    // ---- consumers: 64 query rows each ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(kConsumerRegs));
+    const int c = threadIdx.x / kWg - 1;
+    const int tid = threadIdx.x % kWg;
+    const int row0 = q0 + 64 * c + 16 * (tid / 32) + (tid % 32) / 4;
+    const int col0 = 2 * (tid % 4);
+    const int first_row = q0 + 64 * c;
+    // this consumer's 64 rows of Q: 64 * 128 bytes into each half
+    const uint32_t qa = sq + 64 * c * 128;
+
+    float sc[64];                 // scores, then p: 64 x 128 over the group
+    uint32_t pa[32];              // p in bf16: the next product's A operand
+    float acc[DP / 2];            // output, 64 x DP
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY};   // running max, log2 units
+    float l[2] = {0.f, 0.f};               // this thread's part of the sum
+
+    // tile j lies in stage j % kStages, in its phase (j / kStages) & 1
+    mbar_wait(q_full, 0);
+    for (int j = 0; j < n_kt; ++j)
+      tile_step<DP>(j, ring, qa, sc, pa, acc, m, l, row0, col0, first_row, T,
+                    causal, scale_log2);
+
+    // o = acc / max(l, 1e-30), rows past S and columns past D not written
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      l[i] += __shfl_xor_sync(kFull, l[i], 1);
+      l[i] += __shfl_xor_sync(kFull, l[i], 2);
+      l[i] = fmaxf(l[i], 1e-30f);
+    }
+    const long long ld = (long long)H * D;
+    bf16* ob = o + (long long)b * S * ld + (long long)h * D;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = row0 + 8 * i;
+      if (row < S) {
+        bf16* orow = ob + row * ld;
+#pragma unroll
+        for (int jj = 0; jj < DP / 8; ++jj) {
+          const int col = 8 * jj + col0;
+          if (col < D)
+            *reinterpret_cast<__nv_bfloat162*>(orow + col) =
+                __floats2bfloat162_rn(acc[4 * jj + 2 * i] / l[i],
+                                      acc[4 * jj + 2 * i + 1] / l[i]);
         }
       }
-#pragma unroll
-      for (int j = 0; j < kBK / 16; ++j)
-        wmma::store_matrix_sync(Ss + warp * 16 * L::LDS + j * 16, acc[j],
-                                L::LDS, wmma::mem_row_major);
-    }
-    __syncwarp();
-
-    // online softmax: two lanes a row, 32 keys each
-    float sv[32];
-    unsigned valid = 0u;
-    float mx = kNegInf;
-#pragma unroll
-    for (int c = 0; c < 32; ++c) {
-      const int col = half * 32 + c, kpos = k0 + col;
-      const bool ok = kpos < T && (!causal || kpos <= qpos);
-      sv[c] = ok ? Ss[r * L::LDS + col] * scale : kNegInf;
-      valid |= (ok ? 1u : 0u) << c;
-      mx = fmaxf(mx, sv[c]);
-    }
-    mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
-    const float m_prev = Ms[r];
-    const float m_new = fmaxf(m_prev, mx);
-    float sum = 0.f;
-#pragma unroll
-    for (int c = 0; c < 32; ++c) {
-      const float p = (valid >> c) & 1u ? expf(sv[c] - m_new) : 0.f;
-      Ps[r * L::LDP + half * 32 + c] = __float2bfloat16(p);
-      sum += p;
-    }
-    sum += __shfl_xor_sync(kFull, sum, 1);
-    const float corr = expf(m_prev - m_new);
-    __syncwarp();                       // both lanes of the row read Ms[r]
-    if (half == 0) {
-      Ms[r] = m_new;
-      Ls[r] = Ls[r] * corr + sum;
-    }
-    for (int d = half; d < DP; d += 2) Os[r * L::LDO + d] *= corr;
-    __syncwarp();
-
-    // acc += P.V on the warp's 16 rows
-#pragma unroll
-    for (int dj = 0; dj < DP; dj += 16) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> oacc;
-      wmma::load_matrix_sync(oacc, Os + warp * 16 * L::LDO + dj, L::LDO,
-                             wmma::mem_row_major);
-#pragma unroll
-      for (int kk = 0; kk < kBK; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fp;
-        wmma::load_matrix_sync(fp, Ps + warp * 16 * L::LDP + kk, L::LDP);
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fv;
-        wmma::load_matrix_sync(fv, Vs + kk * L::LDQ + dj, L::LDQ);
-        wmma::mma_sync(oacc, fp, fv, oacc);
-      }
-      wmma::store_matrix_sync(Os + warp * 16 * L::LDO + dj, oacc, L::LDO,
-                              wmma::mem_row_major);
-    }
-    __syncwarp();
-  }
-
-  for (int i = lane; i < 16 * DP; i += 32) {
-    const int rr = warp * 16 + i / DP, d = i % DP;
-    if (q0 + rr < S && d < D) {
-      const float l = fmaxf(Ls[rr], 1e-30f);
-      o[((long long)b * S + q0 + rr) * q_ld + (long long)h * D + d] =
-          __float2bfloat16(Os[rr * L::LDO + d] / l);
     }
   }
 }
@@ -330,28 +715,90 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
                               (int)bytes);
 }
 
+// cuTensorMapEncodeTiled, looked up in the driver once.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+constexpr int kMapError = 10000;   // + the CUresult of a refused encoding
+
+// A (B, rows, heads, D) bf16 tensor as dims (D, heads, rows, B), innermost
+// first; boxes of 64 columns x 1 head x 128 rows x 1 batch, 128-byte
+// swizzle.  The extent D is the true one: columns D .. 63 (or 127) of a
+// box, and rows past `rows`, read as zeros.
+int tensor_map(CUtensorMap* map, const void* ptr, int B, int rows, int heads,
+               int D) {
+  EncodeTiled encode = encoder();
+  if (encode == nullptr) return kMapError;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads,
+                              (cuuint64_t)rows, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {2ull * D, 2ull * heads * D,
+                                 2ull * rows * heads * D};
+  const cuuint32_t box[4] = {64, 1, kTile, 1};
+  const cuuint32_t step[4] = {1, 1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+      strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kMapError + (int)r;
+}
+
 template <int DP>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int S, int T, int H, int KH, int D, int causal, int is_bf16,
-           cudaStream_t st) {
+int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
+                int S, int T, int H, int KH, int D, int causal,
+                cudaStream_t st) {
+  CUtensorMap mq, mk, mv;
+  int e = tensor_map(&mq, q, B, S, H, D);
+  if (e == 0) e = tensor_map(&mk, k, B, T, KH, D);
+  if (e == 0) e = tensor_map(&mv, v, B, T, KH, D);
+  if (e != 0) return e;
+  const size_t smem = BfLayout<DP>::bytes;
+  static bool smem_allowed[64] = {};     // once per card and width
+  int dev = 0;
+  cudaError_t ce = cudaGetDevice(&dev);
+  if (ce != cudaSuccess) return (int)ce;
+  if (dev >= 64 || !smem_allowed[dev]) {
+    ce = allow_smem(flash_bf16<DP>, smem);
+    if (ce != cudaSuccess) return (int)ce;
+    if (dev < 64) smem_allowed[dev] = true;
+  }
+  const float scale_log2 = (float)(1.4426950408889634 / sqrt((double)D));
+  const dim3 grid(H, (S + kTile - 1) / kTile, B);
+  flash_bf16<DP><<<grid, kBfThreads, smem, st>>>(mq, mk, mv, (bf16*)o, S, T,
+                                                  H, KH, D, causal,
+                                                  scale_log2);
+  return (int)cudaGetLastError();
+}
+
+template <int DP>
+int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
+               int S, int T, int H, int KH, int D, int causal,
+               cudaStream_t st) {
   const float scale = (float)(1.0 / sqrt((double)D));
   const dim3 grid((S + kBQ - 1) / kBQ, H, B);
-  cudaError_t e;
-  if (is_bf16) {
-    const size_t smem = BfLayout<DP>::bytes;
-    e = allow_smem(flash_bf16<DP>, smem);
-    if (e != cudaSuccess) return (int)e;
-    flash_bf16<DP><<<grid, kThreads, smem, st>>>(
-        (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, S, T, H,
-        KH, D, causal, scale);
-  } else {
-    const size_t smem = F32Layout<DP>::bytes;
-    e = allow_smem(flash_f32<DP>, smem);
-    if (e != cudaSuccess) return (int)e;
-    flash_f32<DP><<<grid, kThreads, smem, st>>>(
-        (const float*)q, (const float*)k, (const float*)v, (float*)o, S, T,
-        H, KH, D, causal, scale);
-  }
+  const size_t smem = F32Layout<DP>::bytes;
+  const cudaError_t e = allow_smem(flash_f32<DP>, smem);
+  if (e != cudaSuccess) return (int)e;
+  flash_f32<DP><<<grid, kThreads, smem, st>>>(
+      (const float*)q, (const float*)k, (const float*)v, (float*)o, S, T, H,
+      KH, D, causal, scale);
   return (int)cudaGetLastError();
 }
 
@@ -361,16 +808,22 @@ extern "C" {
 
 // q (B, S, H, D), k/v (B, T, KH, D), o (B, S, H, D), all contiguous, 16-byte
 // aligned, f32 (is_bf16 = 0) or bf16 (is_bf16 = 1).  D a multiple of 8 up
-// to 128, H % KH == 0, S, T >= 1: the wrapper checks.
+// to 128, H % KH == 0, S, T >= 1: the wrapper checks.  Returns 0, a CUDA
+// error, or 10000 + the CUresult of a refused tensor-map encoding.
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                         int B, int S, int T, int H, int KH, int D,
                         int causal, int is_bf16, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  if (is_bf16) {
+    if (D <= 64)
+      return launch_bf16<64>(q, k, v, o, B, S, T, H, KH, D, causal, st);
+    return launch_bf16<128>(q, k, v, o, B, S, T, H, KH, D, causal, st);
+  }
   if (D <= 32)
-    return launch<32>(q, k, v, o, B, S, T, H, KH, D, causal, is_bf16, st);
+    return launch_f32<32>(q, k, v, o, B, S, T, H, KH, D, causal, st);
   if (D <= 64)
-    return launch<64>(q, k, v, o, B, S, T, H, KH, D, causal, is_bf16, st);
-  return launch<128>(q, k, v, o, B, S, T, H, KH, D, causal, is_bf16, st);
+    return launch_f32<64>(q, k, v, o, B, S, T, H, KH, D, causal, st);
+  return launch_f32<128>(q, k, v, o, B, S, T, H, KH, D, causal, st);
 }
 
 }  // extern "C"

@@ -43,8 +43,9 @@ def takes_head_dim(d: int) -> bool:
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """Contiguous, with a 16-byte aligned start (the kernel's copies are
-    16 bytes wide)."""
+    """Contiguous, with a 16-byte aligned start (the f32 body's copies are
+    16 bytes wide, and TMA reads the bf16 tensors from 16-byte aligned
+    addresses)."""
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
@@ -73,7 +74,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if not takes_head_dim(D):
         raise ValueError(f"head dim {D} is not a multiple of 8 up to "
                          f"{MAX_HEAD_DIM}")
-    if min(B, S, T) < 1 or max(B, H) > 65535:
+    if min(B, S, T) < 1 or max(B, H, -(-S // 128)) > 65535:
         raise ValueError(f"B={B}, S={S}, T={T}, H={H} out of the kernel's "
                          "range")
     q, k, v = _aligned(q), _aligned(k), _aligned(v)

@@ -1,0 +1,139 @@
+"""The bf16 flash kernel's arithmetic, emulated in plain torch on the CPU,
+against JAX's ``repro.kernels.ref.flash_attention``.
+
+``flash_bf16`` (``src/repro_torch/kernels/csrc/flash_attention.cu``) walks
+key tiles of 128 rows for query tiles of 128 rows, keeps the running max in
+log2 units and takes ``exp2`` with ``D^-0.5 log2(e)`` folded in, rounds p
+to bf16 against the running max before P.V, rescales O by ``corr`` on
+every tile, and reads D zero-padded to DP (64 or 128).  :func:`emulate`
+repeats that arithmetic; the kernel itself runs on the card only.  The
+emulation is held against JAX's reference on the same numpy inputs:
+
+* with f32 inputs and p kept in f32, within 2e-5 (the algorithm: tiling,
+  folded scale, masks, padding);
+* with bf16 inputs and p in bf16, each query row within ``ROW_TOL`` (rms
+  of the difference over the row's rms, ``chip_smoke.ROW_TOL``): the
+  prediction that 128-key tiles keep the kernel's bf16 rows inside the
+  limit the card holds it to;
+* a control with one key tile dropped reads above both limits.
+"""
+import functools
+import importlib.util
+import math
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ref as jref
+from repro_torch.bench.serve import row_rel_err
+
+ROOT = Path(__file__).resolve().parents[1]
+TILE = 128
+
+
+def _row_tol() -> float:
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.ROW_TOL
+
+
+ROW_TOL = _row_tol()
+
+
+def emulate(q, k, v, *, causal=True, bf16=False, drop_tile=None):
+    """flash_bf16's arithmetic on (B, S, H, D) q and (B, T, KH, D) k, v
+    (f32 tensors holding the inputs' values).  ``bf16`` rounds p before
+    P.V and the output at the end; ``drop_tile`` skips one key tile."""
+    B, S, H, D = q.shape
+    T, KH = k.shape[1], k.shape[2]
+    DP = 64 if D <= 64 else 128
+    pad = (0, DP - D)
+    qh = torch.nn.functional.pad(q, pad).transpose(1, 2)       # B H S DP
+    kh = torch.nn.functional.pad(k, pad).repeat_interleave(H // KH, 2)
+    vh = torch.nn.functional.pad(v, pad).repeat_interleave(H // KH, 2)
+    kh, vh = kh.transpose(1, 2), vh.transpose(1, 2)             # B H T DP
+    scale_log2 = torch.tensor(math.log2(math.e) / math.sqrt(D),
+                              dtype=torch.float32)
+    m = torch.full((B, H, S), -math.inf)
+    l = torch.zeros((B, H, S))
+    acc = torch.zeros((B, H, S, DP))
+    qpos = torch.arange(S)[:, None]
+    for j in range(-(-T // TILE)):
+        if j == drop_tile:
+            continue
+        k0 = j * TILE
+        kpos = torch.arange(k0, min(k0 + TILE, T))[None, :]
+        s = qh @ kh[:, :, k0:k0 + TILE].transpose(-1, -2)
+        valid = kpos < T
+        if causal:
+            valid = valid & (kpos <= qpos)
+        s = s.masked_fill(~valid, -math.inf)
+        m_new = torch.maximum(m, s.amax(-1) * scale_log2)
+        use = torch.where(m_new == -math.inf, 0.0, m_new)
+        corr = torch.exp2(m - use)
+        p = torch.exp2(s * scale_log2 - use[..., None])
+        l = l * corr + p.sum(-1)
+        if bf16:
+            p = p.to(torch.bfloat16).float()
+        acc = acc * corr[..., None] + p @ vh[:, :, k0:k0 + TILE]
+        m = m_new
+    o = (acc / l.clamp_min(1e-30)[..., None])[..., :D].transpose(1, 2)
+    return o.to(torch.bfloat16).float() if bf16 else o
+
+
+@functools.lru_cache(maxsize=None)
+def _case(S, T, H, KH, D, causal, bf16):
+    """Inputs from numpy (seeded by the shape; bf16 values when ``bf16``)
+    as f32 tensors, and JAX's reference output on them."""
+    rng = np.random.default_rng(S * D if bf16 else S + D)
+    arrs = [rng.standard_normal(s).astype(np.float32)
+            for s in ((1, S, H, D), (1, T, KH, D), (1, T, KH, D))]
+    dt = jnp.bfloat16 if bf16 else jnp.float32
+    if bf16:       # round once so both sides get the same bf16 values
+        arrs = [np.asarray(jnp.asarray(a, dt), np.float32) for a in arrs]
+    want = jref.flash_attention(*(jnp.asarray(a, dt) for a in arrs),
+                                causal=causal)
+    return ([torch.from_numpy(a) for a in arrs],
+            torch.from_numpy(np.array(want, np.float32)))
+
+
+# (S, T, H, KH, D, causal): S across one, several and many 128-row tiles
+# (1000 ragged), GQA, D padded to 64 (24), exactly 64, and 128; then
+# non-causal with ragged T
+CASES = [(s, s, 2, 1, d, True) for s in (256, 1000, 2048)
+         for d in (24, 64, 128)] + [(1000, 1100, 8, 1, 128, False),
+                                    (256, 300, 4, 4, 24, False)]
+IDS = [f"S{s}-T{t}-H{h}-KH{kh}-D{d}-{'causal' if c else 'full'}"
+       for s, t, h, kh, d, c in CASES]
+
+
+@pytest.mark.parametrize("S,T,H,KH,D,causal", CASES, ids=IDS)
+def test_tile_arithmetic_in_f32_matches_jax(S, T, H, KH, D, causal):
+    arrs, want = _case(S, T, H, KH, D, causal, False)
+    got = emulate(*arrs, causal=causal)
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("S,T,H,KH,D,causal", CASES, ids=IDS)
+def test_tile_arithmetic_in_bf16_keeps_rows_within_row_tol(S, T, H, KH, D,
+                                                           causal):
+    arrs, want = _case(S, T, H, KH, D, causal, True)
+    got = emulate(*arrs, causal=causal, bf16=True)
+    assert torch.isfinite(got).all()
+    assert row_rel_err(got, want) <= ROW_TOL
+
+
+@pytest.mark.parametrize("S,T,H,KH,D,causal", CASES[::4], ids=IDS[::4])
+def test_a_dropped_tile_reads_above_both_limits(S, T, H, KH, D, causal):
+    drop = -(-T // TILE) // 2
+    arrs, want = _case(S, T, H, KH, D, causal, False)
+    got = emulate(*arrs, causal=causal, drop_tile=drop)
+    assert (got - want).abs().max() > 2e-5
+    arrs, want = _case(S, T, H, KH, D, causal, True)
+    got = emulate(*arrs, causal=causal, bf16=True, drop_tile=drop)
+    assert row_rel_err(got, want) > ROW_TOL
