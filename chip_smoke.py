@@ -172,6 +172,44 @@ def device_ms(fn, kernels, *, setup=None, iters=20) -> float:
     return us / 1e3 / iters
 
 
+def host_ms(fn, *, setup=None, iters=50, warmup=5) -> float:
+    """Median host milliseconds to issue ``fn()``: ``time.perf_counter``
+    around the call alone, with no sync inside, the device idle before it
+    (a sync after ``setup()``, outside the window)."""
+    import torch
+    out = []
+    for k in range(warmup + iters):
+        if setup is not None:
+            setup()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        t1 = time.perf_counter()
+        if k >= warmup:
+            out.append((t1 - t0) * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(out)
+
+
+def device_ops(fn, *, iters=10) -> dict:
+    """Device operations (kernels, copies, fills) per call of ``fn()`` by
+    name, from ``torch.profiler``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    names: dict = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            names[e.name] = names.get(e.name, 0) + 1
+    return {k: v / iters for k, v in names.items()}
+
+
 def bound_ms(nbytes: int) -> float:
     return nbytes / HBM_BYTES_PER_S * 1e3
 
@@ -244,7 +282,7 @@ def check_radix(quick: bool, stats: dict):
     sizes = (1, 1000) if quick else (1, 1000, 1 << 20)
     cases = 0
     for A in sizes:
-        for w in (1, 5, 261):
+        for w in (1, 5, 261) + ((2000, 5003) if A <= 1000 else ()):
             rows = torch.randint(-2 ** 31, 2 ** 31 - 1, (A, w), generator=g,
                                  device=dev, dtype=torch.int32)
             mask = torch.rand((A,), generator=g, device=dev) < 0.7
@@ -264,8 +302,10 @@ def check_radix(quick: bool, stats: dict):
                                 f"cap={cap}")
                     stats["rank"] = max(stats["rank"], _err(got[0], want[0]))
                     for m in (None, mask):
-                        kb = rp.scatter(rows, got[0], n * cap, mask=m)
-                        pb = ref.scatter(rows, got[0], n * cap, mask=m)
+                        kb = rp.scatter(rows, got[0], n * cap,
+                                        counts=got[3], mask=m)
+                        pb = ref.scatter(rows, got[0], n * cap,
+                                         counts=got[3], mask=m)
                         if not torch.equal(kb, pb):
                             raise AssertionError(
                                 f"radix scatter differs: A={A} n={n} "
@@ -340,8 +380,12 @@ def check_cas(quick: bool, stats: dict):
                     raise AssertionError(f"cas_lock case differs: R={R} "
                                          f"A={A}")
                 cases += 1
-    if not bool((ck.arbitration_table(1, dev) == -1).all()):
-        raise AssertionError("cas left its arbitration table dirty")
+    best, slot_r = ck.arbitration_scratch(1, dev)
+    if best.numel() < 1_131_072:
+        raise AssertionError("cas's arbitration table is not the one the "
+                             "sweep used")
+    if not (bool((best == -1).all()) and int(slot_r[0]) == -1):
+        raise AssertionError("cas left its arbitration scratch dirty")
     return cases
 
 
@@ -418,8 +462,8 @@ def check_radix_join(quick: bool, stats: dict):
                           ("slot", "keep", "overflow", "counts")):
         if not torch.equal(x, y):
             raise AssertionError(f"radix rank {what} differs at A={A}")
-    kb = rp.scatter(rows, got[0], 2 * A)
-    if not torch.equal(kb, ref.scatter(rows, got[0], 2 * A)):
+    kb = rp.scatter(rows, got[0], 2 * A, counts=got[3])
+    if not torch.equal(kb, ref.scatter(rows, got[0], 2 * A, counts=got[3])):
         raise AssertionError(f"radix scatter differs at A={A}")
     del kb
     torch.cuda.empty_cache()
@@ -487,21 +531,26 @@ def time_radix_join(quick: bool) -> dict:
         "plain_ms": time_ms(lambda: ref.rank(dest, 1, 2 * A), iters=5),
         "bound_ms": bound_ms(4 * A + 4 * A + 2 * A + 4), "bound_by": "bytes",
         "library_ms": None, "shape": {"A": A, "n": 1, "cap": 2 * A}}}
-    slot = rp.rank(dest, 1, 2 * A)[0]
+    slot, _, _, counts = rp.rank(dest, 1, 2 * A)
     wide = torch.cat([rows, torch.ones((A, 1), dtype=torch.int32,
                                        device=dev)], 1)
     buf = torch.zeros((2 * A, 3), dtype=torch.int32, device=dev)
     kslot = slot.to(torch.int64)
-    out["radix_partition_scatter@join"] = {
-        "ms": time_ms(lambda: rp.scatter(rows, slot, 2 * A), iters=5),
-        "device_ms": device_ms(lambda: rp.scatter(rows, slot, 2 * A),
-                               ("scatter_kernel",), iters=5),
-        "plain_ms": time_ms(lambda: ref.scatter(rows, slot, 2 * A), iters=5),
+
+    def kern():
+        return rp.scatter(rows, slot, 2 * A, counts=counts)
+    t = out["radix_partition_scatter@join"] = {
+        "ms": time_ms(kern, iters=5),
+        "device_ms": device_ms(kern, ("scatter_narrow",), iters=5),
+        "host_ms": host_ms(kern, iters=10),
+        "plain_ms": time_ms(lambda: ref.scatter(rows, slot, 2 * A,
+                                                counts=counts), iters=5),
         "bound_ms": bound_ms(A * 8 + A * 4 + 2 * A * 3 * 4),
         "bound_by": "bytes",
         "library_ms": time_ms(lambda: buf.index_copy_(0, kslot, wide),
                               iters=5),
         "shape": {"A": A, "w": 2, "slots": 2 * A}}
+    t["bound_share"] = t["bound_ms"] / t["ms"]
     del rows, wide, buf, kslot, slot
     torch.cuda.empty_cache()
     return out
@@ -536,7 +585,7 @@ def time_kernels(record: dict):
     w = PAYLOAD_WORDS + 3                      # install: rec, val, npay, do_pay
     rows = torch.randint(-2 ** 31, 2 ** 31 - 1, (A, w), generator=g,
                          device=dev, dtype=torch.int32)
-    slot = rp.rank(dest, n, cap)[0]
+    slot, _, _, counts = rp.rank(dest, n, cap)
     mask = torch.rand((A,), generator=g, device=dev) < 0.9
     kept = int(mask.sum())
     wide = torch.cat([rows, torch.ones((A, 1), dtype=torch.int32,
@@ -544,16 +593,21 @@ def time_kernels(record: dict):
     sel = mask.nonzero()[:, 0]
     kslot, krows = slot[sel].to(torch.int64), wide[sel]
     buf = torch.zeros((n * cap, w + 1), dtype=torch.int32, device=dev)
+    def scatter():
+        return rp.scatter(rows, slot, n * cap, counts=counts, mask=mask)
+
+    def lib_copy():
+        return buf.index_copy_(0, kslot, krows)
     record["radix_partition_scatter"].update(
-        ms=time_ms(lambda: rp.scatter(rows, slot, n * cap, mask=mask)),
-        device_ms=device_ms(lambda: rp.scatter(rows, slot, n * cap,
-                                               mask=mask),
-                            ("scatter_kernel",)),
+        ms=time_ms(scatter),
+        device_ms=device_ms(scatter, ("scatter_medium",)),
+        host_ms=host_ms(scatter),
         plain_ms=time_ms(lambda: ref.scatter(rows, slot, n * cap,
-                                             mask=mask)),
+                                             counts=counts, mask=mask)),
         bound_ms=bound_ms(kept * w * 4 + A * 4 + A + n * cap * (w + 1) * 4),
         bound_by="bytes",
-        library_ms=time_ms(lambda: buf.index_copy_(0, kslot, krows)),
+        library_ms=time_ms(lib_copy),
+        library_host_ms=host_ms(lib_copy),
         shape={"A": A, "w": w, "slots": n * cap, "kept": kept})
     del rows, wide, krows, buf
 
@@ -586,17 +640,26 @@ def time_kernels(record: dict):
 
     def lib_call():
         best.scatter_reduce_(0, idx64, key, reduce="amin")
+
+    def call():
+        return ck.cas(live, idx, exp, new, prio)
+    # one device operation a call, and no fill
+    ops_per_call = device_ops(call)
+    if (sum(ops_per_call.values()) != 1
+            or any(k.startswith("Memset") for k in ops_per_call)):
+        raise AssertionError(f"a cas call is not one device operation: "
+                             f"{ops_per_call}")
     record["cas_lock"].update(
-        ms=time_ms(lambda: ck.cas(live, idx, exp, new, prio),
-                   setup=restore),
-        device_ms=device_ms(lambda: ck.cas(live, idx, exp, new, prio),
-                            ("cas_match", "cas_resolve", "cas_finish"),
-                            setup=restore),
+        ms=time_ms(call, setup=restore),
+        device_ms=device_ms(call, ("cas_kernel",), setup=restore),
+        host_ms=host_ms(call, setup=restore),
+        device_ops=ops_per_call,
         plain_ms=time_ms(lambda: ref.cas(live, idx, exp, new, prio),
                          setup=restore),
         bound_ms=bound_ms(A * 16 + touched * 4 + A + winners * 4),
         bound_by="bytes",
         library_ms=time_ms(lib_call, setup=lambda: best.fill_(-1)),
+        library_host_ms=host_ms(lib_call, setup=lambda: best.fill_(-1)),
         shape={"R": R, "A": A, "winners": winners})
 
 
@@ -846,8 +909,8 @@ def phase_kernels(quick: bool, record: dict):
     timing = {"flash_attention": time_flash(record),
               "ssd_scan": time_ssd(record)}
     time_kernels(record)
-    timing.update({k: {kk: record[k][kk] for kk in (
-        "ms", "device_ms", "plain_ms", "bound_ms", "library_ms", "shape")}
+    timing.update({k: {kk: v for kk, v in record[k].items() if kk not in (
+        "source", "replaces", "route", "launches", "paths", "max_abs_err")}
         for k in OLTP_KERNELS})
     timing.update(time_grouped(quick, record))
     timing.update(time_radix_join(quick))

@@ -39,8 +39,7 @@ from repro_torch.bench import checkout, fig6_rsi
 from repro_torch.db import Database
 
 PORT_KERNELS = ("hist_kernel", "scan_kernel", "rank_kernel",
-                "scatter_kernel", "cas_match", "cas_resolve", "cas_finish",
-                "agg_kernel")
+                "scatter_narrow", "scatter_wide", "cas_kernel", "agg_kernel")
 
 
 def _short(name: str) -> str:

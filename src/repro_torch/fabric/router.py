@@ -202,6 +202,9 @@ class RoutePlan:
               otherwise.
     keep:     (A,) bool — deliverable and within capacity.
     overflow: (A,) bool — deliverable but beyond capacity (the drops).
+    counts:   (n,) int32 — kept requests per bucket, min(bucket size,
+              cap): bucket d's kept requests hold its first counts[d]
+              slots, which lets the scatter kernel skip any zero fill.
     window:   doorbell-batching cap declared for contention pricing (0 =
               post everything at once); the wire bits do not depend on it.
     """
@@ -210,6 +213,7 @@ class RoutePlan:
     slot: torch.Tensor
     keep: torch.Tensor
     overflow: torch.Tensor
+    counts: torch.Tensor
     window: int = 0
 
     @property
@@ -229,9 +233,9 @@ def plan_route(dest, *, n: int, cap: int, window: int = 0,
                impl=None) -> RoutePlan:
     """Stable rank-in-bucket slot assignment for ``dest``: the rank kernel
     on a CUDA tensor, :func:`repro_torch.kernels.ref.rank` on the CPU."""
-    slot, keep, overflow, _ = ops.rank(dest, n, cap, impl=impl)
+    slot, keep, overflow, counts = ops.rank(dest, n, cap, impl=impl)
     return RoutePlan(n=n, cap=cap, slot=slot, keep=keep, overflow=overflow,
-                     window=_check_window(window))
+                     counts=counts, window=_check_window(window))
 
 
 def _masked_slot(plan: RoutePlan, mask) -> torch.Tensor:
@@ -311,7 +315,8 @@ def route(fields, dest=None, *, n: Optional[int] = None,
         recv, valid = unpack_fields(restripe(recv_s), treedef, specs)
         return RouteResult(recv, valid, dropped, sent, sent_valid)
     rows, treedef, specs = pack_fields(fields, valid=False)
-    buf = ops.scatter_rows(rows, plan.slot, n * cap, mask=mask, impl=impl)
+    buf = ops.scatter_rows(rows, plan.slot, n * cap, counts=plan.counts,
+                           mask=mask, impl=impl)
     sent, sent_valid = unpack_fields(buf, treedef, specs)
     if exchange is None:
         return RouteResult(sent, sent_valid, dropped, sent, sent_valid)

@@ -19,16 +19,18 @@
 //                       the tiles before it.  No atomic decides a rank, so
 //                       the rank is stable.
 //                  dest < 0 or dest >= n is filtered: no rank, not a drop.
-//   radix_scatter  rows (A, w), slot (A,), optional mask -> the zeroed
-//                  (num_slots, w + 1) wire buffer with each kept, unmasked
-//                  row in its slot and a ones valid lane after it (the
-//                  Pallas kernel's fuse_valid form).
+//   radix_scatter  rows (A, w), slot (A,) and counts (n,) from radix_rank,
+//                  optional mask -> the (n*cap, w + 1) wire buffer with
+//                  each kept, unmasked row in its slot and a ones valid
+//                  lane after it (the Pallas kernel's fuse_valid form),
+//                  zeros elsewhere.  One launch: row blocks, then tail
+//                  blocks that zero each bucket's empty slots (below).
 //
 // Bound: bytes.  The rank reads 4 B and writes 6 B per request; the scatter
-// moves each row once and writes the buffer once (memset + rows).  The
-// design keeps every pass a coalesced stream; the rank's scan is serial per
-// bucket over blocks of 4096 requests, which is short at the main path's
-// sizes (n = 1 shard, A = T*W).
+// reads each kept row, slot and mask once and writes the buffer once.  The
+// rank's scan is serial per bucket over blocks of 4096 requests, which is
+// short at the OLTP path's sizes (n = 1 shard, A = T*W) and not at a
+// join's (A = 128M).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -118,28 +120,458 @@ __global__ void rank_kernel(const int* __restrict__ dest, long long A, int n,
   }
 }
 
-__global__ void scatter_kernel(const int* __restrict__ rows,
-                               const int* __restrict__ slot,
-                               const uint8_t* __restrict__ mask, long long A,
-                               int w, int wo, long long num_slots,
-                               int* __restrict__ out) {
-  const long long total = A * wo;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       e < total; e += stride) {
-    const long long i = e / wo;
-    const int c = (int)(e - i * wo);
-    const long long s = slot[i];
-    if (s < 0 || s >= num_slots) continue;
-    if (mask != nullptr && !mask[i]) continue;
-    out[s * wo + c] = c < w ? rows[i * w + c] : 1;
+// ------------------------------------------------------------- scatter --
+//
+// The slots come from radix_rank, so in bucket d the slots
+// [d*cap, d*cap + counts[d]) belong to one kept row each and the rest of
+// the bucket is empty.  Every int of the buffer is written exactly once: by
+// its row (the row's lanes and a valid lane of 1, or w + 1 zeros where the
+// mask is clear) or by a tail block (zeros).  Nothing fills it first.
+
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kRowThreads = 256;
+constexpr int kWideWarps = kRowThreads / 32;
+constexpr int kSeg = 1024;     // ints of a wide row a warp writes per step
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// One thread: init the barrier, then bulk-copy `bytes` (a multiple of 16,
+// both addresses 16-byte aligned) from global to shared memory; the bytes
+// complete on the barrier.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(bar)
+               : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   bar), "r"(bytes) : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// One thread: bulk-copy shared -> global and wait until shared memory has
+// been read (the block may exit then).
+__device__ __forceinline__ void bulk_store(void* dst, uint32_t src,
+                                           uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;"
+               ::"l"(dst), "r"(src), "r"(bytes) : "memory");
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+}
+
+// Tail block zb of nzb: zeros rows [d*cap + counts[d], (d+1)*cap) of every
+// bucket d.  The whole 16-byte chunks of all tails, flattened in bucket
+// order, are strided over the tail blocks' threads; the <= 3 ints at each
+// end of a tail that share a chunk with a kept row or the next bucket are
+// stored one int at a time by one thread.
+__device__ void zero_tails(unsigned zb, unsigned nzb,
+                           const int* __restrict__ counts, int n,
+                           long long cap, int wo, int* __restrict__ out) {
+  const long long step = (long long)nzb * blockDim.x;
+  long long t = (long long)zb * blockDim.x + threadIdx.x;
+  long long off = 0;            // chunks of the tails before bucket d
+  int4* out4 = reinterpret_cast<int4*>(out);
+  for (int d = 0; d < n; ++d) {
+    const int c = counts[d];
+    const long long kept = c < 0 ? 0 : (c > cap ? cap : c);
+    const long long lo = ((long long)d * cap + kept) * wo;
+    const long long hi = ((long long)d + 1) * cap * wo;
+    if (lo >= hi) continue;
+    const long long a = (lo + 3) >> 2, b = hi >> 2;   // whole chunks [a, b)
+    if (zb == 0 && threadIdx.x == (unsigned)(d % kRowThreads)) {
+      const long long head_end = a < b ? a << 2 : hi;
+      for (long long k = lo; k < head_end; ++k) out[k] = 0;
+      if (a < b)
+        for (long long k = b << 2; k < hi; ++k) out[k] = 0;
+    }
+    const long long m = a < b ? b - a : 0;
+    for (; t < off + m; t += step) out4[a + (t - off)] = make_int4(0, 0, 0, 0);
+    off += m;
   }
 }
 
-inline int grid_for(long long work, int threads) {
-  long long g = (work + threads - 1) / threads;
-  const long long cap = 132LL * 16;
-  return (int)(g < 1 ? 1 : (g > cap ? cap : g));
+// The tile's in-range slots over the block: ext = {min, max, count}.
+// Every thread calls it with its own partials.
+__device__ __forceinline__ void block_extent(int lo, int hi, int cnt,
+                                             int* ext) {
+  lo = __reduce_min_sync(kFull, lo);
+  hi = __reduce_max_sync(kFull, hi);
+  cnt = __reduce_add_sync(kFull, cnt);
+  if (threadIdx.x == 0) {
+    ext[0] = 0x7fffffff;
+    ext[1] = -1;
+    ext[2] = 0;
+  }
+  __syncthreads();
+  if ((threadIdx.x & 31) == 0 && cnt > 0) {
+    atomicMin(&ext[0], lo);
+    atomicMax(&ext[1], hi);
+    atomicAdd(&ext[2], cnt);
+  }
+  __syncthreads();
+}
+
+// Stores the block's run [g0, g1) of buffer ints, composed in `tile` from
+// buffer int g0 & ~3 on (so 16-byte chunks of the buffer are 16-byte
+// chunks of the tile): the <= 3 ints at each end one at a time, the chunks
+// between with one bulk store.  Every thread calls it, after the tile is
+// written, fenced for the async proxy and synchronised.
+__device__ __forceinline__ void store_run(const int* tile, long long g0,
+                                          long long g1,
+                                          int* __restrict__ out) {
+  const long long base = g0 & ~3ll;
+  const long long a = (g0 + 3) >> 2, b = g1 >> 2;   // whole chunks [a, b)
+  if (threadIdx.x == 0) {
+    const long long head_end = a < b ? a << 2 : g1;
+    for (long long g = g0; g < head_end; ++g) out[g] = tile[g - base];
+  }
+  if (a >= b) return;
+  if (threadIdx.x == 32)
+    for (long long g = b << 2; g < g1; ++g) out[g] = tile[g - base];
+  if (threadIdx.x == 64)
+    bulk_store(out + (a << 2), smem_addr(tile + ((a << 2) - base)),
+               (uint32_t)((b - a) * 16));
+}
+
+// Narrow rows (w <= 7): a block takes TR consecutive rows, RPT a thread.
+// One thread stages the tile's lanes with one cp.async.bulk load (the
+// ragged last tile, or a misaligned input, loads them row by row), while
+// each thread reads its rows' slots and masks once.  When the tile's
+// in-range slots are one run [smin, smin + K) (every tile at n = 1: stable
+// ranks are consecutive), the block composes the run's (w+1)-int rows in
+// shared memory and stores them with one bulk store (store_run).  Other
+// tiles store row by row.
+template <int W>
+struct Narrow {
+  static constexpr int WO = W + 1;
+  static constexpr int RPT = W <= 4 ? 4 : 2;
+  static constexpr int TR = kRowThreads * RPT;
+};
+
+template <int W>
+__global__ void __launch_bounds__(kRowThreads)
+    scatter_narrow(const int* __restrict__ rows, const int* __restrict__ slot,
+                   const uint8_t* __restrict__ mask,
+                   const int* __restrict__ counts, long long A, int n,
+                   long long cap, unsigned rblocks, unsigned nzb,
+                   int* __restrict__ out) {
+  constexpr int WO = Narrow<W>::WO, RPT = Narrow<W>::RPT,
+                TR = Narrow<W>::TR, VW = W > 0 ? W : 1;
+  if (blockIdx.x >= rblocks) {
+    zero_tails(blockIdx.x - rblocks, nzb, counts, n, cap, WO, out);
+    return;
+  }
+  __shared__ __align__(16) int tile[TR * WO + 4];
+  __shared__ __align__(16) int staged[TR * VW];
+  __shared__ unsigned long long bar;
+  __shared__ int ext[3];
+  const long long num_slots = (long long)n * cap;
+  const long long i0 = (long long)blockIdx.x * TR;
+  const int T = (int)(A - i0 < TR ? A - i0 : TR);
+  const int* src = rows + i0 * W;
+  const bool bulk_in = W > 0 && (reinterpret_cast<uintptr_t>(src) & 15) == 0
+                       && ((T * W) & 3) == 0;
+  if (threadIdx.x == 0 && bulk_in)
+    bulk_load(smem_addr(staged), src, (uint32_t)(T * W * 4), smem_addr(&bar));
+  int s[RPT];
+  bool m[RPT];
+  int lo = 0x7fffffff, hi = -1, cnt = 0;
+#pragma unroll
+  for (int k = 0; k < RPT; ++k) {
+    const int r = threadIdx.x + k * kRowThreads;
+    s[k] = -1;
+    m[k] = false;
+    if (r < T) {
+      const int sv = slot[i0 + r];
+      if (sv >= 0 && sv < num_slots) {
+        s[k] = sv;
+        m[k] = mask == nullptr || mask[i0 + r];
+        lo = min(lo, sv);
+        hi = max(hi, sv);
+        ++cnt;
+      }
+    }
+  }
+  block_extent(lo, hi, cnt, ext);
+  if (bulk_in) mbar_wait(smem_addr(&bar), 0);
+  const int K = ext[2], smin = ext[0];
+  if (K == 0) return;
+  int v[RPT][VW];
+#pragma unroll
+  for (int k = 0; k < RPT; ++k) {
+    const int r = threadIdx.x + k * kRowThreads;
+    if (s[k] < 0 || !m[k]) continue;
+    const int* p = bulk_in ? staged + r * W : src + r * W;
+#pragma unroll
+    for (int c = 0; c < W; ++c) v[k][c] = p[c];
+  }
+  if (ext[1] - smin + 1 != K) {                // not one run: row by row
+#pragma unroll
+    for (int k = 0; k < RPT; ++k) {
+      if (s[k] < 0) continue;
+      int* o = out + (long long)s[k] * WO;
+#pragma unroll
+      for (int c = 0; c < W; ++c) o[c] = m[k] ? v[k][c] : 0;
+      o[W] = m[k];
+    }
+    return;
+  }
+  const long long g0 = (long long)smin * WO;
+  const long long base = g0 & ~3ll;
+#pragma unroll
+  for (int k = 0; k < RPT; ++k) {
+    if (s[k] < 0) continue;
+    int* t = tile + ((long long)s[k] * WO - base);
+#pragma unroll
+    for (int c = 0; c < W; ++c) t[c] = m[k] ? v[k][c] : 0;
+    t[W] = m[k];
+  }
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  __syncthreads();
+  store_run(tile, g0, g0 + (long long)K * WO, out);
+}
+
+// Medium rows (w >= 8, and 4 rows of w + (w+1) ints fit kMediumBytes of
+// shared memory; the OLTP install's 259 lanes): the narrow body's design
+// with a warp per row.  A block takes TR rows (a multiple of 4, so the
+// tile's first row is 16-byte aligned), one thread stages their lanes with
+// one cp.async.bulk load, warps compose the (w+1)-int rows in shared
+// memory, and a run of slots leaves with one bulk store; other tiles store
+// row by row from shared memory.
+constexpr int kMediumBytes = 40960;
+constexpr int kMaxTR = kRowThreads;
+
+__global__ void __launch_bounds__(kRowThreads)
+    scatter_medium(const int* __restrict__ rows, const int* __restrict__ slot,
+                   const uint8_t* __restrict__ mask,
+                   const int* __restrict__ counts, long long A, int w, int n,
+                   long long cap, int TR, unsigned rblocks, unsigned nzb,
+                   int* __restrict__ out) {
+  const int wo = w + 1;
+  if (blockIdx.x >= rblocks) {
+    zero_tails(blockIdx.x - rblocks, nzb, counts, n, cap, wo, out);
+    return;
+  }
+  extern __shared__ __align__(16) int smem[];
+  __shared__ int srow[kMaxTR];
+  __shared__ uint8_t mrow[kMaxTR];
+  __shared__ unsigned long long bar;
+  __shared__ int ext[3];
+  int* staged = smem;                          // (TR, w), then the tile
+  int* tile = smem + ((TR * w + 3) & ~3);
+  const long long num_slots = (long long)n * cap;
+  const long long i0 = (long long)blockIdx.x * TR;
+  const int T = (int)(A - i0 < TR ? A - i0 : TR);
+  const int* src = rows + i0 * w;
+  const bool bulk_in =
+      (reinterpret_cast<uintptr_t>(src) & 15) == 0 && ((T * w) & 3) == 0;
+  if (threadIdx.x == 0 && bulk_in)
+    bulk_load(smem_addr(staged), src, (uint32_t)(T * w * 4), smem_addr(&bar));
+  int lo = 0x7fffffff, hi = -1, cnt = 0;
+  if (threadIdx.x < T) {
+    const int sv = slot[i0 + threadIdx.x];
+    const bool in = sv >= 0 && sv < num_slots;
+    srow[threadIdx.x] = in ? sv : -1;
+    mrow[threadIdx.x] = in && (mask == nullptr || mask[i0 + threadIdx.x]);
+    if (in) {
+      lo = hi = sv;
+      cnt = 1;
+    }
+  }
+  if (!bulk_in)
+    for (int e = threadIdx.x; e < T * w; e += kRowThreads) staged[e] = src[e];
+  block_extent(lo, hi, cnt, ext);
+  if (bulk_in) mbar_wait(smem_addr(&bar), 0);
+  const int K = ext[2], smin = ext[0];
+  if (K == 0) return;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const bool run = ext[1] - smin + 1 == K;
+  const long long g0 = (long long)smin * wo;
+  const long long base = g0 & ~3ll;
+  for (int r = warp; r < T; r += kWideWarps) {
+    const int s = srow[r];
+    if (s < 0) continue;
+    const bool m = mrow[r];
+    const int* in = staged + r * w;
+    int* o = run ? tile + ((long long)s * wo - base) : out + (long long)s * wo;
+    for (int c = lane; c < wo; c += 32) o[c] = !m ? 0 : (c < w ? in[c] : 1);
+  }
+  if (!run) return;
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  __syncthreads();
+  store_run(tile, g0, g0 + (long long)K * wo, out);
+}
+
+// Medium rows a block for width w (0 if 4 rows do not fit).
+inline int medium_rows(int w) {
+  int tr = (kMediumBytes / 4 / (2 * w + 1)) & ~3;
+  return tr > kMaxTR ? kMaxTR : tr;
+}
+
+// Wide rows (medium_rows(w) == 0: RDMA-AGG's flush routes a few rows of up
+// to 2^26 lanes): a warp takes a run of kSeg-int segments of a row.  It
+// reads the slot and mask once, loads the lanes coalesced and stores VEC
+// ints at a time (16 bytes when w + 1 is a multiple of 4).  Blocks
+// [0, rbx * rby) are row blocks: with one segment a row, block bx takes
+// rows bx*8 + warp, strided by rbx*8; otherwise block (bx, by) takes rows
+// bx, strided by rbx, and segments by*8 + warp, strided by rby*8.
+template <int VEC>
+__global__ void __launch_bounds__(kRowThreads)
+    scatter_wide(const int* __restrict__ rows, const int* __restrict__ slot,
+                 const uint8_t* __restrict__ mask,
+                 const int* __restrict__ counts, long long A, int w, int n,
+                 long long cap, unsigned rbx, unsigned rby, unsigned nzb,
+                 int* __restrict__ out) {
+  const int wo = w + 1;
+  const unsigned nrb = rbx * rby;
+  if (blockIdx.x >= nrb) {
+    zero_tails(blockIdx.x - nrb, nzb, counts, n, cap, wo, out);
+    return;
+  }
+  const long long num_slots = (long long)n * cap;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const unsigned by = blockIdx.x / rbx, bx = blockIdx.x - by * rbx;
+  const int nseg = (wo + kSeg - 1) / kSeg;
+  long long i, istep;
+  int seg0, sstep;
+  if (nseg == 1) {
+    i = (long long)bx * kWideWarps + warp;
+    istep = (long long)rbx * kWideWarps;
+    seg0 = 0;
+    sstep = 1;
+  } else {
+    i = bx;
+    istep = rbx;
+    seg0 = (int)by * kWideWarps + warp;
+    sstep = (int)rby * kWideWarps;
+  }
+  for (; i < A; i += istep) {
+    const int s = slot[i];
+    const bool m = mask == nullptr || mask[i];
+    if (s < 0 || s >= num_slots) continue;
+    const int* src = rows + i * w;
+    int* dst = out + (long long)s * wo;
+    for (int sg = seg0; sg < nseg; sg += sstep) {
+      const int c1 = min(sg * kSeg + kSeg, wo);
+      for (int c = sg * kSeg + lane * VEC; c < c1; c += 32 * VEC) {
+        int v[VEC];
+#pragma unroll
+        for (int k = 0; k < VEC; ++k)
+          v[k] = !m ? 0 : (c + k < w ? src[c + k] : 1);
+        if constexpr (VEC == 4)
+          *reinterpret_cast<int4*>(dst + c) = make_int4(v[0], v[1], v[2], v[3]);
+        else if constexpr (VEC == 2)
+          *reinterpret_cast<int2*>(dst + c) = make_int2(v[0], v[1]);
+        else
+          dst[c] = v[0];
+      }
+    }
+  }
+}
+
+constexpr int kMaxDevices = 64;
+int g_sms[kMaxDevices];
+
+cudaError_t sm_count(int device, int* out) {
+  if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (g_sms[device] == 0) {
+    cudaError_t e = cudaDeviceGetAttribute(
+        &g_sms[device], cudaDevAttrMultiProcessorCount, device);
+    if (e != cudaSuccess) return e;
+  }
+  *out = g_sms[device];
+  return cudaSuccess;
+}
+
+struct ScatterArgs {
+  const int* rows;
+  const int* slot;
+  const uint8_t* mask;
+  const int* counts;
+  long long A;
+  int w, n;
+  long long cap;
+  unsigned nzb;
+  int* out;
+  cudaStream_t st;
+};
+
+template <int W>
+cudaError_t launch_narrow(const ScatterArgs& a) {
+  const unsigned rb = (unsigned)((a.A + Narrow<W>::TR - 1) / Narrow<W>::TR);
+  scatter_narrow<W><<<rb + a.nzb, kRowThreads, 0, a.st>>>(
+      a.rows, a.slot, a.mask, a.counts, a.A, a.n, a.cap, rb, a.nzb, a.out);
+  return cudaGetLastError();
+}
+
+cudaError_t narrow(const ScatterArgs& a) {
+  switch (a.w) {
+    case 0: return launch_narrow<0>(a);
+    case 1: return launch_narrow<1>(a);
+    case 2: return launch_narrow<2>(a);
+    case 3: return launch_narrow<3>(a);
+    case 4: return launch_narrow<4>(a);
+    case 5: return launch_narrow<5>(a);
+    case 6: return launch_narrow<6>(a);
+    default: return launch_narrow<7>(a);
+  }
+}
+
+cudaError_t medium(const ScatterArgs& a, int tr) {
+  const unsigned rb = (unsigned)((a.A + tr - 1) / tr);
+  const size_t bytes = (((size_t)tr * a.w + 3) / 4 * 4 +
+                        (size_t)tr * (a.w + 1) + 4) * sizeof(int);
+  scatter_medium<<<rb + a.nzb, kRowThreads, bytes, a.st>>>(
+      a.rows, a.slot, a.mask, a.counts, a.A, a.w, a.n, a.cap, tr, rb, a.nzb,
+      a.out);
+  return cudaGetLastError();
+}
+
+cudaError_t wide(const ScatterArgs& a, int sms) {
+  const long long wo = a.w + 1;
+  const long long nseg = (wo + kSeg - 1) / kSeg;
+  const long long most = 32LL * sms;           // row blocks at most
+  long long rbx, rby = 1;
+  if (a.A == 0) {
+    rbx = 0;
+  } else if (nseg == 1) {
+    rbx = (a.A + kWideWarps - 1) / kWideWarps;
+    rbx = rbx < most ? rbx : most;
+  } else {
+    rbx = a.A < most ? a.A : most;
+    rby = (nseg + kWideWarps - 1) / kWideWarps;
+    rby = rby < most / rbx ? rby : most / rbx;
+    rby = rby < 1 ? 1 : rby;
+  }
+  const unsigned grid = (unsigned)(rbx * rby) + a.nzb;
+  if (wo % 4 == 0)
+    scatter_wide<4><<<grid, kRowThreads, 0, a.st>>>(
+        a.rows, a.slot, a.mask, a.counts, a.A, a.w, a.n, a.cap, (unsigned)rbx,
+        (unsigned)rby, a.nzb, a.out);
+  else if (wo % 2 == 0)
+    scatter_wide<2><<<grid, kRowThreads, 0, a.st>>>(
+        a.rows, a.slot, a.mask, a.counts, a.A, a.w, a.n, a.cap, (unsigned)rbx,
+        (unsigned)rby, a.nzb, a.out);
+  else
+    scatter_wide<1><<<grid, kRowThreads, 0, a.st>>>(
+        a.rows, a.slot, a.mask, a.counts, a.A, a.w, a.n, a.cap, (unsigned)rbx,
+        (unsigned)rby, a.nzb, a.out);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -176,21 +608,35 @@ int radix_rank(const void* dest, long long A, int n, int cap, void* hist,
   return (int)e;
 }
 
-// out: (num_slots, w + 1) int32; mask may be null.
+// out: (n * cap, w + 1) int32, written whole (no fill needed); slot (A,)
+// from radix_rank with its counts (n,); mask may be null.  The body goes
+// by the row width w: narrow, medium or wide.  Launches on `stream` of
+// `device`.
 int radix_scatter(const void* rows, const void* slot, const void* mask,
-                  long long A, int w, long long num_slots, void* out,
-                  void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  const int wo = w + 1;
-  cudaError_t e = cudaMemsetAsync(out, 0, (size_t)num_slots * wo * sizeof(int),
-                                  st);
-  if (e != cudaSuccess) return (int)e;
-  if (A > 0) {
-    scatter_kernel<<<grid_for(A * wo, 256), 256, 0, st>>>(
-        (const int*)rows, (const int*)slot, (const uint8_t*)mask, A, w, wo,
-        num_slots, (int*)out);
-    e = cudaGetLastError();
+                  const void* counts, long long A, int w, int n,
+                  long long cap, void* out, int device, void* stream) {
+  int cur = -1;
+  cudaError_t e = cudaGetDevice(&cur);
+  if (e == cudaSuccess && cur != device) e = cudaSetDevice(device);
+  int sms = 0;
+  if (e == cudaSuccess) e = sm_count(device, &sms);
+  if (e == cudaSuccess) {
+    // tail blocks: 16 chunks a thread of the whole buffer, 1 .. 2 per SM
+    const long long chunks = (long long)n * cap * (w + 1) / 4;
+    long long nzb = (chunks + kRowThreads * 16 - 1) / (kRowThreads * 16);
+    nzb = nzb < 1 ? 1 : (nzb > 2LL * sms ? 2LL * sms : nzb);
+    const ScatterArgs a{(const int*)rows, (const int*)slot,
+                        (const uint8_t*)mask, (const int*)counts, A, w, n,
+                        cap, (unsigned)nzb, (int*)out, (cudaStream_t)stream};
+    const int tr = medium_rows(w);
+    if (w <= 7)
+      e = narrow(a);
+    else if (tr >= 4)
+      e = medium(a, tr);
+    else
+      e = wide(a, sms);
   }
+  if (cur >= 0 && cur != device) cudaSetDevice(cur);
   return (int)e;
 }
 

@@ -58,16 +58,17 @@ def rank(dest, n: int, cap: int, *, impl=None):
     return ref.rank(dest, n, cap)
 
 
-def scatter_rows(rows, slot, num_slots: int, *, mask=None, impl=None):
+def scatter_rows(rows, slot, num_slots: int, *, counts, mask=None,
+                 impl=None):
     """int32 ``rows`` into the (num_slots, w + 1) wire buffer, the valid
-    lane appended."""
+    lane appended; ``slot`` and ``counts`` are :func:`rank`'s."""
     rows = rows.contiguous()
     slot = slot.to(torch.int32).contiguous()
     if mask is not None:
         mask = mask.to(torch.bool).contiguous()
     if resolve_impl(rows, impl) == "kernel":
-        return _rp.scatter(rows, slot, num_slots, mask=mask)
-    return ref.scatter(rows, slot, num_slots, mask=mask)
+        return _rp.scatter(rows, slot, num_slots, counts=counts, mask=mask)
+    return ref.scatter(rows, slot, num_slots, counts=counts, mask=mask)
 
 
 def cas(words, idx, expected, new, priority, *, impl=None):

@@ -6,6 +6,9 @@ the JAX router runs in its place.  :func:`rank` is ``plan_route``'s slot
 assignment, :func:`scatter` the wire scatter with the valid lane fused.
 Both take CUDA tensors only; the plain versions are in
 :mod:`repro_torch.kernels.ref` and :mod:`repro_torch.kernels.ops` picks.
+The scatter takes the rank's ``counts``: it writes every slot of the
+buffer once, rows where the rank put them and zeros after each bucket's
+``counts[d]`` kept slots, so the buffer needs no fill.
 
 Bound: bytes (see the source).  ``launches`` counts the calls that
 launched each entry point.
@@ -21,6 +24,7 @@ from repro_torch.kernels import build
 launches = {"rank": 0, "scatter": 0}
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_I32 = torch.int32
 _lib = None
 
 
@@ -30,7 +34,8 @@ def _load():
         lib = build.load("radix_partition")
         lib.radix_rank.argtypes = [_P, _L, _I, _I, _P, _P, _P, _P, _P, _P]
         lib.radix_rank.restype = _I
-        lib.radix_scatter.argtypes = [_P, _P, _P, _L, _I, _L, _P, _P]
+        lib.radix_scatter.argtypes = [_P, _P, _P, _P, _L, _I, _I, _L, _P,
+                                      _I, _P]
         lib.radix_scatter.restype = _I
         for fn in (lib.radix_items_per_block, lib.radix_warps_per_block):
             fn.argtypes = []
@@ -56,6 +61,13 @@ def _check(t, name, dtype, ndim, device=None):
         raise ValueError(f"{name} must be contiguous")
     if device is not None and t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
+
+
+# _stream(di): the handle of device di's current stream, what
+# torch.cuda.current_stream(di).cuda_stream gives without building a Stream
+# object on every launch (absent from builds without CUDA, which launch
+# nothing).
+_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
 
 
 def _raise_on(err: int, what: str):
@@ -95,27 +107,45 @@ def rank(dest: torch.Tensor, n: int, cap: int):
 
 
 def scatter(rows: torch.Tensor, slot: torch.Tensor, num_slots: int, *,
-            mask=None) -> torch.Tensor:
-    """Scatter ``rows`` (A, w) int32 into a zeroed (num_slots, w + 1) int32
+            counts: torch.Tensor, mask=None) -> torch.Tensor:
+    """Scatter ``rows`` (A, w) int32 into a (num_slots, w + 1) int32
     buffer: row i lands in ``slot[i]``, with a ones valid lane appended,
-    when the slot is in range and ``mask[i]`` (if given) is set."""
-    _check(rows, "rows", torch.int32, 2)
-    _check(slot, "slot", torch.int32, 1, rows.device)
-    A, w = rows.shape
-    if slot.shape[0] != A:
-        raise ValueError(f"slot has {slot.shape[0]} entries for {A} rows")
-    if mask is not None:
-        _check(mask, "mask", torch.bool, 1, rows.device)
-        if mask.shape[0] != A:
-            raise ValueError(f"mask has {mask.shape[0]} entries for {A} rows")
-    lib = _load()
-    out = torch.empty((int(num_slots), w + 1), dtype=torch.int32,
-                      device=rows.device)
-    with torch.cuda.device(rows.device):
-        stream = torch.cuda.current_stream(rows.device).cuda_stream
-        _raise_on(lib.radix_scatter(
-            rows.data_ptr(), slot.data_ptr(),
-            None if mask is None else mask.data_ptr(), A, w,
-            int(num_slots), out.data_ptr(), stream), "radix_scatter launch")
+    when the slot is in range and ``mask[i]`` (if given) is set; every
+    other int is 0.  ``slot`` and ``counts`` (n,) are :func:`rank`'s for
+    ``cap = num_slots / n``: bucket d's kept rows fill its first
+    ``counts[d]`` slots, so the kernel zeros only the rest."""
+    di = rows.get_device()
+    A = rows.shape[0]
+    if di < 0 or not (
+            rows.dtype is _I32 and rows.dim() == 2 and rows.is_contiguous()
+            and slot.dtype is _I32 and slot.get_device() == di
+            and slot.dim() == 1 and slot.is_contiguous()
+            and slot.shape[0] == A and counts.dtype is _I32
+            and counts.get_device() == di and counts.dim() == 1
+            and counts.is_contiguous() and (mask is None or (
+                mask.dtype is torch.bool and mask.get_device() == di
+                and mask.dim() == 1 and mask.is_contiguous()
+                and mask.shape[0] == A))):
+        _check(rows, "rows", _I32, 2)
+        _check(slot, "slot", _I32, 1, rows.device)
+        _check(counts, "counts", _I32, 1, rows.device)
+        if mask is not None:
+            _check(mask, "mask", torch.bool, 1, rows.device)
+        for name, t in (("slot", slot), ("mask", mask)):
+            if t is not None and t.shape[0] != A:
+                raise ValueError(f"{name} has {t.shape[0]} entries for {A} "
+                                 "rows")
+    n, w, num_slots = counts.shape[0], rows.shape[1], int(num_slots)
+    if n < 1 or num_slots % n:
+        raise ValueError(f"num_slots={num_slots} is not counts.numel()={n} "
+                         "times a cap")
+    out = rows.new_empty((num_slots, w + 1))
+    err = (_lib or _load()).radix_scatter(
+        rows.data_ptr(), slot.data_ptr(),
+        None if mask is None else mask.data_ptr(), counts.data_ptr(), A, w,
+        n, num_slots // n, out.data_ptr(), di, _stream(di))
+    if err != 0:
+        _raise_on(err, "radix_scatter launch")
     launches["scatter"] += 1
     return out
+

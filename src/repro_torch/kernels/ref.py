@@ -45,9 +45,17 @@ def rank(dest: torch.Tensor, n: int, cap: int):
 
 
 def scatter(rows: torch.Tensor, slot: torch.Tensor, num_slots: int, *,
-            mask=None, fuse_valid: bool = True) -> torch.Tensor:
+            counts: torch.Tensor, mask=None,
+            fuse_valid: bool = True) -> torch.Tensor:
     """Plain twin of ``radix_partition.scatter``: rows into a zeroed
-    (num_slots, w [+1]) int32 buffer at in-range, unmasked slots."""
+    (num_slots, w [+1]) int32 buffer at in-range, unmasked slots.  Like the
+    kernel it takes :func:`rank`'s ``counts`` (n,) and refuses a
+    ``num_slots`` that is not n times a cap; the result does not read
+    them."""
+    n = counts.shape[0] if counts.dim() == 1 else 0
+    if n < 1 or int(num_slots) % n:
+        raise ValueError(f"num_slots={num_slots} is not counts.numel()="
+                         f"{counts.numel()} times a cap")
     A = rows.shape[0]
     if fuse_valid:
         rows = torch.cat([rows, torch.ones((A, 1), dtype=rows.dtype,
@@ -69,7 +77,7 @@ def radix_partition(vals, bucket, num_buckets: int, cap: int, *,
     outside [0, num_buckets) dropped; counts = min(count, cap)."""
     slot, _, _, counts = rank(bucket, num_buckets, cap)
     out = scatter(vals.view(torch.int32), slot, num_buckets * cap,
-                  fuse_valid=fuse_valid)
+                  counts=counts, fuse_valid=fuse_valid)
     return out.view(vals.dtype).reshape(num_buckets, cap, -1), counts
 
 

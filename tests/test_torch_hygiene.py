@@ -88,7 +88,7 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         radix_partition.rank(d, 1, 4)
     with pytest.raises(ValueError, match="CUDA"):
-        radix_partition.scatter(d.reshape(4, 1), d, 4)
+        radix_partition.scatter(d.reshape(4, 1), d, 4, counts=d[:1])
     with pytest.raises(ValueError, match="CUDA"):
         cas_lock.cas(d, d, d, d, d)
     with pytest.raises(ValueError, match="CUDA"):

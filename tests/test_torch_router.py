@@ -258,9 +258,9 @@ def test_kernels_match_plain_on_card():
                          dtype=torch.int32)
     for got, want in zip(ops.rank(dest, 8, 500), ref.rank(dest, 8, 500)):
         assert torch.equal(got, want)
-    slot = ops.rank(dest, 8, 500)[0]
-    assert torch.equal(ops.scatter_rows(rows, slot, 4000),
-                       ref.scatter(rows, slot, 4000))
+    slot, _, _, counts = ops.rank(dest, 8, 500)
+    assert torch.equal(ops.scatter_rows(rows, slot, 4000, counts=counts),
+                       ref.scatter(rows, slot, 4000, counts=counts))
     words = torch.randint(0, 3, (100,), generator=g, device=dev,
                           dtype=torch.int32)
     idx = torch.randint(-2, 103, (3000,), generator=g, device=dev,
