@@ -302,20 +302,16 @@ def check_radix(quick: bool, stats: dict):
                                 f"cap={cap}")
                     stats["rank"] = max(stats["rank"], _err(got[0], want[0]))
                     for m in (None, mask):
+                        kb = rp.scatter(rows, got[0], n * cap,
+                                        counts=got[3], mask=m)
                         pb = ref.scatter(rows, got[0], n * cap,
                                          counts=got[3], mask=m)
-                        for plain in (False, True):
-                            kb = rp.scatter(rows, got[0], n * cap,
-                                            counts=got[3], mask=m,
-                                            plain=plain)
-                            if not torch.equal(kb, pb):
-                                raise AssertionError(
-                                    f"radix scatter differs: A={A} n={n} "
-                                    f"cap={cap} w={w} mask={m is not None} "
-                                    f"plain={plain}")
-                            stats["scatter"] = max(stats["scatter"],
-                                                   _err(kb, pb))
-                            cases += 1
+                        if not torch.equal(kb, pb):
+                            raise AssertionError(
+                                f"radix scatter differs: A={A} n={n} "
+                                f"cap={cap} w={w} mask={m is not None}")
+                        stats["scatter"] = max(stats["scatter"], _err(kb, pb))
+                        cases += 1
                     del kb, pb
             del rows
             torch.cuda.empty_cache()
@@ -466,14 +462,10 @@ def check_radix_join(quick: bool, stats: dict):
                           ("slot", "keep", "overflow", "counts")):
         if not torch.equal(x, y):
             raise AssertionError(f"radix rank {what} differs at A={A}")
-    want = ref.scatter(rows, got[0], 2 * A, counts=got[3])
-    for plain in (False, True):
-        kb = rp.scatter(rows, got[0], 2 * A, counts=got[3], plain=plain)
-        if not torch.equal(kb, want):
-            raise AssertionError(f"radix scatter differs at A={A} "
-                                 f"plain={plain}")
-        del kb
-    del want
+    kb = rp.scatter(rows, got[0], 2 * A, counts=got[3])
+    if not torch.equal(kb, ref.scatter(rows, got[0], 2 * A, counts=got[3])):
+        raise AssertionError(f"radix scatter differs at A={A}")
+    del kb
     torch.cuda.empty_cache()
     return A
 
@@ -559,25 +551,9 @@ def time_radix_join(quick: bool) -> dict:
                               iters=5),
         "shape": {"A": A, "w": 2, "slots": 2 * A}}
     t["bound_share"] = t["bound_ms"] / t["ms"]
-    out["radix_partition_scatter@join_bodies"] = _body_turns(
-        lambda plain: rp.scatter(rows, slot, 2 * A, counts=counts,
-                                 plain=plain), ("scatter_narrow",) * 2,
-        iters=10)
     del rows, wide, buf, kslot, slot
     torch.cuda.empty_cache()
     return out
-
-
-def _body_turns(call, names, iters=20):
-    """The scatter's bulk body (plain=False) and its plain vectorised or
-    wide twin (plain=True) in turns: bulk, plain, plain, bulk."""
-    turns = []
-    for plain in (False, True, True, False):
-        turns.append({"plain": plain,
-                      "ms": time_ms(lambda: call(plain), iters=iters),
-                      "device_ms": device_ms(lambda: call(plain),
-                                             (names[plain],), iters=iters)})
-    return turns
 
 
 def time_kernels(record: dict):
@@ -633,17 +609,7 @@ def time_kernels(record: dict):
         library_ms=time_ms(lib_copy),
         library_host_ms=host_ms(lib_copy),
         shape={"A": A, "w": w, "slots": n * cap, "kept": kept})
-    del wide, krows, buf
-    record["radix_partition_scatter"]["install_bodies"] = _body_turns(
-        lambda plain: rp.scatter(rows, slot, n * cap, counts=counts,
-                                 mask=mask, plain=plain),
-        ("scatter_medium", "scatter_wide"))
-    rows4 = torch.randint(-2 ** 31, 2 ** 31 - 1, (A, 4), generator=g,
-                          device=dev, dtype=torch.int32)
-    record["radix_partition_scatter"]["prepare_bodies"] = _body_turns(
-        lambda plain: rp.scatter(rows4, slot, n * cap, counts=counts,
-                                 plain=plain), ("scatter_narrow",) * 2)
-    del rows, rows4
+    del rows, wide, krows, buf
 
     # the prepare CAS: 3 uniform product updates + 4 unborn inserts per txn
     prods = torch.randint(0, PRODUCTS, (MAIN_T, W_READ), generator=g,

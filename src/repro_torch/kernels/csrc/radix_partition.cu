@@ -263,51 +263,7 @@ struct Narrow {
   static constexpr int TR = kRowThreads * RPT;
 };
 
-// The plain vectorised twin of store_run (16-byte stores by every thread).
-__device__ __forceinline__ void store_run_plain(const int* tile, long long g0,
-                                                long long g1,
-                                                int* __restrict__ out) {
-  const long long base = g0 & ~3ll;
-  const long long a = (g0 + 3) >> 2, b = g1 >> 2;
-  if (threadIdx.x == 0) {
-    const long long head_end = a < b ? a << 2 : g1;
-    for (long long g = g0; g < head_end; ++g) out[g] = tile[g - base];
-  }
-  if (a >= b) return;
-  if (threadIdx.x == 32)
-    for (long long g = b << 2; g < g1; ++g) out[g] = tile[g - base];
-  const int4* t4 = reinterpret_cast<const int4*>(tile);
-  int4* o4 = reinterpret_cast<int4*>(out);
-  for (long long j = a + threadIdx.x; j < b; j += kRowThreads)
-    o4[j] = t4[j - (base >> 2)];
-}
-
 template <int W>
-__device__ __forceinline__ void load_row(const int* __restrict__ p, bool vec,
-                                         int* v) {
-  if constexpr (W == 2) {
-    if (vec) {
-      const int2 x = *reinterpret_cast<const int2*>(p);
-      v[0] = x.x;
-      v[1] = x.y;
-      return;
-    }
-  }
-  if constexpr (W == 4) {
-    if (vec) {
-      const int4 x = *reinterpret_cast<const int4*>(p);
-      v[0] = x.x;
-      v[1] = x.y;
-      v[2] = x.z;
-      v[3] = x.w;
-      return;
-    }
-  }
-#pragma unroll
-  for (int c = 0; c < W; ++c) v[c] = p[c];
-}
-
-template <int W, bool kBulk>
 __global__ void __launch_bounds__(kRowThreads)
     scatter_narrow(const int* __restrict__ rows, const int* __restrict__ slot,
                    const uint8_t* __restrict__ mask,
@@ -328,8 +284,8 @@ __global__ void __launch_bounds__(kRowThreads)
   const long long i0 = (long long)blockIdx.x * TR;
   const int T = (int)(A - i0 < TR ? A - i0 : TR);
   const int* src = rows + i0 * W;
-  const bool aligned = (reinterpret_cast<uintptr_t>(src) & 15) == 0;
-  const bool bulk_in = kBulk && W > 0 && aligned && ((T * W) & 3) == 0;
+  const bool bulk_in = W > 0 && (reinterpret_cast<uintptr_t>(src) & 15) == 0
+                       && ((T * W) & 3) == 0;
   if (threadIdx.x == 0 && bulk_in)
     bulk_load(smem_addr(staged), src, (uint32_t)(T * W * 4), smem_addr(&bar));
   int s[RPT];
@@ -360,10 +316,9 @@ __global__ void __launch_bounds__(kRowThreads)
   for (int k = 0; k < RPT; ++k) {
     const int r = threadIdx.x + k * kRowThreads;
     if (s[k] < 0 || !m[k]) continue;
-    if (bulk_in)
-      load_row<W>(staged + r * W, false, v[k]);
-    else
-      load_row<W>(src + r * W, aligned, v[k]);
+    const int* p = bulk_in ? staged + r * W : src + r * W;
+#pragma unroll
+    for (int c = 0; c < W; ++c) v[k][c] = p[c];
   }
   if (ext[1] - smin + 1 != K) {                // not one run: row by row
 #pragma unroll
@@ -386,14 +341,9 @@ __global__ void __launch_bounds__(kRowThreads)
     for (int c = 0; c < W; ++c) t[c] = m[k] ? v[k][c] : 0;
     t[W] = m[k];
   }
-  if constexpr (kBulk) {
-    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-    __syncthreads();
-    store_run(tile, g0, g0 + (long long)K * WO, out);
-  } else {
-    __syncthreads();
-    store_run_plain(tile, g0, g0 + (long long)K * WO, out);
-  }
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  __syncthreads();
+  store_run(tile, g0, g0 + (long long)K * WO, out);
 }
 
 // Medium rows (w >= 8, and 4 rows of w + (w+1) ints fit kMediumBytes of
@@ -561,25 +511,24 @@ struct ScatterArgs {
   cudaStream_t st;
 };
 
-template <int W, bool kBulk>
+template <int W>
 cudaError_t launch_narrow(const ScatterArgs& a) {
   const unsigned rb = (unsigned)((a.A + Narrow<W>::TR - 1) / Narrow<W>::TR);
-  scatter_narrow<W, kBulk><<<rb + a.nzb, kRowThreads, 0, a.st>>>(
+  scatter_narrow<W><<<rb + a.nzb, kRowThreads, 0, a.st>>>(
       a.rows, a.slot, a.mask, a.counts, a.A, a.n, a.cap, rb, a.nzb, a.out);
   return cudaGetLastError();
 }
 
-template <bool kBulk>
 cudaError_t narrow(const ScatterArgs& a) {
   switch (a.w) {
-    case 0: return launch_narrow<0, kBulk>(a);
-    case 1: return launch_narrow<1, kBulk>(a);
-    case 2: return launch_narrow<2, kBulk>(a);
-    case 3: return launch_narrow<3, kBulk>(a);
-    case 4: return launch_narrow<4, kBulk>(a);
-    case 5: return launch_narrow<5, kBulk>(a);
-    case 6: return launch_narrow<6, kBulk>(a);
-    default: return launch_narrow<7, kBulk>(a);
+    case 0: return launch_narrow<0>(a);
+    case 1: return launch_narrow<1>(a);
+    case 2: return launch_narrow<2>(a);
+    case 3: return launch_narrow<3>(a);
+    case 4: return launch_narrow<4>(a);
+    case 5: return launch_narrow<5>(a);
+    case 6: return launch_narrow<6>(a);
+    default: return launch_narrow<7>(a);
   }
 }
 
@@ -665,8 +614,7 @@ int radix_rank(const void* dest, long long A, int n, int cap, void* hist,
 // `device`.
 int radix_scatter(const void* rows, const void* slot, const void* mask,
                   const void* counts, long long A, int w, int n,
-                  long long cap, void* out, int device, void* stream,
-                  int plain) {
+                  long long cap, void* out, int device, void* stream) {
   int cur = -1;
   cudaError_t e = cudaGetDevice(&cur);
   if (e == cudaSuccess && cur != device) e = cudaSetDevice(device);
@@ -682,8 +630,8 @@ int radix_scatter(const void* rows, const void* slot, const void* mask,
                         cap, (unsigned)nzb, (int*)out, (cudaStream_t)stream};
     const int tr = medium_rows(w);
     if (w <= 7)
-      e = plain ? narrow<false>(a) : narrow<true>(a);
-    else if (tr >= 4 && !plain)
+      e = narrow(a);
+    else if (tr >= 4)
       e = medium(a, tr);
     else
       e = wide(a, sms);

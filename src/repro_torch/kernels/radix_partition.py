@@ -35,7 +35,7 @@ def _load():
         lib.radix_rank.argtypes = [_P, _L, _I, _I, _P, _P, _P, _P, _P, _P]
         lib.radix_rank.restype = _I
         lib.radix_scatter.argtypes = [_P, _P, _P, _P, _L, _I, _I, _L, _P,
-                                      _I, _P, _I]
+                                      _I, _P]
         lib.radix_scatter.restype = _I
         for fn in (lib.radix_items_per_block, lib.radix_warps_per_block):
             fn.argtypes = []
@@ -107,8 +107,7 @@ def rank(dest: torch.Tensor, n: int, cap: int):
 
 
 def scatter(rows: torch.Tensor, slot: torch.Tensor, num_slots: int, *,
-            counts: torch.Tensor, mask=None, plain: bool = False
-            ) -> torch.Tensor:
+            counts: torch.Tensor, mask=None) -> torch.Tensor:
     """Scatter ``rows`` (A, w) int32 into a (num_slots, w + 1) int32
     buffer: row i lands in ``slot[i]``, with a ones valid lane appended,
     when the slot is in range and ``mask[i]`` (if given) is set; every
@@ -144,7 +143,7 @@ def scatter(rows: torch.Tensor, slot: torch.Tensor, num_slots: int, *,
     err = (_lib or _load()).radix_scatter(
         rows.data_ptr(), slot.data_ptr(),
         None if mask is None else mask.data_ptr(), counts.data_ptr(), A, w,
-        n, num_slots // n, out.data_ptr(), di, _stream(di), int(plain))
+        n, num_slots // n, out.data_ptr(), di, _stream(di))
     if err != 0:
         _raise_on(err, "radix_scatter launch")
     launches["scatter"] += 1
