@@ -11,7 +11,9 @@ exits non-zero:
            library's SASS must hold HGMMA and UTMALDG (the bf16 body's
            wgmma and TMA loads)
   kernels  each hand-written kernel held against its plain PyTorch
-           version over a sweep of shapes (bit-exact; the f32 grouped_agg
+           version over a sweep of shapes (bit-exact; the scatter with the
+           rank's counts, at row widths of every body: narrow, medium,
+           wide; the f32 grouped_agg
            within atol 1e-3, rtol 1e-4 on random floats; flash_attention
            within 2e-5 in f32 and 2e-2 in bf16, and in bf16 each query
            row's rms difference within ROW_TOL of its rms, at S up to 4096
@@ -23,7 +25,9 @@ exits non-zero:
            time from torch.profiler) beside its plain version, the nearest
            single PyTorch call and its bound (the larger of bytes / 3.35
            TB/s and operations / 989 TFLOP/s; flash also its TFLOP/s
-           and share of the bound)
+           and share of the bound); for cas and the scatter also the host
+           time to issue a call (theirs and the PyTorch call's), and a
+           cas call must be one device operation, with no fill
   oltp     the OLTP path at the paper's §4.3 width: Database(device="cuda")
            with 1 000 000 products of 1 KB (+131 072 insert rows), 8 waves
            of 4096 checkout sessions (Session.begin/get/put ->
@@ -593,6 +597,7 @@ def time_kernels(record: dict):
     sel = mask.nonzero()[:, 0]
     kslot, krows = slot[sel].to(torch.int64), wide[sel]
     buf = torch.zeros((n * cap, w + 1), dtype=torch.int32, device=dev)
+
     def scatter():
         return rp.scatter(rows, slot, n * cap, counts=counts, mask=mask)
 

@@ -39,7 +39,8 @@ from repro_torch.bench import checkout, fig6_rsi
 from repro_torch.db import Database
 
 PORT_KERNELS = ("hist_kernel", "scan_kernel", "rank_kernel",
-                "scatter_narrow", "scatter_wide", "cas_kernel", "agg_kernel")
+                "scatter_narrow", "scatter_medium", "scatter_wide",
+                "cas_kernel", "agg_kernel")
 
 
 def _short(name: str) -> str:

@@ -96,13 +96,11 @@ def cas(words, idx, expected, new, priority):
     ok = torch.empty_like(idx, dtype=torch.bool)
     if A == 0:
         return ok
-    s = _scratch.get(di)
-    if s is None or s[0] < R:
-        _scratch_of(R, di)
-    err = (_lib or _load()).cas_arbitrate(words.data_ptr(), R, idx.data_ptr(),
-                            expected.data_ptr(), new.data_ptr(),
-                            priority.data_ptr(), A, ok.data_ptr(), di,
-                            _stream(di))
+    _scratch_of(R, di)
+    err = (_lib or _load()).cas_arbitrate(
+        words.data_ptr(), R, idx.data_ptr(), expected.data_ptr(),
+        new.data_ptr(), priority.data_ptr(), A, ok.data_ptr(), di,
+        _stream(di))
     if err != 0:
         _scratch.pop(di, None)                 # it may hold stale keys
         _raise_on(err, "cas_arbitrate launch")

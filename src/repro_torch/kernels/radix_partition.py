@@ -139,13 +139,11 @@ def scatter(rows: torch.Tensor, slot: torch.Tensor, num_slots: int, *,
     if n < 1 or num_slots % n:
         raise ValueError(f"num_slots={num_slots} is not counts.numel()={n} "
                          "times a cap")
-    out = rows.new_empty((num_slots, w + 1))
+    out = torch.empty((num_slots, w + 1), dtype=_I32, device=di)
     err = (_lib or _load()).radix_scatter(
         rows.data_ptr(), slot.data_ptr(),
         None if mask is None else mask.data_ptr(), counts.data_ptr(), A, w,
         n, num_slots // n, out.data_ptr(), di, _stream(di))
-    if err != 0:
-        _raise_on(err, "radix_scatter launch")
+    _raise_on(err, "radix_scatter launch")
     launches["scatter"] += 1
     return out
-
