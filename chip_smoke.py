@@ -18,15 +18,18 @@ exits non-zero:
            within 2e-5 in f32 and 2e-2 in bf16, and in bf16 each query
            row's rms difference within ROW_TOL of its rms, at S up to 4096
            and at glm4's S = 8192, where a control with one key tile
-           dropped must read above ROW_TOL; ssd_scan within 2e-3),
-           radix_partition
-           also at the joins' A = 128 000 000, then each timed at the
+           dropped must read above ROW_TOL; ssd_scan within 2e-3 in f32
+           and, in bf16, y within 2e-2 and the f32 state within 2e-3, over
+           SSD_SWEEP and at mamba2's layer), radix_partition also at the
+           joins' A = 128 000 000 and its rank alone at 2^24 requests into
+           8 and 64 buckets, then each timed at the
            main paths' shapes (per call between CUDA events, and its device
            time from torch.profiler) beside its plain version, the nearest
            single PyTorch call and its bound (the larger of bytes / 3.35
            TB/s and operations / 989 TFLOP/s; flash also its TFLOP/s
-           and share of the bound); for cas and the scatter also the host
-           time to issue a call (theirs and the PyTorch call's), and a
+           and share of the bound); for cas, the scatter and the rank
+           also the host time to issue a call (and the PyTorch call's
+           where there is one), the rank its scan's own device time, and a
            cas call must be one device operation, with no fill
   oltp     the OLTP path at the paper's §4.3 width: Database(device="cuda")
            with 1 000 000 products of 1 KB (+131 072 insert rows), 8 waves
@@ -102,6 +105,7 @@ MAIN_T, MAIN_WAVES = 4096, 8     # checkouts per wave, waves (the store's
 FIG6_ITERS = 40                  # timed commits per fig6 run
 OLAP_N = 128_000_000             # tuples a relation: configs OLAP
 OLAP_QUICK_N = 1 << 22
+RANK_WIDE_A = 1 << 24            # check_radix's rank-only cases: 4096 blocks
 PROFILE_SELS = (0.5,)            # one profiled execution per join here
 PROFILE_GROUPS = (64, 67_108_864)  # ... and per aggregation scheme here
 OLTP_KERNELS = ("radix_partition_rank", "radix_partition_scatter",
@@ -278,7 +282,8 @@ def _rand_dest(g, A, n, dev):
 
 
 def check_radix(quick: bool, stats: dict):
-    """rank + scatter bit-exact against ref over the sweep."""
+    """rank + scatter bit-exact against ref over the sweep, then the rank
+    alone at RANK_WIDE_A requests into 8 and 64 buckets."""
     import torch
     from repro_torch.kernels import radix_partition as rp, ref
     dev = torch.device("cuda")
@@ -319,6 +324,25 @@ def check_radix(quick: bool, stats: dict):
                     del kb, pb
             del rows
             torch.cuda.empty_cache()
+    # the rank alone at RANK_WIDE_A requests: more blocks than the scan
+    # over blocks has threads, in every bucket's column
+    for n in (8, 64):
+        dest = _rand_dest(g, RANK_WIDE_A, n, dev)
+        inb = dest[(dest >= 0) & (dest < n)].to(torch.int64)
+        most = int(torch.bincount(inb, minlength=n).max())
+        for cap in (most, most // 2):
+            got = rp.rank(dest, n, cap)
+            want = ref.rank(dest, n, cap)
+            for x, y, what in zip(got, want, ("slot", "keep", "overflow",
+                                              "counts")):
+                if not torch.equal(x, y):
+                    raise AssertionError(
+                        f"radix rank {what} differs: A={RANK_WIDE_A} n={n} "
+                        f"cap={cap}")
+            stats["rank"] = max(stats["rank"], _err(got[0], want[0]))
+            cases += 1
+        del dest, inb, got, want
+    torch.cuda.empty_cache()
     return cases
 
 
@@ -490,17 +514,18 @@ def time_grouped(quick: bool, record: dict) -> dict:
                                       device=dev),
             "grouped_sum_u32": torch.ones((N,), dtype=torch.int32,
                                           device=dev)}
-    entry = {"grouped_agg": (ga.grouped_agg, ref.grouped_agg),
-             "grouped_sum_u32": (ga.grouped_sum_u32, ref.grouped_sum_u32)}
+    entry = {"grouped_agg": (ga.grouped_agg, ref.grouped_agg, "f32"),
+             "grouped_sum_u32": (ga.grouped_sum_u32, ref.grouped_sum_u32,
+                                 "u32")}
     out = {}
     for S in (2048, 1 << 26):
         slot = (keys % S).to(torch.int32)
-        for name, (kern, plain) in entry.items():
+        for name, (kern, plain, ent) in entry.items():
             v = vals[name]
             lib = torch.zeros((S,), dtype=v.dtype, device=dev)
             t = {"ms": time_ms(lambda: kern(slot, v, S)),
                  "device_ms": device_ms(lambda: kern(slot, v, S),
-                                        ("agg_kernel",)),
+                                        ga.KERNELS[ent]),
                  "plain_ms": time_ms(lambda: plain(slot, v, S), iters=5),
                  "bound_ms": bound_ms(8 * N + 4 * S), "bound_by": "bytes",
                  "library_ms": time_ms(
@@ -530,8 +555,10 @@ def time_radix_join(quick: bool) -> dict:
     out = {"radix_partition_rank@join": {
         "ms": time_ms(lambda: rp.rank(dest, 1, 2 * A), iters=5),
         "device_ms": device_ms(lambda: rp.rank(dest, 1, 2 * A),
-                               ("hist_kernel", "scan_kernel", "rank_kernel"),
-                               iters=5),
+                               rp.KERNELS["rank"], iters=5),
+        "scan_device_ms": device_ms(lambda: rp.rank(dest, 1, 2 * A),
+                                    ("scan_kernel",), iters=5),
+        "host_ms": host_ms(lambda: rp.rank(dest, 1, 2 * A), iters=10),
         "plain_ms": time_ms(lambda: ref.rank(dest, 1, 2 * A), iters=5),
         "bound_ms": bound_ms(4 * A + 4 * A + 2 * A + 4), "bound_by": "bytes",
         "library_ms": None, "shape": {"A": A, "n": 1, "cap": 2 * A}}}
@@ -545,7 +572,7 @@ def time_radix_join(quick: bool) -> dict:
         return rp.scatter(rows, slot, 2 * A, counts=counts)
     t = out["radix_partition_scatter@join"] = {
         "ms": time_ms(kern, iters=5),
-        "device_ms": device_ms(kern, ("scatter_narrow",), iters=5),
+        "device_ms": device_ms(kern, rp.KERNELS["scatter"], iters=5),
         "host_ms": host_ms(kern, iters=10),
         "plain_ms": time_ms(lambda: ref.scatter(rows, slot, 2 * A,
                                                 counts=counts), iters=5),
@@ -580,7 +607,10 @@ def time_kernels(record: dict):
     record["radix_partition_rank"].update(
         ms=time_ms(lambda: rp.rank(dest, n, cap)),
         device_ms=device_ms(lambda: rp.rank(dest, n, cap),
-                            ("hist_kernel", "scan_kernel", "rank_kernel")),
+                            rp.KERNELS["rank"]),
+        scan_device_ms=device_ms(lambda: rp.rank(dest, n, cap),
+                                 ("scan_kernel",)),
+        host_ms=host_ms(lambda: rp.rank(dest, n, cap)),
         plain_ms=time_ms(lambda: ref.rank(dest, n, cap)),
         bound_ms=bound_ms(A * 4 + A * 4 + 2 * A + n * 4),
         bound_by="bytes", library_ms=None,
@@ -605,7 +635,7 @@ def time_kernels(record: dict):
         return buf.index_copy_(0, kslot, krows)
     record["radix_partition_scatter"].update(
         ms=time_ms(scatter),
-        device_ms=device_ms(scatter, ("scatter_medium",)),
+        device_ms=device_ms(scatter, rp.KERNELS["scatter"]),
         host_ms=host_ms(scatter),
         plain_ms=time_ms(lambda: ref.scatter(rows, slot, n * cap,
                                              counts=counts, mask=mask)),
@@ -656,7 +686,7 @@ def time_kernels(record: dict):
                              f"{ops_per_call}")
     record["cas_lock"].update(
         ms=time_ms(call, setup=restore),
-        device_ms=device_ms(call, ("cas_kernel",), setup=restore),
+        device_ms=device_ms(call, ck.KERNELS["cas"], setup=restore),
         host_ms=host_ms(call, setup=restore),
         device_ops=ops_per_call,
         plain_ms=time_ms(lambda: ref.cas(live, idx, exp, new, prio),
@@ -686,11 +716,14 @@ FLASH_SWEEP = (     # (B, S, T, H, KH, D, causal): tests/test_kernels.py:47-52,
 )
 SSD_SWEEP = (       # (B, S, H, hd, N): tests/test_kernels.py:70-74, then
     (2, 64, 8, 16, 16),                 # ragged S, N = 8 and 128, and the
-    (2, 128, 4, 32, 8),                 # mamba2 head (hd 64, N 128)
-    (2, 256, 16, 16, 32),
-    (2, 100, 4, 16, 16),
-    (1, 300, 32, 64, 128),
-    (2, 1000, 4, 64, 128),
+    (2, 128, 4, 32, 8),                 # mamba2 head (hd 64, N 128); then,
+    (2, 256, 16, 16, 32),               # for the bf16 body's plans and
+    (2, 100, 4, 16, 16),                # padding, hd 24 at N = 256, N =
+    (1, 300, 32, 64, 128),              # 1024 (16-step chunks), and hd 20
+    (2, 1000, 4, 64, 128),              # at N = 40 (bf16 only: zero-padded
+    (1, 200, 4, 24, 256),               # to 24 and 64)
+    (1, 130, 2, 16, 1024),
+    (1, 150, 3, 20, 40),
 )
 FLASH_PATH = (1, 8192, 32, 2, 128)      # glm4 prefill: B, S, H, KH, D
 SSD_PATH = (8, 8192, 32, 64, 128)       # mamba2 prefill: B, S, H, hd, N
@@ -743,7 +776,8 @@ def check_ssd(stats: dict):
     """ssd_scan against ref.ssd_scan over SSD_SWEEP: f32 y and final state
     within 2e-3 (tests/test_kernels.py:84), with and without an initial
     state; bf16 inputs, y within 2e-2 relative (one bf16 rounding of y)
-    and the f32 state within 2e-3."""
+    and the f32 state within 2e-3.  N = 1024 runs in bf16 only: the f32
+    body refuses it."""
     import torch
     from repro_torch.kernels import ref, ssd_scan as sk
     dev = torch.device("cuda")
@@ -751,6 +785,8 @@ def check_ssd(stats: dict):
     cases = 0
     for B, S, H, P, N in SSD_SWEEP:
         for dtype, tol in ((torch.float32, 2e-3), (torch.bfloat16, 2e-2)):
+            if not sk.takes_state_dim(N, dtype):        # f32 at N = 1024
+                continue
             xh = _normal(g, (B, S, H, P), dtype, dev, 0.5)
             bv = _normal(g, (B, S, N), dtype, dev, 0.5)
             cv = _normal(g, (B, S, N), dtype, dev, 0.5)
@@ -813,7 +849,7 @@ def time_flash(record: dict) -> dict:
     nbytes = 2 * (q.numel() * 2 + k.numel() * 2)
     t = {"ms": time_ms(lambda: fa.flash_attention(q, k, v), iters=10),
          "device_ms": device_ms(lambda: fa.flash_attention(q, k, v),
-                                ("flash_bf16",), iters=5),
+                                fa.KERNELS["flash"], iters=5),
          "plain_ms": time_ms(lambda: ref.flash_attention(q, k, v), iters=3,
                              warmup=1),
          "bound_ms": max(bound_ms(nbytes), flops / BF16_FLOP_PER_S * 1e3),
@@ -874,7 +910,7 @@ def time_ssd(record: dict) -> dict:
     flops = ssd_chunked_flops(B, S, H, P, N)
     t = {"ms": time_ms(lambda: sk.ssd_scan(xh, bv, cv, dt, a), iters=10),
          "device_ms": device_ms(lambda: sk.ssd_scan(xh, bv, cv, dt, a),
-                                ("ssd_kernel",), iters=5),
+                                sk.KERNELS["ssd"], iters=5),
          "plain_ms": time_ms(lambda: ref.ssd_scan(xh, bv, cv, dt, a),
                              iters=3, warmup=1),
          "bound_ms": max(bound_ms(nbytes), flops / BF16_FLOP_PER_S * 1e3),
@@ -883,7 +919,9 @@ def time_ssd(record: dict) -> dict:
          "library_ms": None, "flops_chunked": flops,
          "flops_recurrence": 4 * B * S * H * P * N, "bytes": nbytes,
          "path_max_abs_err": err, "path_state_max_abs_err": serr,
+         "plan": sk.chunk_plan(P, N),
          "shape": {"B": B, "S": S, "H": H, "hd": P, "N": N}}
+    t["bound_share"] = t["bound_ms"] / t["ms"]
     record["ssd_scan"].update(t)
     del xh, bv, cv, dt
     torch.cuda.empty_cache()

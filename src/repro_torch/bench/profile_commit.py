@@ -37,10 +37,10 @@ from torch.profiler import ProfilerActivity, profile
 from repro_torch._bits import resolve_device
 from repro_torch.bench import checkout, fig6_rsi
 from repro_torch.db import Database
+from repro_torch.kernels import cas_lock, grouped_agg, radix_partition
 
-PORT_KERNELS = ("hist_kernel", "scan_kernel", "rank_kernel",
-                "scatter_narrow", "scatter_medium", "scatter_wide",
-                "cas_kernel", "agg_kernel")
+PORT_KERNELS = tuple(name for mod in (radix_partition, cas_lock, grouped_agg)
+                     for names in mod.KERNELS.values() for name in names)
 
 
 def _short(name: str) -> str:

@@ -30,7 +30,7 @@ import torch
 
 from repro_torch._bits import resolve_device
 from repro_torch.configs import get_config
-from repro_torch.kernels import ops
+from repro_torch.kernels import flash_attention, ops, ssd_scan
 from repro_torch.models import api, lm
 from repro_torch.serving import Request, ServeEngine
 from repro_torch.train.train_step import build_prefill_step
@@ -230,9 +230,9 @@ def profile(fn, top: int = 12) -> dict:
 
     def kind(name: str) -> str:
         low = name.lower()
-        if "flash_bf16" in name or "flash_f32" in name:
+        if any(k in name for k in flash_attention.KERNELS["flash"]):
             return "flash_attention"
-        if "ssd_kernel" in name:
+        if any(k in name for k in ssd_scan.KERNELS["ssd"]):
             return "ssd_scan"
         if any(w in low for w in ("gemm", "xmma", "cutlass", "cublas",
                                   "nvjet")):

@@ -9,8 +9,13 @@
 //                  the stable arrival-order rank of each request in its
 //                  bucket (plan_route).  Three launches:
 //                    1. per-block bucket histograms (shared-memory atomics:
-//                       counts do not depend on order);
-//                    2. an exclusive scan over blocks, one thread per bucket;
+//                       counts do not depend on order), stored bucket-major
+//                       (n, nblocks) so each bucket's column is contiguous;
+//                    2. an exclusive scan over blocks, one block a bucket:
+//                       each thread sums a contiguous run of the column, a
+//                       block scan (warp shuffles, then the warps' totals)
+//                       gives each run its offset, and each thread writes
+//                       its run's offsets back;
 //                    3. the rank inside a block: tiles of 256 requests in
 //                       arrival order, warp ballots (__match_any_sync +
 //                       __popc(peers & lanemask_lt)) for the rank inside a
@@ -28,9 +33,10 @@
 //
 // Bound: bytes.  The rank reads 4 B and writes 6 B per request; the scatter
 // reads each kept row, slot and mask once and writes the buffer once.  The
-// rank's scan is serial per bucket over blocks of 4096 requests, which is
-// short at the OLTP path's sizes (n = 1 shard, A = T*W) and not at a
-// join's (A = 128M).
+// rank's scan over blocks moves 8 B per (bucket, block of 4096 requests),
+// little beside the rank's 10 B a request at small n; at a join (A = 128M,
+// 31 250 blocks) one bucket's blocks are split among 1024 threads, not
+// walked by one.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -40,6 +46,8 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kTiles = 16;                    // tiles of kThreads per block
 constexpr int kItems = kThreads * kTiles;     // requests ranked per block
+constexpr int kScanThreads = 1024;            // most threads a bucket's scan
+constexpr unsigned kFull = 0xffffffffu;
 
 __global__ void hist_kernel(const int* __restrict__ dest, long long A, int n,
                             int* __restrict__ hist) {
@@ -54,23 +62,52 @@ __global__ void hist_kernel(const int* __restrict__ dest, long long A, int n,
   }
   __syncthreads();
   for (int d = threadIdx.x; d < n; d += blockDim.x)
-    hist[(long long)blockIdx.x * n + d] = sh[d];
+    hist[(long long)d * gridDim.x + blockIdx.x] = sh[d];
 }
 
-// hist (nblocks, n) -> exclusive per-bucket offsets, in place; counts[d] =
-// min(total of bucket d, cap).
-__global__ void scan_kernel(int* __restrict__ hist, int nblocks, int n,
-                            int cap, int* __restrict__ counts) {
-  const int d = blockIdx.x * blockDim.x + threadIdx.x;
-  if (d >= n) return;
-  int acc = 0;
-  for (int b = 0; b < nblocks; ++b) {
-    const long long k = (long long)b * n + d;
-    const int c = hist[k];
-    hist[k] = acc;
+// inclusive sum of v over the lanes up to this one
+__device__ __forceinline__ int warp_scan(int v, int lane) {
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int u = __shfl_up_sync(kFull, v, o);
+    if (lane >= o) v += u;
+  }
+  return v;
+}
+
+// hist (n, nblocks) -> exclusive per-bucket offsets over blocks, in place;
+// counts[d] = min(total of bucket d, cap).  Block d scans bucket d's
+// column; blockDim.x is a multiple of 32.
+__global__ void __launch_bounds__(kScanThreads)
+scan_kernel(int* __restrict__ hist, int nblocks, int cap,
+            int* __restrict__ counts) {
+  __shared__ int wsum[kScanThreads / 32];
+  int* col = hist + (long long)blockIdx.x * nblocks;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  const int per = (nblocks + blockDim.x - 1) / blockDim.x;
+  const int lo = min((int)threadIdx.x * per, nblocks);
+  const int hi = min(lo + per, nblocks);
+  int run = 0;
+  for (int k = lo; k < hi; ++k) run += col[k];
+  const int incl = warp_scan(run, lane);
+  if (lane == 31) wsum[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    const int w = warp_scan(lane < nw ? wsum[lane] : 0, lane);
+    if (lane < nw) wsum[lane] = w;
+  }
+  __syncthreads();
+  int acc = incl - run + (warp > 0 ? wsum[warp - 1] : 0);
+  for (int k = lo; k < hi; ++k) {
+    const int c = col[k];
+    col[k] = acc;
     acc += c;
   }
-  counts[d] = acc < cap ? acc : cap;
+  if (threadIdx.x == 0) {
+    const int total = wsum[nw - 1];
+    counts[blockIdx.x] = total < cap ? total : cap;
+  }
 }
 
 __global__ void rank_kernel(const int* __restrict__ dest, long long A, int n,
@@ -81,7 +118,7 @@ __global__ void rank_kernel(const int* __restrict__ dest, long long A, int n,
   int* running = sh;          // (n,)  requests of this block ranked so far
   int* wcnt = sh + n;         // (kWarps, n)  this tile's per-warp counts
   for (int k = threadIdx.x; k < n; k += blockDim.x)
-    running[k] = offs[(long long)blockIdx.x * n + k];
+    running[k] = offs[(long long)k * gridDim.x + blockIdx.x];
   for (int k = threadIdx.x; k < kWarps * n; k += blockDim.x) wcnt[k] = 0;
   __syncthreads();
   const int lane = threadIdx.x & 31;
@@ -128,7 +165,6 @@ __global__ void rank_kernel(const int* __restrict__ dest, long long A, int n,
 // its row (the row's lanes and a valid lane of 1, or w + 1 zeros where the
 // mask is clear) or by a tail block (zeros).  Nothing fills it first.
 
-constexpr unsigned kFull = 0xffffffffu;
 constexpr int kRowThreads = 256;
 constexpr int kWideWarps = kRowThreads / 32;
 constexpr int kSeg = 1024;     // ints of a wide row a warp writes per step
@@ -582,29 +618,36 @@ int radix_items_per_block() { return kItems; }
 
 int radix_warps_per_block() { return kWarps; }
 
-// hist: (max(nblocks, 1) * n) int32 scratch.  Shared memory: (kWarps+1)*n
-// ints, so n is limited by the caller to fit the 48 KB default.
+// hist: (nblocks * n) int32 scratch, nblocks = ceil(A / items per block).
+// Shared memory: (kWarps+1)*n ints, so n is limited by the caller to fit
+// the 48 KB default.  Launches on `stream` of `device`.
 int radix_rank(const void* dest, long long A, int n, int cap, void* hist,
                void* counts, void* slot, void* keep, void* overflow,
-               void* stream) {
+               int device, void* stream) {
+  int cur = -1;
+  cudaError_t e = cudaGetDevice(&cur);
+  if (e == cudaSuccess && cur != device) e = cudaSetDevice(device);
   cudaStream_t st = (cudaStream_t)stream;
   const int nblocks = (int)((A + kItems - 1) / kItems);
-  if (nblocks > 0) {
+  if (e == cudaSuccess && nblocks > 0) {
     hist_kernel<<<nblocks, kThreads, n * sizeof(int), st>>>(
         (const int*)dest, A, n, (int*)hist);
-    cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
+    e = cudaGetLastError();
   }
-  scan_kernel<<<(n + 127) / 128, 128, 0, st>>>((int*)hist, nblocks, n, cap,
-                                               (int*)counts);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  if (nblocks > 0) {
+  if (e == cudaSuccess) {
+    const int threads = nblocks >= kScanThreads ? kScanThreads
+                        : nblocks > 32 ? (nblocks + 31) / 32 * 32 : 32;
+    scan_kernel<<<n, threads, 0, st>>>((int*)hist, nblocks, cap,
+                                       (int*)counts);
+    e = cudaGetLastError();
+  }
+  if (e == cudaSuccess && nblocks > 0) {
     rank_kernel<<<nblocks, kThreads, (kWarps + 1) * n * sizeof(int), st>>>(
         (const int*)dest, A, n, cap, (const int*)hist, (int*)slot,
         (uint8_t*)keep, (uint8_t*)overflow);
     e = cudaGetLastError();
   }
+  if (cur >= 0 && cur != device) cudaSetDevice(cur);
   return (int)e;
 }
 

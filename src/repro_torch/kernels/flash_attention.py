@@ -20,6 +20,8 @@ from repro_torch.kernels import build
 from repro_torch.kernels.radix_partition import _raise_on
 
 launches = {"flash": 0}
+# the device kernels each entry point launches, as the profiler names them
+KERNELS = {"flash": ("flash_bf16", "flash_f32")}
 DTYPES = (torch.float32, torch.bfloat16)
 MAX_HEAD_DIM = 128
 

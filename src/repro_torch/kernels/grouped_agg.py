@@ -22,6 +22,8 @@ from repro_torch.kernels import build
 from repro_torch.kernels.radix_partition import _check, _raise_on
 
 launches = {"f32": 0, "u32": 0}
+# the device kernels each entry point launches, as the profiler names them
+KERNELS = {"f32": ("agg_kernel",), "u32": ("agg_kernel",)}
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _lib = None

@@ -22,17 +22,24 @@ import torch
 from repro_torch.kernels import build
 
 launches = {"rank": 0, "scatter": 0}
+# the device kernels each entry point launches, as the profiler names them
+KERNELS = {"rank": ("hist_kernel", "scan_kernel", "rank_kernel"),
+           "scatter": ("scatter_narrow", "scatter_medium", "scatter_wide")}
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _I32 = torch.int32
 _lib = None
+# requests a rank block takes, and the largest n whose per-warp counts fit
+# the 48 KB of shared memory a block gets without opting in
+_items = _max_n = 0
 
 
 def _load():
-    global _lib
+    global _lib, _items, _max_n
     if _lib is None:
         lib = build.load("radix_partition")
-        lib.radix_rank.argtypes = [_P, _L, _I, _I, _P, _P, _P, _P, _P, _P]
+        lib.radix_rank.argtypes = [_P, _L, _I, _I, _P, _P, _P, _P, _P, _I,
+                                   _P]
         lib.radix_rank.restype = _I
         lib.radix_scatter.argtypes = [_P, _P, _P, _P, _L, _I, _I, _L, _P,
                                       _I, _P]
@@ -40,14 +47,10 @@ def _load():
         for fn in (lib.radix_items_per_block, lib.radix_warps_per_block):
             fn.argtypes = []
             fn.restype = _I
+        _items = lib.radix_items_per_block()
+        _max_n = (48 * 1024) // (4 * (lib.radix_warps_per_block() + 1))
         _lib = lib
     return _lib
-
-
-def max_buckets() -> int:
-    """Largest ``n`` whose per-warp counts fit the 48 KB of shared memory
-    a block gets without opting in."""
-    return (48 * 1024) // (4 * (_load().radix_warps_per_block() + 1))
 
 
 def _check(t, name, dtype, ndim, device=None):
@@ -76,34 +79,40 @@ def _raise_on(err: int, what: str):
                            f"({torch.cuda.get_device_name()})")
 
 
+# The rank's per-block histograms, one int32 buffer per device index,
+# grown when a call needs more; each call overwrites what it reads.
+_hist: dict = {}
+
+
 def rank(dest: torch.Tensor, n: int, cap: int):
     """Stable rank-in-bucket of ``dest`` (A,) int32.  Returns ``(slot
     (A,) int32, keep (A,) bool, overflow (A,) bool, counts (n,) int32)``:
     ``slot = dest*cap + rank`` where kept, ``n*cap`` otherwise;
-    ``counts = min(bucket size, cap)``."""
-    _check(dest, "dest", torch.int32, 1)
-    lib = _load()
+    ``counts = min(bucket size, cap)``.  slot and counts share one
+    allocation, keep and overflow another."""
+    di = dest.get_device()
+    if di < 0 or not (dest.dtype is _I32 and dest.dim() == 1
+                      and dest.is_contiguous()):
+        _check(dest, "dest", _I32, 1)
+    lib = _lib or _load()
     n, cap = int(n), int(cap)
-    if not 1 <= n <= max_buckets():
-        raise ValueError(f"n={n} outside [1, {max_buckets()}]")
+    if not 1 <= n <= _max_n:
+        raise ValueError(f"n={n} outside [1, {_max_n}]")
     if cap < 0 or n * (cap + 1) >= 2 ** 31:
         raise ValueError(f"n*cap = {n}*{cap} does not fit int32 slots")
-    A = dest.numel()
-    dev = dest.device
-    nblocks = -(-A // lib.radix_items_per_block())
-    hist = torch.empty((max(nblocks, 1) * n,), dtype=torch.int32, device=dev)
-    slot = torch.empty((A,), dtype=torch.int32, device=dev)
-    keep = torch.empty((A,), dtype=torch.bool, device=dev)
-    overflow = torch.empty((A,), dtype=torch.bool, device=dev)
-    counts = torch.empty((n,), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        _raise_on(lib.radix_rank(dest.data_ptr(), A, n, cap, hist.data_ptr(),
-                                 counts.data_ptr(), slot.data_ptr(),
-                                 keep.data_ptr(), overflow.data_ptr(),
-                                 stream), "radix_rank launch")
+    A = dest.shape[0]
+    need = max(-(-A // _items), 1) * n
+    hist = _hist.get(di)
+    if hist is None or hist.shape[0] < need:
+        hist = _hist[di] = torch.empty((need,), dtype=_I32, device=di)
+    out = torch.empty((A + n,), dtype=_I32, device=di)
+    flags = torch.empty((2, A), dtype=torch.bool, device=di)
+    _raise_on(lib.radix_rank(dest.data_ptr(), A, n, cap, hist.data_ptr(),
+                             out.data_ptr() + 4 * A, out.data_ptr(),
+                             flags.data_ptr(), flags.data_ptr() + A, di,
+                             _stream(di)), "radix_rank launch")
     launches["rank"] += 1
-    return slot, keep, overflow, counts
+    return out[:A], flags[0], flags[1], out[A:]
 
 
 def scatter(rows: torch.Tensor, slot: torch.Tensor, num_slots: int, *,

@@ -6,9 +6,12 @@
     ``device=`` (the database, the transport, the store, the model's
     parameters, the serving engine and its launcher) raises instead of
     running on the CPU;
-  * a kernel wrapper given a CPU tensor raises before it builds anything.
+  * a kernel wrapper given a CPU tensor raises before it builds anything;
+  * every device-kernel name a wrapper lists (``KERNELS``, which the
+    profiling code reads) is a ``__global__`` function of the sources.
 """
 import ast
+import re
 from pathlib import Path
 
 import pytest
@@ -114,3 +117,32 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     ops.flash_attention(q, q, q)
     ops.ssd_scan(x, bc, bc, dt, torch.zeros(2))
     assert ops.launch_counts() == before
+
+
+WRAPPERS = (radix_partition, cas_lock, grouped_agg, flash_attention,
+            ssd_scan)
+_GLOBAL = re.compile(r"__global__\s+(?:void\s+)?(?:__launch_bounds__\([^)]*\)"
+                     r"\s*)?(?:void\s+)?(\w+)\s*\(")
+
+
+def _global_functions() -> set:
+    names = set()
+    for src in (ROOT / "src" / "repro_torch" / "kernels" / "csrc").glob(
+            "*.cu"):
+        names |= set(_GLOBAL.findall(src.read_text()))
+    return names
+
+
+def test_global_function_parser_finds_every_kernel():
+    assert {"hist_kernel", "scan_kernel", "rank_kernel", "scatter_medium",
+            "cas_kernel", "agg_kernel", "flash_bf16",
+            "ssd_kernel"} <= _global_functions()
+
+
+@pytest.mark.parametrize("mod", WRAPPERS,
+                         ids=[m.__name__.rsplit(".", 1)[1] for m in WRAPPERS])
+def test_listed_kernel_names_are_global_functions(mod):
+    assert set(mod.KERNELS) == set(mod.launches)
+    listed = {name for names in mod.KERNELS.values() for name in names}
+    assert listed and listed <= _global_functions(), \
+        listed - _global_functions()
