@@ -417,19 +417,30 @@ def check_cas(quick: bool, stats: dict):
     return cases
 
 
+def grouped_sweep(rows: int) -> tuple:
+    """check_grouped's table sizes: small tables, both sides of every
+    boundary of grouped_agg.plan at ``rows`` rows, and RDMA-AGG's tables
+    at Fig 8b's largest G (2**26 groups, 4 chunks: 2**28 slots)."""
+    from repro_torch.kernels import grouped_agg as ga
+    edges = {S + k for S in ga.boundaries(rows, ga.device_info("cuda"))
+             for k in (0, 1)}
+    return tuple(sorted({1, 64, 2048, 4096, 1 << 26, 1 << 28} | edges))
+
+
 def check_grouped(quick: bool, stats: dict):
     """grouped_sum_u32 bit-exact against ref over random u32 words (sums
     wrap), grouped_agg (f32) bit-exact on small signed integers and within
     atol 1e-3, rtol 1e-4 on uniform [0, 1) floats (the f32 atomics add in
-    an order that changes from run to run), over N up to 2**27 and S from 1
-    to 2**24, both sides of the shared-memory limit; uniform slots, and
-    one skewed case per size (90 % of the rows in one slot)."""
+    an order that changes from run to run), over N up to 2**27 and S over
+    grouped_sweep (every path of the plan, up to 2**28 slots); uniform
+    slots, and 90 % of the rows in one slot at 2048 and 2**26 slots.  The
+    keys entry bit-exact against its plain version on keys with the top
+    bit set in half the rows: key % G, and RDMA-AGG's phase-1 layouts
+    (4 chunks, 1 and 4 owners)."""
     import torch
     from repro_torch.kernels import grouped_agg as ga, ref
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(14)
-    lim = ga.max_shared_slots()
-    slots = (1, 64, 2048, 4096, lim, lim + 1, 262_144, 1 << 24)
     sizes = (1, 1000, 1 << 20) if quick else (1, 1000, 1 << 20, 1 << 27)
     cases = 0
     for N in sizes:
@@ -438,16 +449,18 @@ def check_grouped(quick: bool, stats: dict):
         ints = torch.randint(-8, 9, (N,), generator=g, device=dev
                              ).to(torch.float32)
         floats = torch.rand((N,), generator=g, device=dev)
-        for S in slots:
+        keys = torch.randint(-2 ** 31, 2 ** 31 - 1, (N,), generator=g,
+                             device=dev, dtype=torch.int32)
+        for S in grouped_sweep(N):
             uni = torch.randint(0, S, (N,), generator=g, device=dev,
                                 dtype=torch.int32)
             layouts = [("uniform", uni)]
-            if S == 2048:
+            if S in (2048, 1 << 26):
                 layouts.append(("skewed", torch.where(
                     torch.rand((N,), generator=g, device=dev) < 0.9, S // 2,
                     uni)))
             for skew, slot in layouts:
-                where = f"N={N} S={S} {skew}"
+                where = f"N={N} S={S} {skew} ({ga.plan(S, N).path})"
                 got = ga.grouped_sum_u32(slot, words, S)
                 if not torch.equal(got, ref.grouped_sum_u32(slot, words, S)):
                     raise AssertionError(f"grouped_sum_u32 differs: {where}")
@@ -464,14 +477,30 @@ def check_grouped(quick: bool, stats: dict):
                     (got - want).abs().max()))
                 cases += 3
             del uni, layouts
-        del words, ints, floats
+            for chunks, owners in ((1, 1), (4, 1), (4, 4)):
+                if chunks * S > 1 << 28 or N % chunks:
+                    continue
+                got = ga.grouped_sum_u32_by_key(keys, words, S, chunks=chunks,
+                                                n=owners)
+                want = ref.grouped_sum_u32_by_key(keys, words, S,
+                                                  chunks=chunks, n=owners)
+                if not torch.equal(got, want):
+                    raise AssertionError(
+                        f"grouped_sum_u32_by_key differs: N={N} G={S} "
+                        f"chunks={chunks} n={owners}")
+                cases += 1
+            torch.cuda.empty_cache()
+        del words, ints, floats, keys
         torch.cuda.empty_cache()
     # a slot outside [0, S) is skipped, never written
     slot = torch.tensor([-1, 0, 5, 1], dtype=torch.int32, device=dev)
     one = torch.ones(4, dtype=torch.int32, device=dev)
-    if ga.grouped_sum_u32(slot, one, 2).tolist() != [1, 1]:
-        raise AssertionError("grouped_sum_u32 wrote an out-of-range slot")
-    return cases + 1
+    for path in ("shared", "global", "partition"):
+        p = ga.plan(2, 4, ga.device_info(dev), path=path)
+        if ga.grouped_sum_u32(slot, one, 2, plan=p).tolist() != [1, 1]:
+            raise AssertionError(f"grouped_sum_u32 ({path}) wrote an "
+                                 "out-of-range slot")
+    return cases + 3
 
 
 def check_radix_join(quick: bool, stats: dict):
@@ -498,46 +527,78 @@ def check_radix_join(quick: bool, stats: dict):
     return A
 
 
+def grouped_olap_slots() -> tuple:
+    """The table sizes the OLAP path gives grouped_agg: Fig 8b's kernel
+    row (2048), and for each G of the sweep Dist-AGG's G slots and
+    RDMA-AGG's 4G (4 chunks, one owner)."""
+    from repro_torch.bench import fig8b_agg
+    return tuple(sorted({fig8b_agg.KERNEL_SLOTS}
+                        | {G for G in fig8b_agg.GROUPS}
+                        | {4 * G for G in fig8b_agg.GROUPS}))
+
+
 def time_grouped(quick: bool, record: dict) -> dict:
-    """Both grouped_agg entries at the OLAP path's shapes: N rows (keys
-    uniform in [0, 2**30), unit values) into 2048 slots (Fig 8b's kernel
-    row) and into 2**26 slots (Dist-AGG at 67 108 864 groups).  The JSON
-    record takes the f32 entry at 2048 slots and the u32 entry at 2**26."""
+    """The grouped_agg entries at every table size of the OLAP path
+    (grouped_olap_slots): N rows of Fig 8b's table (keys uniform in [0,
+    2**30), unit values), the f32 and u32 slot entries on ``key % S`` and
+    the keys entry in the layout the path calls at that S (Dist-AGG: G
+    slots; RDMA-AGG: 4 chunks of G); and the skewed case (90 % of the rows
+    in one slot) at 2**26.  Each: per call (CUDA events), device time
+    (profiler), host issue, the bytes bound (8N + 4S) and index_add_.
+    The JSON record takes the f32 entry at 2048 slots and the u32 entry
+    at 2**26."""
     import torch
+    from repro_torch.bench import fig8b_agg
     from repro_torch.kernels import grouped_agg as ga, ref
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(16)
     N = OLAP_QUICK_N if quick else OLAP_N
     keys = torch.randint(0, 1 << 30, (N,), generator=g, device=dev,
                          dtype=torch.int32)
-    vals = {"grouped_agg": torch.ones((N,), dtype=torch.float32,
-                                      device=dev),
-            "grouped_sum_u32": torch.ones((N,), dtype=torch.int32,
-                                          device=dev)}
-    entry = {"grouped_agg": (ga.grouped_agg, ref.grouped_agg, "f32"),
-             "grouped_sum_u32": (ga.grouped_sum_u32, ref.grouped_sum_u32,
-                                 "u32")}
+    vals = {"f32": torch.ones((N,), dtype=torch.float32, device=dev),
+            "u32": torch.ones((N,), dtype=torch.int32, device=dev)}
+    groups = set(fig8b_agg.GROUPS)
     out = {}
-    for S in (2048, 1 << 26):
-        slot = (keys % S).to(torch.int32)
-        for name, (kern, plain, ent) in entry.items():
-            v = vals[name]
+    cases = [(S, False) for S in grouped_olap_slots()] + [(1 << 26, True)]
+    for S, skew in cases:
+        k = keys
+        if skew:
+            hot = torch.rand((N,), generator=g, device=dev) < 0.9
+            k = torch.where(hot, torch.full_like(keys, S // 2), keys)
+        slot = (k % S).to(torch.int32)
+        calls = {"grouped_agg": ("f32", lambda: ga.grouped_agg(
+                     slot, vals["f32"], S), lambda: ref.grouped_agg(
+                     slot, vals["f32"], S)),
+                 "grouped_sum_u32": ("u32", lambda: ga.grouped_sum_u32(
+                     slot, vals["u32"], S), lambda: ref.grouped_sum_u32(
+                     slot, vals["u32"], S))}
+        if S in groups or skew:
+            calls["grouped_sum_u32_by_key"] = (
+                "u32", lambda: ga.grouped_sum_u32_by_key(k, vals["u32"], S),
+                None)
+        if S % 4 == 0 and S // 4 in groups and not skew:
+            calls["grouped_sum_u32_by_key/4_chunks"] = (
+                "u32", lambda: ga.grouped_sum_u32_by_key(
+                    k, vals["u32"], S // 4, chunks=4), None)
+        for name, (ent, kern, plain) in calls.items():
+            v = vals[ent]
             lib = torch.zeros((S,), dtype=v.dtype, device=dev)
-            t = {"ms": time_ms(lambda: kern(slot, v, S)),
-                 "device_ms": device_ms(lambda: kern(slot, v, S),
-                                        ga.KERNELS[ent]),
-                 "plain_ms": time_ms(lambda: plain(slot, v, S), iters=5),
+            t = {"ms": time_ms(kern),
+                 "device_ms": device_ms(kern, ga.KERNELS[ent]),
+                 "host_ms": host_ms(kern),
                  "bound_ms": bound_ms(8 * N + 4 * S), "bound_by": "bytes",
                  "library_ms": time_ms(
                      lambda: lib.zero_().index_add_(0, slot, v), iters=5),
-                 "shape": {"N": N, "S": S}}
-            out[f"{name}@S={S}"] = t
+                 "path": ga.plan(S, N, ga.device_info(dev)).path,
+                 "shape": {"N": N, "S": S, "skewed": skew}}
             if (name, S) in (("grouped_agg", 2048),
-                             ("grouped_sum_u32", 1 << 26)):
+                             ("grouped_sum_u32", 1 << 26)) and not skew:
+                t["plain_ms"] = time_ms(plain, iters=5)
                 record[name].update(t)
+            out[f"{name}@S={S}{'/skewed' if skew else ''}"] = t
             del lib
-        del slot
-    torch.cuda.empty_cache()
+        del slot, k
+        torch.cuda.empty_cache()
     return out
 
 

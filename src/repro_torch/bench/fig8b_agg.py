@@ -84,7 +84,8 @@ def aggregations(keys, vals, *, groups=GROUPS, profiles=DEFAULT_PROFILES,
     the facade and nothing else.  Raises if a scheme misses the ground
     truth, the two schemes differ, or (on ``plain_groups``) the plain path
     differs.  ``profile_groups`` adds one profiled execution per scheme
-    (card only).  Returns JSON-ready rows."""
+    (card only).  Returns JSON-ready rows, each with the kernel launches
+    of its group count."""
     dev = keys.device
     db = Database(device=dev, net=profiles[0])
     db.load_table("T", keys, vals)
@@ -94,6 +95,7 @@ def aggregations(keys, vals, *, groups=GROUPS, profiles=DEFAULT_PROFILES,
         plain.load_table("T", keys, vals)
     rows = []
     for G in groups:
+        before = ops.launch_counts()
         truth = ground_truth(keys, G)
         q = db.scan("T").aggregate(groups=G)
         row = {"groups": G, "planner": queries.planner_rows(db, q, profiles),
@@ -110,6 +112,9 @@ def aggregations(keys, vals, *, groups=GROUPS, profiles=DEFAULT_PROFILES,
             if G in profile_groups:
                 out["profile"] = queries.profiled(db, q, name, r["median_s"])
             row["schemes"][name] = out
+        row["launches"] = {k: v - before[k]
+                           for k, v in ops.launch_counts().items()
+                           if v != before[k]}
         rows.append(row)
         del truth
     stats = db.fabric_stats()

@@ -10,9 +10,11 @@ post-aggregates its slice.
 Every sum is u32 and wraps at 2**32, as the JAX package's "uint64" sums
 do with x64 off; keys and values are u32 words as int32 bit patterns
 (:mod:`repro_torch._bits`).  Every scatter-add runs through
-:func:`repro_torch.kernels.ops.grouped_sum_u32`: the hand-written
-``grouped_agg`` kernel on the card, its plain version on the CPU (or with
-the transport's ``impl="plain"``).
+:func:`repro_torch.kernels.ops.grouped_sum_u32_by_key`, which takes the
+u32 keys and computes each row's slot inside the hand-written
+``grouped_agg`` kernel on the card (its plain version builds the slot in
+torch on the CPU, or with the transport's ``impl="plain"``): ``key % G``
+here, RDMA-AGG's (chunk, owner, group) layout in its phase 1.
 """
 from __future__ import annotations
 
@@ -22,23 +24,16 @@ from repro_torch._bits import to_i32, u32
 from repro_torch.kernels import ops
 
 
-def _key_slots(keys: torch.Tensor, num_slots: int) -> torch.Tensor:
-    """u32 ``keys % num_slots`` as int64."""
-    return u32(keys) % num_slots
-
-
 def segment_sum_by_key(keys, vals, num_slots: int, *, impl=None):
     """(num_slots,) u32 per-slot sums of ``vals`` by ``keys % num_slots``."""
-    return ops.grouped_sum_u32(_key_slots(keys, num_slots), vals, num_slots,
-                               impl=impl)
+    return ops.grouped_sum_u32_by_key(keys, vals, num_slots, impl=impl)
 
 
 def preagg_table(keys, vals, table_slots: int, *, impl=None):
     """Cache-sized direct-mapped pre-aggregation: colliding keys merge (the
     benchmark aggregates by hashed group).  Returns the (table_slots,)
     table."""
-    return ops.grouped_sum_u32(_key_slots(keys, table_slots), vals,
-                               table_slots, impl=impl)
+    return ops.grouped_sum_u32_by_key(keys, vals, table_slots, impl=impl)
 
 
 def dist_agg(transport, num_groups: int):
@@ -71,14 +66,11 @@ def rdma_agg(transport, num_groups: int, *, chunks: int = 4):
         if N % chunks:
             raise ValueError(f"{N} rows do not split into {chunks} chunks")
         # phase 1: per-chunk pre-aggregation into the owner layout — one
-        # (n, gsz) partition table per chunk, ONE scatter-add into the
-        # flattened ci * n * gsz + owner * gsz + slot % gsz
-        slot = _key_slots(keys, num_groups).view(chunks, N // chunks)
-        owner = torch.clamp(slot // gsz, max=n - 1)
-        base = torch.arange(chunks, device=keys.device)[:, None] * n
-        flat = (base + owner) * gsz + slot % gsz
-        part = ops.grouped_sum_u32(flat.reshape(N), vals, chunks * n * gsz,
-                                   impl=transport.impl)
+        # (n, gsz) partition table per chunk, ONE scatter-add whose slot
+        # (ci * n + owner) * gsz + slot % gsz the kernel computes per key
+        part = ops.grouped_sum_u32_by_key(keys, vals, num_groups,
+                                          chunks=chunks, n=n,
+                                          impl=transport.impl)
         # background flush: route each chunk's n owner tables (dest = owner,
         # cap = chunks, chunked exchange pipelines the transfer)
         tabs = part.view(chunks * n, gsz)

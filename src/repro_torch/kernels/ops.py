@@ -110,6 +110,24 @@ def grouped_sum_u32(slot, vals, num_slots: int, *, impl=None,
     return ref.grouped_sum_u32(slot, vals, num_slots, check=check)
 
 
+def grouped_sum_u32_by_key(keys, vals, groups: int, *, chunks: int = 1,
+                           n: int = 1, impl=None):
+    """u32 sums mod 2**32 of the u32 words ``vals`` by a slot computed
+    from the u32 ``keys`` (int32 bit patterns): ``key % groups``, or with
+    ``chunks``/``n`` RDMA-AGG's phase-1 (chunk, owner, group) layout
+    (``grouped_agg.grouped_sum_u32_by_key``)."""
+    for name, t in (("keys", keys), ("vals", vals)):
+        if t.dtype != torch.int32:
+            raise TypeError(f"grouped_sum_u32_by_key takes u32 {name} as "
+                            f"int32 bit patterns, got {t.dtype}")
+    keys, vals = keys.contiguous(), vals.contiguous()
+    if resolve_impl(keys, impl) == "kernel":
+        return _ga.grouped_sum_u32_by_key(keys, vals, groups, chunks=chunks,
+                                          n=n)
+    return ref.grouped_sum_u32_by_key(keys, vals, groups, chunks=chunks,
+                                      n=n)
+
+
 def flash_attention(q, k, v, *, causal: bool = True, impl=None):
     """Blockwise GQA attention (the Pallas ``flash_attention``'s
     function): q (B, S, H, D), k/v (B, T, KH, D) -> (B, S, H, D) in q's

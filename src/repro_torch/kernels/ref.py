@@ -166,6 +166,33 @@ def grouped_sum_u32(slot, vals, num_slots: int, *, check: bool = False):
     return to_i32(out[:num_slots])
 
 
+def key_slot(keys, groups: int, *, chunks: int = 1, n: int = 1):
+    """int64 slot of each u32 key (int32 bit pattern) in the table of
+    ``grouped_agg.grouped_sum_u32_by_key``: ``s = key % groups``, and
+    unless ``chunks = n = 1`` RDMA-AGG's phase-1 layout ``(c * n +
+    min(s // gsz, n - 1)) * gsz + s % gsz`` with ``gsz = max(groups // n,
+    1)`` for a row of chunk c.  Returns (slot, number of slots)."""
+    N = keys.shape[0]
+    if chunks < 1 or n < 1 or N % chunks:
+        raise ValueError(f"{N} rows do not split into {chunks} chunks, or "
+                         f"n={n} < 1")
+    s = u32(keys) % groups
+    if chunks == 1 and n == 1:
+        return s, groups
+    gsz = max(groups // n, 1)
+    owner = torch.clamp(s // gsz, max=n - 1)
+    c = torch.arange(N, device=keys.device) // (N // chunks)
+    return (c * n + owner) * gsz + s % gsz, chunks * n * gsz
+
+
+def grouped_sum_u32_by_key(keys, vals, groups: int, *, chunks: int = 1,
+                           n: int = 1):
+    """Plain twin of ``grouped_agg.grouped_sum_u32_by_key``: the slots
+    built in torch (:func:`key_slot`), then :func:`grouped_sum_u32`."""
+    slot, S = key_slot(keys, groups, chunks=chunks, n=n)
+    return grouped_sum_u32(slot, vals, S)
+
+
 NEG_INF = -1e30
 _ATTN_ROWS = 1024      # query rows a block of the plain attention
 _SSD_CHUNK = 64        # steps a block of the plain SSD
