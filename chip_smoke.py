@@ -13,7 +13,9 @@ exits non-zero:
   kernels  each hand-written kernel held against its plain PyTorch
            version over a sweep of shapes (bit-exact; the scatter with the
            rank's counts, at row widths of every body: narrow, medium,
-           wide; the f32 grouped_agg
+           wide; grouped_agg's entries on both sides of every boundary of
+           grouped_agg.plan and at 2^26 and 2^28 slots, with skewed cases,
+           and its keys entry in RDMA-AGG's layouts; the f32 grouped_agg
            within atol 1e-3, rtol 1e-4 on random floats; flash_attention
            within 2e-5 in f32 and 2e-2 in bf16, and in bf16 each query
            row's rms difference within ROW_TOL of its rms, at S up to 4096
@@ -27,10 +29,11 @@ exits non-zero:
            time from torch.profiler) beside its plain version, the nearest
            single PyTorch call and its bound (the larger of bytes / 3.35
            TB/s and operations / 989 TFLOP/s; flash also its TFLOP/s
-           and share of the bound); for cas, the scatter and the rank
-           also the host time to issue a call (and the PyTorch call's
-           where there is one), the rank its scan's own device time, and a
-           cas call must be one device operation, with no fill
+           and share of the bound); for cas, the scatter, the rank and
+           grouped_agg (at every table size of the OLAP path) also the
+           host time to issue a call (and the PyTorch call's where there
+           is one), the rank its scan's own device time, and a cas call
+           must be one device operation, with no fill
   oltp     the OLTP path at the paper's §4.3 width: Database(device="cuda")
            with 1 000 000 products of 1 KB (+131 072 insert rows), 8 waves
            of 4096 checkout sessions (Session.begin/get/put ->

@@ -32,37 +32,54 @@
 //              global atomic.  out is zeroed first (a memset of S*4 B).
 //   global     the same stream with global atomics into the zeroed output:
 //              for tables that live in L2.
-//   partition  tables above shared memory, up to 2^29 slots.  Buckets of
-//              2^bits slots, each a table that fits shared memory:
+//   partition  tables above shared memory, up to 2^28 slots: partition the
+//              rows by bucket (2^bits slots, a table that fits shared
+//              memory), then aggregate each bucket in shared memory.
 //                part_hist     rows counted per bucket (shared histogram,
-//                              then one global atomic per bucket a block);
-//                part_scan     one block: each bucket's first row, a cursor,
-//                              and its work items: ceil(rows / R) parts of
-//                              at most R rows (1 for an empty bucket), so a
-//                              hot bucket is split over several blocks;
-//                part_scatter  tiles of 4096 rows: a rank inside the tile per
-//                              bucket (shared atomics), one global atomic a
-//                              bucket to reserve the tile's run, then
-//                              (slot & (2^bits - 1), value) pairs of 8 B into
-//                              scratch.  The runs of one bucket are
-//                              contiguous, so L2 merges their writes.  The
-//                              same blocks zero the output of every split
-//                              bucket;
+//                              one global atomic a bucket a block);
+//                part_scan     one block: each bucket's first row, the
+//                              batches' cursors, and its work items:
+//                              ceil(rows / R) parts of at most R rows (1 for
+//                              an empty bucket), so a hot bucket is split
+//                              over several blocks;
+//                part_scatter  a radix pass over tiles of 4096 rows into at
+//                              most 128 digits: the bucket where there are
+//                              at most 128 (S <= 2^22), else the super-
+//                              bucket of 2^lo_bits buckets.  A tile is ranked
+//                              per digit (shared atomics), staged in shared
+//                              memory in digit order, and written as
+//                              contiguous runs at cursors reserved with one
+//                              atomic a digit a tile, while the next tile's
+//                              loads are in flight.  8 B (slot, value)
+//                              pairs.  The same blocks zero the output of
+//                              every split bucket;
+//                part_refine   the second radix pass, where there are two:
+//                              each super-bucket's pairs into its buckets,
+//                              in tiles that never straddle two supers;
 //                part_agg      one block a work item: the item's rows into a
 //                              shared table, then a bucket of one item
 //                              stores its whole slot range (every slot
 //                              written once, no memset) and a split bucket
 //                              adds its nonzero slots atomically.
+//              With two passes the rows run in two batches: each batch is
+//              counted apart and gets its own cursors into one layout of
+//              all the rows' pairs, the first pass reuses one batch's
+//              scratch, and part_agg runs once.  The scratch is 12 B a row
+//              (8 B with one pass), below the 16 B a row of the int64 slot
+//              arrays the keys entry replaces.  One pass into 4096 buckets
+//              was tried first: with a few rows a bucket a tile, each 8 B
+//              pair took a sector of its own, and it read 5.5 ms at N =
+//              128M against 1.0 ms into 8 buckets.
 //
 // Lanes of a warp that hold lane 0's slot add their sum with one atomic
 // (__reduce_add_sync for u32, a shuffle tree for f32); every other lane adds
 // its own.  So one hot slot (G = 1, a skewed key) costs one atomic a warp.
 //
 // Bound: bytes.  Each row is read once (4 B slot or key + 4 B value) and the
-// table written once: 8N + 4S.  The partition path moves 4N (hist) + 16N
-// (scatter) + 8N (agg) + 4S = 28N + 4S; the shared and global paths 8N + 4S
-// plus the memset.  f32 sums are added in an order that changes from run to
-// run; u32 sums are exact in any order.
+// table written once: 8N + 4S.  The shared and global paths move that plus
+// the memset; the partition path 4N (hist) + 16N a radix pass + 8N (agg) +
+// 4S: 28N + 4S with one pass, 44N + 4S with two.  f32 sums are added in an
+// order that changes from run to run; u32 sums are exact in any order.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -423,26 +440,27 @@ part_scan(int nb, int K, int rpp, int lo_bits, int* __restrict__ meta) {
   }
 }
 
-// One tile of a radix pass: each thread holds kTileRows rows as (digit d,
-// slot a, value v), d = -1 for a row to skip, d < nd <= kMaxDigits.  The
-// rows are ranked per digit (shared atomics; lanes that hold lane 0's
-// digit take consecutive ranks from one), each digit's run is reserved in
-// the global cursors cur[d] (one atomic a digit a tile), the pairs are
-// staged in shared memory in digit order, and written out as contiguous
-// runs: (a & amask, v) at cur's reservation.  Every thread of the block
-// calls it; lh is zero on entry and on return.
+// One tile of a radix pass: each thread holds kTileRows rows as (slot a,
+// value v), a = -1 for a row to skip; a row's digit is (a >> dshift) &
+// dmask < nd <= kMaxDigits.  The rows are ranked per digit (shared
+// atomics; lanes that hold lane 0's digit take consecutive ranks from
+// one), the pairs are staged in shared memory in digit order while each
+// digit's run is reserved in the global cursors cur[d] (one atomic a digit
+// a tile), and written out as contiguous runs: (a & amask, v) at cur's
+// reservation.  Every thread of the block calls it; lh is zero on entry
+// and on return.
 __device__ __forceinline__ void tile_scatter(
-    const int (&d)[kTileRows], const int (&a)[kTileRows],
-    const int (&v)[kTileRows], int nd, int dshift, int dmask, int amask,
-    int* __restrict__ cur, int2* __restrict__ dst, int* lh, int* lstart,
-    int* gbase, int2* stage) {
+    const int (&a)[kTileRows], const int (&v)[kTileRows], int nd, int dshift,
+    int dmask, int amask, int* __restrict__ cur, int2* __restrict__ dst,
+    int* lh, int* lstart, int* gbase, int2* stage) {
   const int lane = threadIdx.x & 31;
   const unsigned lt = (1u << lane) - 1u;
   int r[kTileRows];
 #pragma unroll
   for (int k = 0; k < kTileRows; ++k) {
-    const int d0 = __shfl_sync(kFull, d[k], 0);
-    const bool same = d[k] == d0;
+    const int d = a[k] >= 0 ? (a[k] >> dshift) & dmask : -1;
+    const int d0 = __shfl_sync(kFull, d, 0);
+    const bool same = d == d0;
     const unsigned mm = __ballot_sync(kFull, same);
     int rk = 0;
     if (d0 >= 0 && __popc(mm) > 1) {
@@ -450,37 +468,42 @@ __device__ __forceinline__ void tile_scatter(
       if (lane == 0) base = atomicAdd(&lh[d0], __popc(mm));
       base = __shfl_sync(kFull, base, 0);
       if (same) rk = base + __popc(mm & lt);
-      else if (d[k] >= 0) rk = atomicAdd(&lh[d[k]], 1);
-    } else if (d[k] >= 0) {
-      rk = atomicAdd(&lh[d[k]], 1);
+      else if (d >= 0) rk = atomicAdd(&lh[d], 1);
+    } else if (d >= 0) {
+      rk = atomicAdd(&lh[d], 1);
     }
     r[k] = rk;
   }
   __syncthreads();
   // warp 0: exclusive scan of lh (4 digits a lane) into lstart, the
-  // tile's total in lstart[kMaxDigits]; threads < nd reserve their runs
+  // tile's total in lstart[kMaxDigits]
   if (threadIdx.x < 32) {
+    const int lane4 = 4 * lane;
     int c[4], sum = 0;
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
-      c[k] = 4 * lane + k < nd ? lh[4 * lane + k] : 0;
+      c[k] = lane4 + k < nd ? lh[lane4 + k] : 0;
       sum += c[k];
     }
     int run = warp_scan(sum, lane) - sum;
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
-      if (4 * lane + k < nd) lstart[4 * lane + k] = run;
+      if (lane4 + k < nd) lstart[lane4 + k] = run;
       run += c[k];
     }
     if (lane == 31) lstart[kMaxDigits] = run;
   }
-  if (threadIdx.x < nd && lh[threadIdx.x] > 0)
-    gbase[threadIdx.x] = atomicAdd(&cur[threadIdx.x], lh[threadIdx.x]);
   __syncthreads();
+  // threads < nd reserve their digit's run while the block stages
+  if (threadIdx.x < nd) {
+    const int c = lh[threadIdx.x];
+    if (c > 0) gbase[threadIdx.x] = atomicAdd(&cur[threadIdx.x], c);
+    lh[threadIdx.x] = 0;
+  }
 #pragma unroll
   for (int k = 0; k < kTileRows; ++k)
-    if (d[k] >= 0) stage[lstart[d[k]] + r[k]] = make_int2(a[k], v[k]);
-  if (threadIdx.x < nd) lh[threadIdx.x] = 0;
+    if (a[k] >= 0)
+      stage[lstart[(a[k] >> dshift) & dmask] + r[k]] = make_int2(a[k], v[k]);
   __syncthreads();
   const int total = lstart[kMaxDigits];
   for (int j = threadIdx.x; j < total; j += blockDim.x) {
@@ -495,18 +518,31 @@ __device__ __forceinline__ void tile_scatter(
 constexpr size_t kScatterSmem =
     (3 * kMaxDigits + 4) * sizeof(int) + kTile * sizeof(int2);
 
+// rows 4q .. 4q+3 of each of the thread's kTileRows / 4 quads of tile t
+__device__ __forceinline__ void load_tile(const int* __restrict__ x,
+                                          const int* __restrict__ vals,
+                                          long long N, long long t, bool vec,
+                                          int (&kx)[kTileRows],
+                                          int (&vx)[kTileRows]) {
+#pragma unroll
+  for (int j = 0; j < kTileRows / 4; ++j)
+    load_quad<true>(x, vals, N,
+                    t * (kTile / 4) + (long long)j * blockDim.x + threadIdx.x,
+                    vec, kx + 4 * j, vx + 4 * j);
+}
+
 // The first radix pass, over the rows: digit s >> dshift (the bucket with
 // one pass, the super-bucket with two), pairs (s & amask, value) into
-// `dst` at the cursors `cur`.  Then the output of every split bucket is
+// `dst` at the cursors `cur`.  The next tile's loads are issued before a
+// tile is ranked and written.  Then the output of every split bucket is
 // zeroed (part_agg adds into it).
 template <class Slot>
 __global__ void __launch_bounds__(kThreads, 2)
 part_scatter(const int* __restrict__ x, const int* __restrict__ vals,
              long long N, Slot f, int nd, int dshift, int amask, bool vec,
              int bits, int nb, int K, int S, bool zero_split,
-             int* __restrict__ meta,
-             int* __restrict__ cur, int2* __restrict__ dst,
-             int* __restrict__ out) {
+             int* __restrict__ meta, int* __restrict__ cur,
+             int2* __restrict__ dst, int* __restrict__ out) {
   extern __shared__ __align__(16) int sh[];
   int* lh = sh;
   int* lstart = lh + kMaxDigits;             // kMaxDigits + 1
@@ -515,24 +551,24 @@ part_scatter(const int* __restrict__ x, const int* __restrict__ vals,
   for (int k = threadIdx.x; k < kMaxDigits; k += blockDim.x) lh[k] = 0;
   __syncthreads();
   const long long ntiles = (N + kTile - 1) / kTile;
+  int kx[kTileRows], vx[kTileRows];
+  if (blockIdx.x < ntiles) load_tile(x, vals, N, blockIdx.x, vec, kx, vx);
   for (long long t = blockIdx.x; t < ntiles; t += gridDim.x) {
-    int d[kTileRows], a[kTileRows], v[kTileRows];
+    int a[kTileRows], v[kTileRows];
 #pragma unroll
-    for (int j = 0; j < kTileRows / 4; ++j) {
-      const long long q = t * (kTile / 4) + (long long)j * blockDim.x +
-                          threadIdx.x;
-      int kx[4], vx[4];
-      load_quad<true>(x, vals, N, q, vec, kx, vx);
+    for (int j = 0; j < kTileRows / 4; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int s = q * 4 + e < N ? f(kx[e], q * 4 + e) : -1;
-        d[4 * j + e] = s >= 0 ? s >> dshift : -1;
-        a[4 * j + e] = s;
-        v[4 * j + e] = vx[e];
+        const long long row =
+            (t * (kTile / 4) + (long long)j * blockDim.x + threadIdx.x) * 4 +
+            e;
+        a[4 * j + e] = row < N ? f(kx[4 * j + e], row) : -1;
+        v[4 * j + e] = vx[4 * j + e];
       }
-    }
-    tile_scatter(d, a, v, nd, dshift, 0x7fffffff, amask, cur, dst, lh,
-                 lstart, gbase, stage);
+    if (t + gridDim.x < ntiles)
+      load_tile(x, vals, N, t + gridDim.x, vec, kx, vx);
+    tile_scatter(a, v, nd, dshift, 0x7fffffff, amask, cur, dst, lh, lstart,
+                 gbase, stage);
   }
   Meta m(meta, nb, K);
   const int nsplit = zero_split ? *m.nsplit : 0;
@@ -543,18 +579,35 @@ part_scatter(const int* __restrict__ x, const int* __restrict__ vals,
   }
 }
 
+// The tile t of a batch's second pass: its super-bucket u (the last with
+// tstart[u] <= t) and its rows [r0, r1) of the first pass's pairs.
+__device__ __forceinline__ void refine_tile(const int* __restrict__ sstart,
+                                            const int* __restrict__ tstart,
+                                            int nsup, int t, int& u,
+                                            long long& r0, long long& r1) {
+  int lo = 0, hi = nsup - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (tstart[mid] <= t) lo = mid; else hi = mid - 1;
+  }
+  u = lo;
+  r0 = sstart[u] + (long long)(t - tstart[u]) * kTile;
+  r1 = r0 + kTile < sstart[u + 1] ? r0 + kTile : sstart[u + 1];
+}
+
 // The second radix pass over one batch: the first pass's pairs, super-
 // bucket by super-bucket in tiles that never straddle two (sstart,
 // tstart), each into its 2^lo_bits buckets: digit (s >> bits) &
 // (2^lo_bits - 1), pairs (s & (2^bits - 1), value) into `dst` at the
-// batch's bucket cursors `cur`.
+// batch's bucket cursors `cur`.  The next tile's loads are issued before
+// a tile is ranked and written.
 __global__ void __launch_bounds__(kThreads, 2)
 part_refine(const int2* __restrict__ src, int nb, int bits, int lo_bits,
             const int* __restrict__ sstart, const int* __restrict__ tstart,
             int* __restrict__ cur, int2* __restrict__ dst) {
   extern __shared__ __align__(16) int sh[];
   int* lh = sh;
-  int* lstart = lh + kMaxDigits;
+  int* lstart = lh + kMaxDigits;             // kMaxDigits + 1
   int* gbase = lstart + kMaxDigits + 1;
   int2* stage = reinterpret_cast<int2*>(sh + 3 * kMaxDigits + 4);
   for (int k = threadIdx.x; k < kMaxDigits; k += blockDim.x) lh[k] = 0;
@@ -562,27 +615,35 @@ part_refine(const int2* __restrict__ src, int nb, int bits, int lo_bits,
   const int nsup = (nb + (1 << lo_bits) - 1) >> lo_bits;
   const int ntiles = tstart[nsup];
   const int nd = 1 << lo_bits;
-  for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
-    int lo = 0, hi = nsup - 1;                 // last u with tstart[u] <= t
-    while (lo < hi) {
-      const int mid = (lo + hi + 1) >> 1;
-      if (tstart[mid] <= t) lo = mid; else hi = mid - 1;
-    }
-    const int u = lo;
-    const long long r0 = sstart[u] + (long long)(t - tstart[u]) * kTile;
-    const long long r1 = r0 + kTile < sstart[u + 1] ? r0 + kTile
-                                                    : sstart[u + 1];
-    int d[kTileRows], a[kTileRows], v[kTileRows];
+  int u;
+  long long r0, r1;
+  int2 p[kTileRows];
+  if ((int)blockIdx.x < ntiles) {
+    refine_tile(sstart, tstart, nsup, blockIdx.x, u, r0, r1);
 #pragma unroll
     for (int k = 0; k < kTileRows; ++k) {
       const long long i = r0 + (long long)k * blockDim.x + threadIdx.x;
-      const int2 p = i < r1 ? __ldcs(src + i) : make_int2(-1, 0);
-      d[k] = p.x >= 0 ? (p.x >> bits) & (nd - 1) : -1;
-      a[k] = p.x;
-      v[k] = p.y;
+      p[k] = i < r1 ? __ldcs(src + i) : make_int2(-1, 0);
     }
-    tile_scatter(d, a, v, nd, bits, nd - 1, (1 << bits) - 1,
-                 cur + (u << lo_bits), dst, lh, lstart, gbase, stage);
+  }
+  for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
+    int a[kTileRows], v[kTileRows];
+#pragma unroll
+    for (int k = 0; k < kTileRows; ++k) {
+      a[k] = p[k].x;
+      v[k] = p[k].y;
+    }
+    int* c = cur + (u << lo_bits);
+    if (t + (int)gridDim.x < ntiles) {
+      refine_tile(sstart, tstart, nsup, t + gridDim.x, u, r0, r1);
+#pragma unroll
+      for (int k = 0; k < kTileRows; ++k) {
+        const long long i = r0 + (long long)k * blockDim.x + threadIdx.x;
+        p[k] = i < r1 ? __ldcs(src + i) : make_int2(-1, 0);
+      }
+    }
+    tile_scatter(a, v, nd, bits, nd - 1, (1 << bits) - 1, c, dst, lh, lstart,
+                 gbase, stage);
   }
 }
 

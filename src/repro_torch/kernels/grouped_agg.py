@@ -48,7 +48,6 @@ THREADS = 512                   # a block of every streaming pass
 ROWS_A_BLOCK_PASS = THREADS * 2 * 4   # rows a block takes a loop turn
 MAX_COPIES = THREADS // 32      # one table copy a warp at most
 SHARED_MAX_BYTES = 200 * 1024   # largest table the shared path takes
-GLOBAL_MAX_SLOTS = 0            # the global path's tables (L2), if any
 PARTITION_MAX_SLOTS = 1 << 28   # partition: at most 16384 buckets of 2^14
 ROWS_PER_PART = 1 << 17         # most rows one block of part_agg takes
 MIN_BITS, MAX_BITS = 8, 15      # slots a bucket: 1 KB .. 128 KB of table
@@ -104,18 +103,17 @@ def _grid(rows: int, per_sm: int, sms: int) -> int:
 def _choose(S: int, rows: int, info) -> str:
     if 4 * S <= min(SHARED_MAX_BYTES, info[1] - _RESERVED):
         return "shared"
-    if S <= GLOBAL_MAX_SLOTS or S > PARTITION_MAX_SLOTS or rows >= 2 ** 31:
+    if S > PARTITION_MAX_SLOTS or rows >= 2 ** 31:
         return "global"
     return "partition"
 
 
 @functools.lru_cache(maxsize=512)
-def plan(num_slots: int, rows: int, info=H100, path: str = None,
-         bits: int = None) -> Plan:
+def plan(num_slots: int, rows: int, info=H100, path: str = None) -> Plan:
     """The path for ``rows`` rows into a table of ``num_slots`` u32 or
     f32 slots on a card of ``info`` = (SMs, shared bytes a block may opt
-    in to, shared bytes an SM).  ``path`` and ``bits`` force a path and
-    the partition's bucket bits (for measuring them)."""
+    in to, shared bytes an SM).  ``path`` forces a path (for measuring
+    them: ``bench/grouped_paths.py``)."""
     sms, smem_block, smem_sm = info
     S = int(num_slots)
     table = 4 * S
@@ -133,19 +131,15 @@ def plan(num_slots: int, rows: int, info=H100, path: str = None,
         return Plan("global", _grid(rows, 2, sms), 0)
     if path != "partition" or S > PARTITION_MAX_SLOTS or rows >= 2 ** 31:
         raise ValueError(f"no path {path!r} for {S} slots and {rows} rows")
-    if bits is None:
-        # one radix pass over at most 128 buckets where tables of up to
-        # 2^15 slots allow it (S <= 2^22), else two passes into buckets
-        # of 2^14 slots, whose tables let part_agg run 3 blocks an SM
-        bits = max(MIN_BITS, (S - 1).bit_length() - MAX_DIGITS_LOG2)
-        bits = bits if bits <= MAX_BITS else TWO_PASS_BITS
+    # one radix pass over at most 128 buckets where tables of up to 2^15
+    # slots allow it (S <= 2^22), else two passes into buckets of 2^14
+    # slots, whose tables let part_agg run 3 blocks an SM
+    bits = max(MIN_BITS, (S - 1).bit_length() - MAX_DIGITS_LOG2)
+    bits = bits if bits <= MAX_BITS else TWO_PASS_BITS
     nb = -(-S // (1 << bits))
     nb_log2 = (nb - 1).bit_length()
     lo_bits = 0 if nb_log2 <= MAX_DIGITS_LOG2 else -(-nb_log2 // 2)
     smem = max(4 * min(1 << bits, S), 4 * nb, SCATTER_SMEM)
-    if (not MIN_BITS <= bits <= MAX_BITS or smem > smem_block - _RESERVED
-            or nb_log2 - lo_bits > MAX_DIGITS_LOG2):
-        raise ValueError(f"buckets of 2**{bits} slots do not fit {S} slots")
     # two passes run the rows in two batches, the first pass's pairs one
     # batch at a time: 12 B of scratch a row, below the 16 B a row of the
     # int64 slot arrays the keys entry replaces
@@ -160,7 +154,7 @@ def boundaries(rows: int, info=H100) -> list:
     its bucket bits between S and S + 1."""
     out = []
     last = None
-    cands = {SHARED_MAX_BYTES // 4, GLOBAL_MAX_SLOTS, PARTITION_MAX_SLOTS,
+    cands = {SHARED_MAX_BYTES // 4, PARTITION_MAX_SLOTS,
              (info[2] // 2 - _RESERVED) // 4}
     cands |= {1 << (b + MAX_DIGITS_LOG2)
               for b in range(MIN_BITS, MAX_BITS + 1)}
