@@ -439,7 +439,9 @@ def check_grouped(quick: bool, stats: dict):
     slots, and 90 % of the rows in one slot at 2048 and 2**26 slots.  The
     keys entry bit-exact against its plain version on keys with the top
     bit set in half the rows: key % G, and RDMA-AGG's phase-1 layouts
-    (4 chunks, 1 and 4 owners)."""
+    (4 chunks, 1 and 4 owners).  Then all three on views one int past an
+    allocation (no 16-byte loads) and on an odd row count, with chunks of
+    an odd number of rows."""
     import torch
     from repro_torch.kernels import grouped_agg as ga, ref
     dev = torch.device("cuda")
@@ -495,6 +497,39 @@ def check_grouped(quick: bool, stats: dict):
             torch.cuda.empty_cache()
         del words, ints, floats, keys
         torch.cuda.empty_cache()
+    # views one int past an allocation (no 16-byte loads), a row count
+    # that is no multiple of 4, and chunk boundaries inside a quad of rows
+    base = torch.randint(-2 ** 31, 2 ** 31 - 1, (3, 4 * 250_001 + 1),
+                         generator=g, device=dev, dtype=torch.int32)
+    keys, words = base[0, 1:], base[1, 1:]
+    floats = torch.rand((base.shape[1],), generator=g, device=dev)[1:]
+    for S in (64, 2048, 51_201, 1 << 22, (1 << 22) + 1, 1 << 26):
+        for N, view in ((keys.shape[0], True), (keys.shape[0] - 1, True),
+                        (keys.shape[0] - 1, False)):
+            slot = (keys[:N] & 0x7FFFFFFF) % S
+            w, f = ((words[:N], floats[:N]) if view
+                    else (words[:N].clone(), floats[:N].clone()))
+            where = (f"N={N} S={S} {'view' if view else 'aligned'} "
+                     f"({ga.plan(S, N).path})")
+            if not torch.equal(ga.grouped_sum_u32(slot, w, S),
+                               ref.grouped_sum_u32(slot, w, S)):
+                raise AssertionError(f"grouped_sum_u32 differs: {where}")
+            if not torch.allclose(ga.grouped_agg(slot, f, S),
+                                  ref.grouped_agg(slot, f, S),
+                                  atol=1e-3, rtol=1e-4):
+                raise AssertionError(f"grouped_agg outside atol 1e-3 rtol "
+                                     f"1e-4: {where}")
+            cases += 2
+        for chunks, owners in ((1, 1), (4, 1), (4, 4)):
+            got = ga.grouped_sum_u32_by_key(keys, words, S, chunks=chunks,
+                                            n=owners)
+            if not torch.equal(got, ref.grouped_sum_u32_by_key(
+                    keys, words, S, chunks=chunks, n=owners)):
+                raise AssertionError(
+                    f"grouped_sum_u32_by_key differs: misaligned N="
+                    f"{keys.shape[0]} G={S} chunks={chunks} n={owners}")
+            cases += 1
+    del base, keys, words, floats
     # a slot outside [0, S) is skipped, never written
     slot = torch.tensor([-1, 0, 5, 1], dtype=torch.int32, device=dev)
     one = torch.ones(4, dtype=torch.int32, device=dev)
