@@ -9,7 +9,7 @@ in [0, 2**30) (Fig 8b's table) with slot ``key % S``, or with 90 % of the
 rows in one slot (``skew``).
 
     PYTHONPATH=src python3 -m repro_torch.bench.grouped_paths \\
-        --n 128000000 --slots 2048,67108864 --out chiprun_out/paths.jsonl
+        --n 128000000 --slots 2048,67108864 --out paths.jsonl
 """
 from __future__ import annotations
 

@@ -31,7 +31,8 @@
 //              add each nonzero slot of their copies to the output with one
 //              global atomic.  out is zeroed first (a memset of S*4 B).
 //   global     the same stream with global atomics into the zeroed output:
-//              for tables that live in L2.
+//              for more than 2^28 slots or 2^31 rows, which the partition
+//              path's bucket count and 32-bit row positions do not take.
 //   partition  tables above shared memory, up to 2^28 slots: partition the
 //              rows by bucket (2^bits slots, a table that fits shared
 //              memory), then aggregate each bucket in shared memory.
@@ -66,10 +67,11 @@
 //              all the rows' pairs, the first pass reuses one batch's
 //              scratch, and part_agg runs once.  The scratch is 12 B a row
 //              (8 B with one pass), below the 16 B a row of the int64 slot
-//              arrays the keys entry replaces.  One pass into 4096 buckets
-//              was tried first: with a few rows a bucket a tile, each 8 B
-//              pair took a sector of its own, and it read 5.5 ms at N =
-//              128M against 1.0 ms into 8 buckets.
+//              arrays the keys entry replaces.  Passes have at most 128
+//              digits because one pass into thousands of buckets leaves a
+//              few rows a bucket a tile, so each 8 B pair takes a sector of
+//              its own (5.5 ms at N = 128M on an H100, against 1.0 ms for
+//              the same pass into 8 buckets).
 //
 // Lanes of a warp that hold lane 0's slot add their sum with one atomic
 // (__reduce_add_sync for u32, a shuffle tree for f32); every other lane adds
