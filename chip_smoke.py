@@ -66,12 +66,27 @@ exits non-zero:
            reported); then ServeEngine(slots=8,
            max_seq=1024) serves 16 requests in two waves, each wave must
            launch cas_lock, and its tokens must equal a plain engine's
+  shards   the n-shard fabric (MeshTransport(4) on the one card: a host
+           thread a shard, collectives at a barrier): the radix and CAS
+           kernels at the shards' shapes against their plain versions;
+           the oltp checkout at the same width on 4 shards
+           (max_retries=0), whose masks, store and txn_stats must equal a
+           one-shard run's and a plain 4-shard run's (fabric_stats too),
+           every committed write reading back, and whose rank, scatter
+           and cas launches must be exactly 4x the one-shard run's; the
+           fig6 paper_T8192 commit on 4 shards beside 1 (median of 40,
+           host time to issue, profiled device time); the four joins at
+           sel 0.5 and both aggregations at G in {64, 2^20, 2^26} on 4
+           shards of 32 000 000 tuples, each equal to its ground truth
+           and to the same query on one shard (RRJ also to the plain
+           path), with times and peak memory
 
 Launch counts are set to 0 just before each path and read just after:
 the oltp sessions and commits, the olap queries (Database.execute
 alone), Fig 8b's kernel row, the one path of the f32 grouped_agg
-entry, and in serve each timed prefill step and each engine wave; each
-path must have launched every kernel it runs.  The shuffle
+entry, in serve each timed prefill step and each engine wave, and in
+shards the 4-shard oltp waves and the 4-shard queries; each path must
+have launched every kernel it runs.  The shuffle
 microbench's launches are reported beside it and counted on no path.
 Then three lines: the per-kernel JSON record (launches summed over the
 paths named in its "paths"), the card's name and power limit
@@ -80,6 +95,7 @@ paths named in its "paths"), the card's name and power limit
     python3 chip_smoke.py            # everything, one card
     python3 chip_smoke.py --phases env,build,kernels --quick
     python3 chip_smoke.py --out smoke.jsonl   # also keep every phase line
+    python3 chip_smoke.py --phases env,build,shards   # the n-shard fabric
 """
 from __future__ import annotations
 
@@ -96,7 +112,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 peak
 BF16_FLOP_PER_S = 989e12           # H100 SXM dense bf16 tensor cores
-PHASES = ("env", "build", "kernels", "oltp", "olap", "fig6", "serve")
+PHASES = ("env", "build", "kernels", "oltp", "olap", "fig6", "serve",
+          "shards")
 SERVE_ARCHS = {"glm4-9b": "flash_attention", "mamba2-370m": "ssd_scan"}
 ROW_TOL = 2 ** -6        # bf16, kernel vs plain: rms(diff) / rms(plain)
                          # per row (a query row of one head; an SSD output
@@ -116,6 +133,9 @@ OLTP_KERNELS = ("radix_partition_rank", "radix_partition_scatter",
 OLAP_KERNELS = ("radix_partition_rank", "radix_partition_scatter",
                 "grouped_sum_u32")
 KERNEL_ROW_KERNELS = ("grouped_agg",)
+SHARDS = 4                       # the paper's 3 storage and 4 client nodes
+                                 # as one n
+SHARD_GROUPS = (64, 1 << 20, 1 << 26)
 _OUT = []                        # a file every emitted line also goes to
 
 
@@ -1202,6 +1222,219 @@ def phase_fig6(quick: bool):
              plan_builds=r["plan_builds"], stats=r["stats"], gpu=smi())
 
 
+# ----------------------------------------------------------- n shards ---
+
+def check_shard_shapes(quick: bool, record: dict):
+    """The rank, the scatter and the CAS bit-exact against their plain
+    versions at the shapes the 4-shard path gives them: a commit shard's
+    7168 requests into 4 buckets of 7168 (prepare and install widths), a
+    home shard's 282 768 words under 28 672 routed requests, and a join
+    shard's 32 000 000 requests into 4 buckets of 16 000 000."""
+    import torch
+    from repro_torch.kernels import cas_lock as ck, radix_partition as rp
+    from repro_torch.kernels import ref
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(18)
+    errs = {"rank": 0, "scatter": 0, "cas": 0}
+    join_a = (OLAP_QUICK_N if quick else OLAP_N) // SHARDS
+    for A, cap, widths in ((MAIN_T // SHARDS * 7, MAIN_T // SHARDS * 7,
+                            (4, 259)), (join_a, 2 * join_a // SHARDS, (2,))):
+        dest = _rand_dest(g, A, SHARDS, dev)
+        got, want = rp.rank(dest, SHARDS, cap), ref.rank(dest, SHARDS, cap)
+        for x, y, what in zip(got, want, ("slot", "keep", "overflow",
+                                          "counts")):
+            if not torch.equal(x, y):
+                raise AssertionError(f"radix rank {what} differs at the "
+                                     f"shards' A={A} cap={cap}")
+            errs["rank"] = max(errs["rank"], _err(x, y))
+        for w in widths:
+            rows = torch.randint(-2 ** 31, 2 ** 31 - 1, (A, w), generator=g,
+                                 device=dev, dtype=torch.int32)
+            mask = torch.rand((A,), generator=g, device=dev) < 0.9
+            kb = rp.scatter(rows, got[0], SHARDS * cap, counts=got[3],
+                            mask=mask)
+            pb = ref.scatter(rows, got[0], SHARDS * cap, counts=got[3],
+                             mask=mask)
+            if not torch.equal(kb, pb):
+                raise AssertionError(f"radix scatter differs at the shards' "
+                                     f"A={A} cap={cap} w={w}")
+            errs["scatter"] = max(errs["scatter"], _err(kb, pb))
+            del rows, kb, pb
+    R, A = 1_131_072 // SHARDS, MAIN_T * 7
+    words = torch.randint(0, 4, (R,), generator=g, device=dev,
+                          dtype=torch.int32)
+    idx = torch.randint(-1, R, (A,), generator=g, device=dev,
+                        dtype=torch.int32)
+    exp = words[idx.clamp(0, R - 1).to(torch.int64)]
+    prio = torch.randint(0, A, (A,), generator=g, device=dev,
+                         dtype=torch.int32)
+    kw, pw = words.clone(), words.clone()
+    ok_k = ck.cas(kw, idx, exp, exp + 8, prio)
+    ok_p = ref.cas(pw, idx, exp, exp + 8, prio)
+    if not (torch.equal(ok_k, ok_p) and torch.equal(kw, pw)):
+        raise AssertionError(f"cas differs at the shards' R={R} A={A}")
+    errs["cas"] = _err(kw, pw)
+    for name, key in (("radix_partition_rank", "rank"),
+                      ("radix_partition_scatter", "scatter"),
+                      ("cas_lock", "cas")):
+        record[name]["max_abs_err"] = max(record[name].get("max_abs_err")
+                                          or 0, errs[key])
+    torch.cuda.empty_cache()
+    return errs
+
+
+def shards_oltp(quick: bool, record: dict):
+    """The §4.3 checkout on 4 shards against one shard and the plain path
+    on 4: the same masks, store, txn_stats; 4x the one-shard launches."""
+    import numpy as np
+    import torch
+    from repro_torch.bench import checkout, fig6_rsi
+    from repro_torch.kernels import ops
+    waves = 2 if quick else MAIN_WAVES
+    size = {"products": checkout.PRODUCTS,
+            "payload_words": checkout.PAYLOAD_WORDS}
+    plan = checkout.plan(seed=7, waves=waves, T=MAIN_T, **size)
+    runs = {}
+    for name, shards, impl in (("one", 1, None), ("mesh", SHARDS, None),
+                               ("mesh_plain", SHARDS, "plain")):
+        db = checkout.database(shards, device="cuda", impl=impl)
+        checkout.create_table(db, waves=waves, T=MAIN_T, **size)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        masks, sessions, commit_s = checkout.drive(db, plan, max_retries=0)
+        torch.cuda.synchronize()
+        runs[name] = {"db": db, "masks": masks, "sessions": sessions,
+                      "commit_s": commit_s, "wall_s": time.perf_counter() - t0,
+                      "launches": ops.launch_counts()}
+    one, mesh, plain = runs["one"], runs["mesh"], runs["mesh_plain"]
+    _count(OLTP_KERNELS, mesh["launches"], record, "shards/oltp")
+    for k in OLTP_KERNELS:
+        if mesh["launches"][k] != SHARDS * one["launches"][k]:
+            raise AssertionError(
+                f"{k}: {mesh['launches'][k]} launches on {SHARDS} shards, "
+                f"{one['launches'][k]} on one")
+    if any(plain["launches"].values()):
+        raise AssertionError("the plain 4-shard run launched a kernel")
+    for other in (one, plain):
+        for a, b in zip(mesh["masks"], other["masks"]):
+            if not np.array_equal(a, b):
+                raise AssertionError("committed masks differ")
+        if mesh["db"].txn_stats != other["db"].txn_stats:
+            raise AssertionError(f"txn_stats differ: "
+                                 f"{mesh['db'].txn_stats} vs "
+                                 f"{other['db'].txn_stats}")
+        st, sto = (r["db"].table("products").store for r in (mesh, other))
+        for k in st:
+            if not torch.equal(st[k], sto[k]):
+                raise AssertionError(f"store leaf {k} differs")
+    if mesh["db"].fabric_stats() != plain["db"].fabric_stats():
+        raise AssertionError("fabric_stats differ from the plain path's")
+    db = mesh["db"]
+    if db.table("products").locked_rows() != 0:
+        raise AssertionError("rows left locked")
+    readback = checkout.check_readback(db, mesh["sessions"])
+    n_sessions = waves * MAIN_T
+    emit("shards_oltp", shards=SHARDS, sessions=n_sessions, waves=waves,
+         records_a_shard=db.table("products").schema.num_records // SHARDS,
+         txn_stats=db.txn_stats, readback=readback,
+         commit_s={k: r["commit_s"] for k, r in runs.items()},
+         commit_txn_per_s={k: n_sessions / sum(r["commit_s"])
+                           for k, r in runs.items()},
+         commit_spread={k: fig6_rsi.spread(r["commit_s"][1:])
+                        for k, r in runs.items()},
+         wall_s={k: r["wall_s"] for k, r in runs.items()},
+         launches={k: r["launches"] for k, r in runs.items()},
+         fabric=db.fabric_stats(), gpu=smi())
+
+
+def shards_fig6(quick: bool):
+    """The paper_T8192 commit on 4 shards beside 1, in turns (1, 4, 4,
+    1), then each under the profiler."""
+    from repro_torch.bench import fig6_rsi, profile_commit
+    T = 1024 if quick else 8192
+    for shards in (1, SHARDS, SHARDS, 1):
+        r = fig6_rsi.measured_local_txn_rate(
+            iters=FIG6_ITERS, shards=shards, **fig6_rsi.paper_width(T))
+        emit("shards_fig6", shards=shards, T=T, txn_per_s=r["txn_per_s"],
+             median_s=r["median_s"], spread=r["spread"],
+             host_median_s=r["host_median_s"],
+             host_spread=fig6_rsi.spread(r["host_times_s"]),
+             committed=r["committed"], plan_builds=r["plan_builds"],
+             stats=r["stats"], gpu=smi())
+    for shards in (1, SHARDS):
+        p = profile_commit.profile_fig6(T, shards=shards)
+        emit("shards_fig6_profile", **{k: v for k, v in p.items()
+                                       if k != "times_s"}, gpu=smi())
+
+
+def shards_olap(quick: bool, record: dict):
+    """The joins at sel 0.5 and the aggregations on 4 shards of N/4
+    tuples, each held by the bench modules to its ground truth (the
+    joins also to the plain path), then the same queries on one shard,
+    which must give the same values."""
+    import torch
+    from repro_torch.bench import fig8a_joins, fig8b_agg
+    from repro_torch.kernels import ops
+    n = OLAP_QUICK_N if quick else OLAP_N
+    groups = (64, 1 << 20) if quick else SHARD_GROUPS
+    out = {}
+    for shards in (SHARDS, 1):
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        # one join on the plain path: the plain rank's one-hot cumsum
+        # over 4 buckets took 35 s a join at 32M rows a shard on an H100
+        a = fig8a_joins.joins(n, device="cuda", sels=(0.5,),
+                              plain_sels=(0.5,) if shards > 1 else (),
+                              plain_variants=("rrj",), shards=shards)
+        keys, vals = fig8b_agg.table(n, device="cuda")
+        b = fig8b_agg.aggregations(keys, vals, groups=groups, shards=shards)
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        if shards > 1:
+            _count(OLAP_KERNELS, launches, record, "shards/olap")
+        del keys, vals
+        torch.cuda.empty_cache()
+        out[shards] = (a, b, time.perf_counter() - t0, launches)
+    (a4, b4, s4, l4), (a1, b1, s1, l1) = out[SHARDS], out[1]
+    for r4, r1 in zip(a4["rows"], a1["rows"]):
+        for name, v4 in r4["variants"].items():
+            v1 = r1["variants"][name]
+            if (v4["value"], v4["dropped"]) != (v1["value"], v1["dropped"]):
+                raise AssertionError(f"shards: join {name} differs from "
+                                     "one shard")
+            emit("shards_join", n=n, shards=SHARDS, sel=r4["sel"],
+                 variant=name, value=v4["value"], dropped=v4["dropped"],
+                 median_s=v4["median_s"], min_s=v4["min_s"],
+                 max_s=v4["max_s"], peak_bytes=v4["peak_bytes"],
+                 plain_s=v4.get("plain_s"), one_shard_median_s=v1["median_s"],
+                 one_shard_peak_bytes=v1["peak_bytes"], stats=v4["stats"],
+                 gpu=smi())
+    for r4, r1 in zip(b4["rows"], b1["rows"]):
+        for name, v4 in r4["schemes"].items():
+            v1 = r1["schemes"][name]
+            emit("shards_agg", n=n, shards=SHARDS, groups=r4["groups"],
+                 scheme=name, median_s=v4["median_s"], min_s=v4["min_s"],
+                 max_s=v4["max_s"], peak_bytes=v4["peak_bytes"],
+                 one_shard_median_s=v1["median_s"],
+                 one_shard_peak_bytes=v1["peak_bytes"], stats=v4["stats"],
+                 gpu=smi())
+    emit("shards_olap", n=n, shards=SHARDS, seconds={SHARDS: s4, 1: s1},
+         launches={SHARDS: l4, 1: l1}, gpu=smi())
+
+
+def phase_shards(quick: bool, record: dict):
+    t0 = time.perf_counter()
+    errs = check_shard_shapes(quick, record)
+    shards_oltp(quick, record)
+    shards_fig6(quick)
+    shards_olap(quick, record)
+    for name in ("radix_partition_rank", "radix_partition_scatter",
+                 "cas_lock", "grouped_sum_u32"):
+        record[name]["paths"] += ", shards"
+    emit("shards", shards=SHARDS, max_abs_err=errs,
+         seconds=time.perf_counter() - t0, gpu=smi())
+
+
 # ------------------------------------------------------------ controls --
 # Plain versions with a fault a kernel could have: a control reading of a
 # check must land above its limit, or the check could not see that fault.
@@ -1439,6 +1672,8 @@ def main(argv=None) -> int:
         phase_fig6(args.quick)
     if "serve" in phases:
         phase_serve(args.quick, record)
+    if "shards" in phases:
+        phase_shards(args.quick, record)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "paths")
     print(json.dumps({"kernels": [

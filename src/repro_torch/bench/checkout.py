@@ -6,8 +6,9 @@ blind-inserts 4 rows never used before (W = 7 writes).  A wave of
 sessions commits as one ``Database.commit`` with bounded retry.  Inputs
 come from numpy with a seed; every size is a parameter.
 
-``chip_smoke.py`` runs it at the paper's width on the card and
-``repro_torch.bench.profile_commit`` profiles one wave of it.
+``chip_smoke.py`` runs it at the paper's width on the card, on one shard
+and on n (:func:`database`), and ``repro_torch.bench.profile_commit``
+profiles one wave of it.
 """
 from __future__ import annotations
 
@@ -18,6 +19,8 @@ import numpy as np
 
 from repro_torch._bits import np_u32
 from repro_torch.configs import OLTP
+from repro_torch.db import Database
+from repro_torch.fabric import make_transport
 
 PRODUCTS = OLTP.num_products                  # base rows of the §4.3 store
 PAYLOAD_WORDS = OLTP.record_bytes // 4        # a 1 KB record in u32 words
@@ -38,6 +41,13 @@ def plan(*, seed: int, waves: int, T: int, products: int,
                            dtype=np.uint32)
         out.append((prods, ins, pay))
     return out
+
+
+def database(shards: int = 1, *, device=None, impl=None) -> Database:
+    """A Database on one shard or, over a ``MeshTransport``, on n: the
+    store range-sharded by home shard, each wave's clients in n equal
+    blocks (so waves commit with ``max_retries=0`` at n > 1)."""
+    return Database(make_transport(shards, device=device, impl=impl))
 
 
 def create_table(db, *, products: int, waves: int, T: int,

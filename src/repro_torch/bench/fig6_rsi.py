@@ -3,7 +3,9 @@
 The counterpart of ``benchmarks/fig6_rsi.py::_measured_local_txn_rate``:
 the TPC-W checkout workload of §4.3 (each txn updates 3 products and
 inserts 4 rows, W = 7), committed through ``rsi.commit`` on a
-``LocalTransport``.  Inputs come from numpy with a seed.  Every size is a
+``LocalTransport``, or with ``shards=n`` on a ``MeshTransport`` of n
+shards (the store range-sharded, the batch in n blocks of clients).
+Inputs come from numpy with a seed.  Every size is a
 parameter; the defaults are the JAX benchmark's (100 000 records, 4
 payload words, T = 1024, inserts at 90 000 + i mod 9 000).  With those
 defaults every record is seeded, the insert rows included, so every txn
@@ -14,9 +16,10 @@ seeded products of 256 words (1 KB records) and 4T unborn insert rows.
 Timing: the store is restored from a saved copy before each commit,
 outside the timed window (the commit updates the store in place), and
 each commit is timed with CUDA events on the card, with the host clock on
-the CPU.  Run it as a module for one line of JSON::
+the CPU; the host clock around the call alone (no sync) gives the time
+to issue it.  Run it as a module for one line of JSON::
 
-    PYTHONPATH=src python -m repro_torch.bench.fig6_rsi [--paper] [--T N]
+    PYTHONPATH=src python -m repro_torch.bench.fig6_rsi [--paper] [--T N] [--shards 4]
 """
 from __future__ import annotations
 
@@ -32,7 +35,7 @@ import torch
 from repro_torch._bits import resolve_device
 from repro_torch.configs import OLTP
 from repro_torch.core import rsi
-from repro_torch.fabric import LocalTransport
+from repro_torch.fabric import make_transport
 
 
 def workload(*, num_records: int = 100_000, payload_words: int = 4,
@@ -73,12 +76,15 @@ def paper_width(T: int) -> dict:
 
 
 def measured_local_txn_rate(*, iters: int = 5, device=None, impl=None,
-                            around=None, **workload_kw) -> dict:
+                            around=None, shards: int = 1,
+                            **workload_kw) -> dict:
     """Commit one batch ``iters`` times from the same store (restored
-    outside the timed window).  Returns txn/s from the median commit, the
-    per-commit times, the committed count and the per-verb counters of
-    one commit (a fresh transport per commit; every commit must count the
-    same).  ``around()``, if given, makes a context manager entered around
+    outside the timed window), on one shard or on ``shards``.  Returns
+    txn/s from the median commit, the per-commit times, the host time to
+    issue each commit, the committed count and the per-verb counters of
+    one commit (one transport, its counters reset before each commit, as
+    a database keeps one transport and its shard threads; every commit
+    must count the same).  ``around()``, if given, makes a context manager entered around
     each timed commit (a profiler window)."""
     dev = resolve_device(device)
     store_np, txns_np = workload(**workload_kw)
@@ -86,25 +92,29 @@ def measured_local_txn_rate(*, iters: int = 5, device=None, impl=None,
     live = {k: v.clone() for k, v in saved.items()}
     txns = rsi.TxnBatch.from_numpy(device=dev, **txns_np)
     T = txns_np["cid"].shape[0]
-    times, stats, committed = [], None, None
+    times, host, stats, committed = [], [], None, None
+    transport = make_transport(shards, device=dev, impl=impl)
     for _ in range(iters + 1):                 # the first is the warm-up
         for k in live:
             live[k].copy_(saved[k])
-        transport = LocalTransport(device=dev, impl=impl)
+        transport.reset_stats()
         with (around() if around else contextlib.nullcontext()):
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
                 start = torch.cuda.Event(enable_timing=True)
                 end = torch.cuda.Event(enable_timing=True)
                 start.record()
+                t0 = time.perf_counter()
                 ok, _ = rsi.commit(live, txns, transport=transport)
+                host.append(time.perf_counter() - t0)
                 end.record()
                 torch.cuda.synchronize(dev)
                 times.append(start.elapsed_time(end) / 1e3)
             else:
                 t0 = time.perf_counter()
                 ok, _ = rsi.commit(live, txns, transport=transport)
-                times.append(time.perf_counter() - t0)
+                host.append(time.perf_counter() - t0)
+                times.append(host[-1])
         n_ok = int(ok.sum())
         if stats is None:
             stats, committed = transport.stats(), n_ok
@@ -112,10 +122,12 @@ def measured_local_txn_rate(*, iters: int = 5, device=None, impl=None,
         elif transport.stats() != stats or n_ok != committed:
             raise RuntimeError("fig6: a repeated commit counted or "
                                "committed differently")
-    times = times[1:]
+    times, host = times[1:], host[1:]
     median = statistics.median(times)
-    return {"T": T, "txn_per_s": T / median, "median_s": median,
-            "times_s": times, "spread": spread(times), "committed": committed, "stats": stats,
+    return {"T": T, "shards": shards, "txn_per_s": T / median,
+            "median_s": median, "times_s": times, "spread": spread(times),
+            "host_median_s": statistics.median(host), "host_times_s": host,
+            "committed": committed, "stats": stats,
             "plan_builds": plan_builds, "device": str(dev),
             "workload": {k: v for k, v in workload_kw.items()}}
 
@@ -136,10 +148,12 @@ def main(argv=None):
     ap.add_argument("--T", type=int, default=1024)
     ap.add_argument("--iters", type=int, default=5)
     ap.add_argument("--device", default=None)
+    ap.add_argument("--shards", type=int, default=1)
     args = ap.parse_args(argv)
     kw = paper_width(args.T) if args.paper else {"T": args.T}
     print(json.dumps(measured_local_txn_rate(iters=args.iters,
-                                             device=args.device, **kw)))
+                                             device=args.device,
+                                             shards=args.shards, **kw)))
 
 
 if __name__ == "__main__":

@@ -9,7 +9,9 @@ comes from ``explain`` per network profile, then every variant of
 ``JOIN_VARIANTS`` is forced, executed a warm-up and some timed times, and
 held to the ground truth with no dropped rows.  Optionally the same
 queries run on a second database whose kernels run their plain versions,
-which must give the same value, drop count and counters.
+which must give the same value, drop count and counters.  ``shards=n``
+runs the same relations over a ``MeshTransport`` of n shards (each shard
+a block of N/n rows of each relation).
 
 The relations come from ``seed`` through a ``torch.Generator`` on the
 device (the JAX PRNG is not portable): R's keys are a permutation of
@@ -30,7 +32,7 @@ contention simulator, which the port does not have yet.
 :func:`joins` runs the queries alone, :func:`shuffle_route_bench` one
 leg of the microbench, and :func:`run` the whole figure.
 
-    PYTHONPATH=src python -m repro_torch.bench.fig8a_joins --n 1048576
+    PYTHONPATH=src python -m repro_torch.bench.fig8a_joins --n 1048576 [--shards 4]
 """
 from __future__ import annotations
 
@@ -43,7 +45,7 @@ import torch
 from repro_torch._bits import M32, np_u32, resolve_device, u32
 from repro_torch.bench import queries
 from repro_torch.db import JOIN_VARIANTS, Database
-from repro_torch.fabric import LocalTransport, netsim
+from repro_torch.fabric import LocalTransport, make_transport, netsim
 
 SELS = (0.25, 0.5, 0.75, 1.0)
 DEFAULT_PROFILES = ("rdma_fdr4x",)       # the paper's measured cluster
@@ -98,16 +100,18 @@ def shuffle_route_bench(n_rows: int, *, device=None, overlap: bool = False,
 
 def joins(n: int, *, device=None, seed: int = 0, sels=SELS,
           profiles=DEFAULT_PROFILES, warmup: int = 1, timed: int = 3,
-          plain_sels=(), profile_sels=()) -> dict:
-    """The figure's queries at N rows a relation, through the facade and
-    nothing else.  Raises if a join misses its ground truth, drops a row,
-    or differs from the plain path on ``plain_sels``.  ``profile_sels``
-    adds one profiled execution per variant (card only).  Returns
-    JSON-ready rows."""
+          plain_sels=(), plain_variants=JOIN_VARIANTS, profile_sels=(),
+          shards: int = 1) -> dict:
+    """The figure's queries at N rows a relation (on ``shards`` shards),
+    through the facade and nothing else.  Raises if a join misses its
+    ground truth, drops a row, or differs from the plain path on
+    ``plain_sels`` (for ``plain_variants``).  ``profile_sels`` adds one
+    profiled execution per variant (card only).  Returns JSON-ready
+    rows."""
     dev = resolve_device(device)
-    db = Database(device=dev, net=profiles[0])
-    plain = Database(device=dev, impl="plain", net=profiles[0]) \
-        if plain_sels else None
+    db = Database(make_transport(shards, device=dev), net=profiles[0])
+    plain = Database(make_transport(shards, device=dev, impl="plain"),
+                     net=profiles[0]) if plain_sels else None
     for d in (db, plain) if plain else (db,):
         d.create_table("R", n, payload_words=1, partitioning="hash")
         d.create_table("S", n, payload_words=1, partitioning="hash")
@@ -135,7 +139,7 @@ def joins(n: int, *, device=None, seed: int = 0, sels=SELS,
                     f" dropped {res.dropped}")
             out = {"value": value, "dropped": res.dropped,
                    "stats": res.stats, **r}
-            if sel in plain_sels:
+            if sel in plain_sels and name in plain_variants:
                 out["plain_s"] = queries.check_plain(plain, q, name, res)
             if sel in profile_sels:
                 out["profile"] = queries.profiled(db, q, name, r["median_s"])
@@ -144,8 +148,8 @@ def joins(n: int, *, device=None, seed: int = 0, sels=SELS,
     stats = db.fabric_stats()
     modeled = {p: netsim.get_profile(p).modeled_time(stats)
                for p in profiles}
-    return {"figure": "fig8a", "n": n, "device": str(dev), "rows": rows,
-            "modeled_wire_s": modeled}
+    return {"figure": "fig8a", "n": n, "shards": shards, "device": str(dev),
+            "rows": rows, "modeled_wire_s": modeled}
 
 
 def run(n: int, *, device=None, seed: int = 0, **kw) -> dict:
@@ -166,8 +170,10 @@ def main(argv=None):
                     help="tuples per relation (the paper: 128000000)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None)
+    ap.add_argument("--shards", type=int, default=1)
     args = ap.parse_args(argv)
-    print(json.dumps(run(args.n, device=args.device, seed=args.seed)))
+    print(json.dumps(run(args.n, device=args.device, seed=args.seed,
+                         shards=args.shards)))
 
 
 if __name__ == "__main__":

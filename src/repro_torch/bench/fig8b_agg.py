@@ -7,7 +7,9 @@ paper's §5.4 deployment: N = 128 000 000 per node), loaded into a
 planner's choice comes from ``explain`` per network profile, then both
 schemes are forced, executed a warm-up and some timed times, and held to
 the ground truth and to each other.  Optionally the same queries run on a
-second database whose kernels run their plain versions.
+second database whose kernels run their plain versions.  ``shards=n``
+runs the same table over a ``MeshTransport`` of n shards (each a block of
+N/n rows).
 
 The table comes from ``seed`` through a ``torch.Generator`` on the device:
 keys uniform in [0, 2**30), vals = 1.  So each group's sum is its count,
@@ -22,7 +24,7 @@ directly, not through the facade.
 :func:`aggregations` runs the queries alone, :func:`kernel_row` the
 kernel row, and :func:`run` the whole figure.
 
-    PYTHONPATH=src python -m repro_torch.bench.fig8b_agg --n 1048576
+    PYTHONPATH=src python -m repro_torch.bench.fig8b_agg --n 1048576 [--shards 4]
 """
 from __future__ import annotations
 
@@ -36,7 +38,7 @@ from repro_torch._bits import resolve_device, to_i32, u32
 from repro_torch.bench import queries
 from repro_torch.configs import OLAP
 from repro_torch.db import AGG_VARIANTS, Database
-from repro_torch.fabric import netsim
+from repro_torch.fabric import make_transport, netsim
 from repro_torch.kernels import ops
 
 GROUPS = OLAP.distinct_groups_sweep
@@ -79,19 +81,20 @@ def kernel_row(keys, vals, *, impl=None, iters: int = 3) -> dict:
 
 def aggregations(keys, vals, *, groups=GROUPS, profiles=DEFAULT_PROFILES,
                  warmup: int = 1, timed: int = 3, plain_groups=(),
-                 profile_groups=()) -> dict:
-    """The figure's queries over the table (``keys``, ``vals``), through
-    the facade and nothing else.  Raises if a scheme misses the ground
+                 profile_groups=(), shards: int = 1) -> dict:
+    """The figure's queries over the table (``keys``, ``vals``) on
+    ``shards`` shards, through the facade and nothing else.  Raises if a scheme misses the ground
     truth, the two schemes differ, or (on ``plain_groups``) the plain path
     differs.  ``profile_groups`` adds one profiled execution per scheme
     (card only).  Returns JSON-ready rows, each with the kernel launches
     of its group count."""
     dev = keys.device
-    db = Database(device=dev, net=profiles[0])
+    db = Database(make_transport(shards, device=dev), net=profiles[0])
     db.load_table("T", keys, vals)
     plain = None
     if plain_groups:
-        plain = Database(device=dev, impl="plain", net=profiles[0])
+        plain = Database(make_transport(shards, device=dev, impl="plain"),
+                         net=profiles[0])
         plain.load_table("T", keys, vals)
     rows = []
     for G in groups:
@@ -118,8 +121,8 @@ def aggregations(keys, vals, *, groups=GROUPS, profiles=DEFAULT_PROFILES,
         rows.append(row)
         del truth
     stats = db.fabric_stats()
-    return {"figure": "fig8b", "n": keys.shape[0], "device": str(dev),
-            "rows": rows,
+    return {"figure": "fig8b", "n": keys.shape[0], "shards": shards,
+            "device": str(dev), "rows": rows,
             "modeled_wire_s": {p: netsim.get_profile(p).modeled_time(stats)
                                for p in profiles}}
 
@@ -139,8 +142,10 @@ def main(argv=None):
                     help="tuples (the paper: 128000000)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None)
+    ap.add_argument("--shards", type=int, default=1)
     args = ap.parse_args(argv)
-    print(json.dumps(run(args.n, device=args.device, seed=args.seed)))
+    print(json.dumps(run(args.n, device=args.device, seed=args.seed,
+                         shards=args.shards)))
 
 
 if __name__ == "__main__":

@@ -5,10 +5,11 @@ bench module that times it:
 
   fig6   ``rsi.commit`` of the fig6 batch at the paper's width, through
          :func:`repro_torch.bench.fig6_rsi.measured_local_txn_rate`
-         (the store restored before each commit);
-  wave   ``Database.commit`` (``max_retries=2``) of one wave of §4.3
-         checkout sessions on a table of 1 KB products, through
-         :func:`repro_torch.bench.checkout.drive`.
+         (the store restored before each commit), on one shard or, with
+         ``--shards n``, on a ``MeshTransport`` of n;
+  wave   ``Database.commit`` (``max_retries=2``; 0 on n shards) of one
+         wave of §4.3 checkout sessions on a table of 1 KB products,
+         through :func:`repro_torch.bench.checkout.drive`.
 
 For each: the commit's time between CUDA events (``event_s``), the
 device's own time from ``torch.profiler`` (kernels, copies and fills; one
@@ -16,10 +17,11 @@ stream, so they never overlap), the device's busy share (device time over
 event time), device operations per commit, and the device time by kernel
 name.  The event times come from runs without the profiler.  The wave's
 host time by function comes from ``cProfile`` (which slows Python code:
-read it as shares).  Each of the wave's three measurements commits a wave
-of its own, after a warm-up wave.
+read it as shares; on n shards it sees shard 0's thread, whose waits for
+its turn are the other shards' time).  Each of the wave's three
+measurements commits a wave of its own, after a warm-up wave.
 
-    PYTHONPATH=src python -m repro_torch.bench.profile_commit [--T 8192]
+    PYTHONPATH=src python -m repro_torch.bench.profile_commit [--T 8192] [--shards 4]
 
 Prints one JSON line per window.
 """
@@ -36,7 +38,6 @@ from torch.profiler import ProfilerActivity, profile
 
 from repro_torch._bits import resolve_device
 from repro_torch.bench import checkout, fig6_rsi
-from repro_torch.db import Database
 from repro_torch.kernels import cas_lock, grouped_agg, radix_partition
 
 PORT_KERNELS = tuple(name for mod in (radix_partition, cas_lock, grouped_agg)
@@ -116,39 +117,45 @@ def _events(out: list):
     out.append(a.elapsed_time(b) / 1e3)
 
 
-def profile_fig6(T: int = 8192, iters: int = 5, impl=None) -> dict:
+def profile_fig6(T: int = 8192, iters: int = 5, impl=None,
+                 shards: int = 1) -> dict:
     """Event times from one run, the device summaries from a second under
     the profiler (one window per commit, the restores outside it)."""
     dev = resolve_device(None)                 # the card, or raise
-    kw = dict(fig6_rsi.paper_width(T), iters=iters, device=dev, impl=impl)
+    kw = dict(fig6_rsi.paper_width(T), iters=iters, device=dev, impl=impl,
+              shards=shards)
     timed = fig6_rsi.measured_local_txn_rate(**kw)
     sums: list = []
     fig6_rsi.measured_local_txn_rate(around=lambda: _profiled(sums), **kw)
     sums = sums[1:]                            # the first is the warm-up
     dsum = sorted(sums, key=lambda d: d["device_s"])[len(sums) // 2]
     return {"window": "fig6", "T": T, "impl": impl or "kernel",
-            "event_s": timed["median_s"], "times_s": timed["times_s"],
+            "shards": shards, "event_s": timed["median_s"],
+            "host_s": timed["host_median_s"], "times_s": timed["times_s"],
             "device_s_each": [d["device_s"] for d in sums], **dsum,
             "busy_share": dsum["device_s"] / timed["median_s"]}
 
 
 def profile_wave(T: int = 4096, products: int = checkout.PRODUCTS,
                  payload_words: int = checkout.PAYLOAD_WORDS,
-                 seed: int = 7) -> dict:
+                 seed: int = 7, shards: int = 1) -> dict:
     dev = resolve_device(None)                 # the card, or raise
     waves = checkout.plan(seed=seed, waves=4, T=T, products=products,
                           payload_words=payload_words)
-    db = Database(device=dev)
+    db = checkout.database(shards, device=dev)
     checkout.create_table(db, products=products, waves=4, T=T,
                           payload_words=payload_words)
+    retries = 2 if shards == 1 else 0
     # wave 0 warms up; 1 is timed; 2 under torch.profiler; 3 under cProfile
     ev, dev_sums, host_sums = [], [], []
-    checkout.drive(db, waves[:1])
-    _, _, (host_s,) = checkout.drive(db, waves[1:2],
+    checkout.drive(db, waves[:1], max_retries=retries)
+    _, _, (host_s,) = checkout.drive(db, waves[1:2], max_retries=retries,
                                      around=lambda: _events(ev))
-    checkout.drive(db, waves[2:3], around=lambda: _profiled(dev_sums))
-    checkout.drive(db, waves[3:4], around=lambda: _cprofiled(host_sums))
-    return {"window": "wave", "T": T, "products": products,
+    checkout.drive(db, waves[2:3], max_retries=retries,
+                   around=lambda: _profiled(dev_sums))
+    checkout.drive(db, waves[3:4], max_retries=retries,
+                   around=lambda: _cprofiled(host_sums))
+    return {"window": "wave", "T": T, "shards": shards, "products": products,
             "payload_words": payload_words, "host_s": host_s,
             "event_s": ev[0], **dev_sums[0],
             "busy_share": dev_sums[0]["device_s"] / ev[0],
@@ -177,10 +184,12 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--T", type=int, default=8192,
                     help="fig6 batch size (paper width)")
+    ap.add_argument("--shards", type=int, default=1)
     args = ap.parse_args(argv)
     for impl in (None, "plain"):
-        print(json.dumps(profile_fig6(args.T, impl=impl)), flush=True)
-    print(json.dumps(profile_wave()), flush=True)
+        print(json.dumps(profile_fig6(args.T, impl=impl,
+                                      shards=args.shards)), flush=True)
+    print(json.dumps(profile_wave(shards=args.shards)), flush=True)
 
 
 if __name__ == "__main__":

@@ -68,7 +68,7 @@ def store_from_numpy(d: dict, device=None) -> dict:
     dev = resolve_device(device)
     out = {k: torch.from_numpy(np_to_i32(d[k])).to(dev)
            for k in ("words", "payload", "cids")}
-    out["bitvec"] = torch.from_numpy(np.asarray(d["bitvec"], bool)).to(dev)
+    out["bitvec"] = torch.from_numpy(np.array(d["bitvec"], bool)).to(dev)
     return out
 
 

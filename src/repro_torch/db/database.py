@@ -22,6 +22,14 @@ Two differences from the JAX facade: PyTorch runs eagerly, so every
 ``execute`` counts its traffic into ``stats`` (a jitted JAX shape counts
 only on its first, traced, execution); and ``elapsed_s`` is taken after
 ``torch.cuda.synchronize()`` (JAX's ``block_until_ready``).
+
+Over a :class:`~repro_torch.fabric.MeshTransport` of n shards the store
+is range-sharded by home shard and a wave's clients split into n equal
+blocks, so a table's records and timestamps, and every wave's writer
+sessions, must divide by n (checked before anything is claimed).  Retry
+waves come in power-of-two sizes (:func:`_dyadic`), so at n > 1 a retry
+wave of fewer sessions than shards raises, as it cannot run in the JAX
+package either: n-shard waves commit with ``max_retries=0``.
 """
 from __future__ import annotations
 
@@ -33,7 +41,7 @@ import numpy as np
 import torch
 
 from repro_torch import fabric
-from repro_torch._bits import CID_MASK, M32, np_u32
+from repro_torch._bits import CID_MASK, M32, np_to_i32, np_u32
 from repro_torch.core import aggregation, rsi, shuffle, twopc
 from repro_torch.db.plan import Plan
 from repro_torch.db.planner import Planner
@@ -141,6 +149,12 @@ class Database:
                      payload_words: int = 4, version_slots: int = 1,
                      partitioning: str = "range",
                      num_timestamps: int = 60_000) -> Table:
+        n = self.transport.n
+        for what, size in (("records", num_records),
+                           ("timestamps", num_timestamps)):
+            if size % n:
+                raise ValueError(f"table {name!r}: {size} {what} do not "
+                                 f"split over the {n} shards")
         schema = TableSchema(name=name, num_records=num_records,
                              payload_words=payload_words,
                              version_slots=version_slots,
@@ -238,13 +252,37 @@ class Database:
         if len(names) != 1:
             raise ValueError(f"one table per commit wave, got {names}")
         t = self.table(names.pop())
+        self._check_wave(len(sessions))
         txns, cids = self._pack_txns(t, sessions)
         ok, t.store = _BACKENDS[isolation](
             t.store, txns, transport=self.transport,
             priority=self._priority(priority), chunks=chunks,
             region_ns=f"{t.schema.name}/")
+        self._complete_bitvec(t, cids)
         self._assign_outcomes(sessions, ok.cpu().numpy(), cids)
         return np.asarray([s.committed for s in wave], bool)
+
+    def _check_wave(self, T: int):
+        """A wave's writers split into one equal block of clients a shard
+        (``shard_map``'s rule)."""
+        n = self.transport.n
+        if T % n:
+            raise ValueError(f"a wave of {T} writer sessions does not split "
+                             f"over the {n} shards")
+
+    def _complete_bitvec(self, t: Table, cids):
+        """msg 3 completion over n > 1 shards: the commit body flips only
+        the bitvector bits inside each client shard's own range, but the
+        oracle hands out globally contiguous cids, so the rest are
+        finished here with one counted WRITE of the wave's cids (committed
+        and aborted txns both burn their slot)."""
+        if self.transport.n == 1:
+            return
+        idx = torch.from_numpy(np_to_i32(cids)).to(t.device)
+        t.store["bitvec"] = self.transport.write(
+            t.store["bitvec"], idx,
+            torch.ones(idx.shape, dtype=torch.bool, device=t.device),
+            region=f"{t.schema.name}/bitvec")
 
     def _assign_outcomes(self, sessions, ok, cids):
         for s, committed, cid in zip(sessions, np.asarray(ok), cids):
@@ -333,6 +371,7 @@ class Database:
                 raise ValueError(f"one table per grouped commit, "
                                  f"got {names}")
             t = self.table(names.pop())
+            self._check_wave(sum(len(g) for g in writer_groups))
             packed = [self._pack_txns(t, g) for g in writer_groups]
             cids = np.concatenate([c for _, c in packed])
             oks, t.store = rsi.commit_grouped(
@@ -341,6 +380,7 @@ class Database:
                 priority=None if priority is None else
                 [self._priority(p) for p in priority],
                 chunks=chunks, region_ns=f"{t.schema.name}/")
+            self._complete_bitvec(t, cids)
             ok = np.concatenate([o.cpu().numpy() for o in oks])
             self._assign_outcomes(
                 [s for g in writer_groups for s in g], ok, cids)
@@ -377,8 +417,7 @@ class Database:
         same outcome as K sequential :meth:`commit` calls.  Returns the
         per-wave committed masks."""
         waves = [list(w) for w in waves]
-        writer_meta = []        # (sessions, cids) per writer wave, in order
-        txns_list = []
+        writer_waves = []
         table = None
         for w in waves:
             if any(s.isolation != "rsi" for s in w):
@@ -397,7 +436,12 @@ class Database:
                 table = t
             elif t is not table:
                 raise ValueError("one table per pipelined commit")
-            txns, cids = self._pack_txns(t, writers)
+            self._check_wave(len(writers))
+            writer_waves.append(writers)
+        # (sessions, cids) and the batch of each writer wave, in order
+        writer_meta, txns_list = [], []
+        for writers in writer_waves:
+            txns, cids = self._pack_txns(table, writers)
             txns_list.append(txns)
             writer_meta.append((writers, cids))
         if txns_list:
@@ -405,6 +449,7 @@ class Database:
                 table.store, txns_list, transport=self.transport,
                 chunks=chunks, region_ns=f"{table.schema.name}/")
             for (sessions, cids), ok in zip(writer_meta, oks):
+                self._complete_bitvec(table, cids)
                 self._assign_outcomes(sessions, ok.cpu().numpy(), cids)
         self._retry_losers([s for w in waves for s in w], chunks=chunks,
                            max_retries=max_retries)

@@ -45,7 +45,7 @@ WORD_BYTES = 4
 
 __all__ = ["RouteResult", "RoutePlan", "plan_route", "route", "pack_fields",
            "unpack_fields", "packed_row_words", "bucket_ranks",
-           "tree_flatten", "tree_unflatten"]
+           "tree_flatten", "tree_unflatten", "chunked_all_to_all"]
 
 
 @dataclass
@@ -322,3 +322,20 @@ def route(fields, dest=None, *, n: Optional[int] = None,
         return RouteResult(sent, sent_valid, dropped, sent, sent_valid)
     recv, valid = unpack_fields(exchange(buf), treedef, specs)
     return RouteResult(recv, valid, dropped, sent, sent_valid)
+
+
+def chunked_all_to_all(v, group, n: int, cap: int, chunks: int = 1):
+    """Paired all-to-all of each shard's (n*cap, ...) buffer among the n
+    shards of ``group`` (a :class:`~repro_torch.fabric.transport.
+    MeshTransport` inside its ``run``): shard i receives block i of every
+    shard's buffer, in source order.  ``chunks > 1`` gives the same
+    buffer (the JAX package's scan only pipelines the transfer); it must
+    divide cap, as there."""
+    if v.shape[0] != n * cap:
+        raise ValueError(f"an all-to-all buffer of {v.shape[0]} rows is not "
+                         f"n*cap = {n}*{cap}")
+    if chunks < 1 or cap % chunks:
+        raise ValueError(f"cap={cap} not divisible by chunks={chunks}")
+    me = group.shard_index()
+    return torch.cat([b[me * cap:(me + 1) * cap]
+                      for b in group.gather("all_to_all", v)])

@@ -15,6 +15,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -25,6 +26,7 @@ FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _loaded: dict = {}
+_load_lock = threading.Lock()   # threads of a MeshTransport load at once
 
 
 def nvcc() -> str:
@@ -77,7 +79,8 @@ def build(names=SOURCES) -> dict:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of one source, built first if needed."""
-    if name not in _loaded:
-        build((name,))
-        _loaded[name] = ctypes.CDLL(str(library_path(name)))
-    return _loaded[name]
+    with _load_lock:
+        if name not in _loaded:
+            build((name,))
+            _loaded[name] = ctypes.CDLL(str(library_path(name)))
+        return _loaded[name]

@@ -10,11 +10,15 @@ the plain version is :func:`repro_torch.kernels.ref.cas`.
 Bound: bytes (see the source); at the commit's shape a call costs its
 launch and this wrapper's host work, so a call is one cooperative launch,
 and the wrapper allocates only ``ok``.  ``launches["cas"]`` counts the
-calls that launched it.
+calls that launched it.  ``_lock`` covers the host section (the scratch
+handed to the library, the launch and its count): shards of a
+``MeshTransport`` call in from several threads at once, on one stream,
+whose order keeps the shared scratch's calls apart on the device.
 """
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -28,6 +32,7 @@ KERNELS = {"cas": ("cas_kernel",)}
 _P, _L, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 _I32 = torch.int32
 _lib = None
+_lock = threading.Lock()
 
 
 def _load():
@@ -65,8 +70,9 @@ def arbitration_scratch(R: int, device):
     """``(best, slot_r)`` of ``device``, the table at least R entries
     long."""
     di = torch.device(device).index
-    return _scratch_of(R, torch.cuda.current_device() if di is None
-                       else di)[1:]
+    with _lock:
+        return _scratch_of(R, torch.cuda.current_device() if di is None
+                           else di)[1:]
 
 
 def cas(words, idx, expected, new, priority):
@@ -98,13 +104,14 @@ def cas(words, idx, expected, new, priority):
     ok = torch.empty_like(idx, dtype=torch.bool)
     if A == 0:
         return ok
-    _scratch_of(R, di)
-    err = (_lib or _load()).cas_arbitrate(
-        words.data_ptr(), R, idx.data_ptr(), expected.data_ptr(),
-        new.data_ptr(), priority.data_ptr(), A, ok.data_ptr(), di,
-        _stream(di))
-    if err != 0:
-        _scratch.pop(di, None)                 # it may hold stale keys
-        _raise_on(err, "cas_arbitrate launch")
-    launches["cas"] += 1
+    with _lock:
+        _scratch_of(R, di)
+        err = (_lib or _load()).cas_arbitrate(
+            words.data_ptr(), R, idx.data_ptr(), expected.data_ptr(),
+            new.data_ptr(), priority.data_ptr(), A, ok.data_ptr(), di,
+            _stream(di))
+        if err != 0:
+            _scratch.pop(di, None)             # it may hold stale keys
+            _raise_on(err, "cas_arbitrate launch")
+        launches["cas"] += 1
     return ok

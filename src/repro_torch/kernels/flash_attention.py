@@ -13,6 +13,7 @@ the calls that launched the kernel.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -27,6 +28,7 @@ MAX_HEAD_DIM = 128
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _lib = None
+_lock = threading.Lock()       # the load, the launch and its count
 
 
 def _load():
@@ -81,12 +83,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          "range")
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
     out = torch.empty_like(q)
-    lib = _load()
-    with torch.cuda.device(q.device):
+    with _lock, torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        _raise_on(lib.flash_attention_fwd(
+        _raise_on(_load().flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S,
             T, H, KH, D, int(bool(causal)), int(q.dtype == torch.bfloat16),
             stream), "flash_attention launch")
-    launches["flash"] += 1
+        launches["flash"] += 1
     return out

@@ -25,11 +25,15 @@ and :mod:`repro_torch.kernels.ops` picks.
 Bound: bytes (see the source).  ``launches`` counts the calls that
 launched each entry's kernels: ``f32`` for :func:`grouped_agg`, ``u32``
 for the two u32 entries (one device body, which reads slots or keys).
+Each call has scratch of its own; ``_lock`` covers the library's load,
+the device's attributes, the launches and their count, as shards of a
+``MeshTransport`` call in from several threads at once.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from dataclasses import dataclass
 
 import numpy as np
@@ -221,6 +225,7 @@ class _Args(ctypes.Structure):
 _PATHS = {"shared": 0, "global": 1, "partition": 2}
 _lib = None
 _info: dict = {}
+_lock = threading.Lock()
 
 
 def _load():
@@ -240,12 +245,13 @@ def device_info(device) -> tuple:
     once."""
     di = torch.device(device).index
     di = torch.cuda.current_device() if di is None else di
-    if di not in _info:
-        buf = (_I * 3)()
-        _raise_on(_load().grouped_agg_device_info(di, buf),
-                  "grouped_agg_device_info")
-        _info[di] = tuple(buf)
-    return _info[di]
+    with _lock:
+        if di not in _info:
+            buf = (_I * 3)()
+            _raise_on(_load().grouped_agg_device_info(di, buf),
+                      "grouped_agg_device_info")
+            _info[di] = tuple(buf)
+        return _info[di]
 
 
 def _run(dtype: int, x, vals, S: int, what: str, p, kind: int = 0,
@@ -273,9 +279,10 @@ def _run(dtype: int, x, vals, S: int, what: str, p, kind: int = 0,
               p.copies, p.bits, p.lo_bits, p.rows_per_part, p.batch, p.grid,
               meta,
               pairs, tmp, out.data_ptr(), di, _stream(di))
-    _raise_on((_lib or _load()).grouped_agg_run(ctypes.byref(a), dtype),
-              f"grouped_agg ({p.path}) launch")
-    launches[what] += 1
+    with _lock:
+        _raise_on((_lib or _load()).grouped_agg_run(ctypes.byref(a), dtype),
+                  f"grouped_agg ({p.path}) launch")
+        launches[what] += 1
     return out
 
 

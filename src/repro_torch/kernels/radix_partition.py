@@ -12,10 +12,17 @@ buffer once, rows where the rank put them and zeros after each bucket's
 
 Bound: bytes (see the source).  ``launches`` counts the calls that
 launched each entry point.
+
+Shards of a ``MeshTransport`` call in from several host threads at once,
+on one stream.  ``_lock`` covers each wrapper's host section: the rank's
+shared histogram buffer, its three launches (``ctypes`` drops the GIL
+during the call, and another thread's rank must not run between them),
+and the counts.
 """
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -29,12 +36,14 @@ KERNELS = {"rank": ("hist_kernel", "scan_kernel", "rank_kernel"),
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _I32 = torch.int32
 _lib = None
+_lock = threading.Lock()
 # requests a rank block takes, and the largest n whose per-warp counts fit
 # the 48 KB of shared memory a block gets without opting in
 _items = _max_n = 0
 
 
 def _load():
+    """The library, loaded once (under ``_lock``)."""
     global _lib, _items, _max_n
     if _lib is None:
         lib = build.load("radix_partition")
@@ -94,24 +103,25 @@ def rank(dest: torch.Tensor, n: int, cap: int):
     if di < 0 or not (dest.dtype is _I32 and dest.dim() == 1
                       and dest.is_contiguous()):
         _check(dest, "dest", _I32, 1)
-    lib = _lib or _load()
     n, cap = int(n), int(cap)
-    if not 1 <= n <= _max_n:
-        raise ValueError(f"n={n} outside [1, {_max_n}]")
     if cap < 0 or n * (cap + 1) >= 2 ** 31:
         raise ValueError(f"n*cap = {n}*{cap} does not fit int32 slots")
     A = dest.shape[0]
-    need = max(-(-A // _items), 1) * n
-    hist = _hist.get(di)
-    if hist is None or hist.shape[0] < need:
-        hist = _hist[di] = torch.empty((need,), dtype=_I32, device=di)
     out = torch.empty((A + n,), dtype=_I32, device=di)
     flags = torch.empty((2, A), dtype=torch.bool, device=di)
-    _raise_on(lib.radix_rank(dest.data_ptr(), A, n, cap, hist.data_ptr(),
-                             out.data_ptr() + 4 * A, out.data_ptr(),
-                             flags.data_ptr(), flags.data_ptr() + A, di,
-                             _stream(di)), "radix_rank launch")
-    launches["rank"] += 1
+    with _lock:
+        lib = _lib or _load()
+        if not 1 <= n <= _max_n:
+            raise ValueError(f"n={n} outside [1, {_max_n}]")
+        need = max(-(-A // _items), 1) * n
+        hist = _hist.get(di)
+        if hist is None or hist.shape[0] < need:
+            hist = _hist[di] = torch.empty((need,), dtype=_I32, device=di)
+        _raise_on(lib.radix_rank(dest.data_ptr(), A, n, cap, hist.data_ptr(),
+                                 out.data_ptr() + 4 * A, out.data_ptr(),
+                                 flags.data_ptr(), flags.data_ptr() + A, di,
+                                 _stream(di)), "radix_rank launch")
+        launches["rank"] += 1
     return out[:A], flags[0], flags[1], out[A:]
 
 
@@ -149,10 +159,11 @@ def scatter(rows: torch.Tensor, slot: torch.Tensor, num_slots: int, *,
         raise ValueError(f"num_slots={num_slots} is not counts.numel()={n} "
                          "times a cap")
     out = torch.empty((num_slots, w + 1), dtype=_I32, device=di)
-    err = (_lib or _load()).radix_scatter(
-        rows.data_ptr(), slot.data_ptr(),
-        None if mask is None else mask.data_ptr(), counts.data_ptr(), A, w,
-        n, num_slots // n, out.data_ptr(), di, _stream(di))
-    _raise_on(err, "radix_scatter launch")
-    launches["scatter"] += 1
+    with _lock:
+        err = (_lib or _load()).radix_scatter(
+            rows.data_ptr(), slot.data_ptr(),
+            None if mask is None else mask.data_ptr(), counts.data_ptr(), A,
+            w, n, num_slots // n, out.data_ptr(), di, _stream(di))
+        _raise_on(err, "radix_scatter launch")
+        launches["scatter"] += 1
     return out

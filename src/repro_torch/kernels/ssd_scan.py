@@ -16,6 +16,7 @@ launched the kernel.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -29,6 +30,7 @@ DTYPES = (torch.float32, torch.bfloat16)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _lib = None
+_lock = threading.Lock()       # the load, the launch and its count
 
 
 def _load():
@@ -138,15 +140,14 @@ def ssd_scan(xh: torch.Tensor, bv: torch.Tensor, cv: torch.Tensor,
         xh, bv, cv = _aligned(xh), _aligned(bv), _aligned(cv)
     y = torch.empty_like(xh)
     state = torch.empty((B, H, PP, NP), dtype=torch.float32, device=dev)
-    lib = _load()
-    with torch.cuda.device(dev):
+    with _lock, torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        _raise_on(lib.ssd_scan_fwd(
+        _raise_on(_load().ssd_scan_fwd(
             xh.data_ptr(), bv.data_ptr(), cv.data_ptr(), dt.data_ptr(),
             a.data_ptr(), None if state0 is None else state0.data_ptr(),
             y.data_ptr(), state.data_ptr(), B, S, H, PP, NP, int(bf16),
             stream), "ssd_scan launch")
-    launches["ssd"] += 1
+        launches["ssd"] += 1
     if (PP, NP) != (P, N):
         return (y[..., :P].contiguous(),
                 state[:, :, :P, :N].contiguous())

@@ -68,6 +68,8 @@ def test_entry_points_raise_without_a_card(no_card):
     with pytest.raises(RuntimeError, match="CUDA"):
         fabric.LocalTransport()
     with pytest.raises(RuntimeError, match="CUDA"):
+        fabric.MeshTransport(4)
+    with pytest.raises(RuntimeError, match="CUDA"):
         rsi.init_store(rsi.StoreCfg(num_records=4))
     with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device("cuda")
