@@ -80,13 +80,33 @@ exits non-zero:
            shards of 32 000 000 tuples, each equal to its ground truth
            and to the same query on one shard (RRJ also to the plain
            path), with times and peak memory
+  train    the rank and the scatter at a parameter-server push's shapes
+           (4 rows of 23.4 M and of 92 M lanes) against their plain
+           versions, timed; the trainer (src/repro_torch/bench/train.py)
+           at mamba2-370m's full config, f32 masters from seed 0, AdamW, SyntheticLM
+           batches of 8 x 2048, through Trainer.run in three sync modes:
+           allreduce (6 steps), raw paramserver(staleness=0) (6 steps,
+           losses equal to allreduce's within PARITY_RTOL) and compressed
+           paramserver(staleness=4) (8 steps, epoch 8, every push routing
+           bench.train.route_bytes); seconds a step, tokens/s, pull and
+           push ms, peak memory and one profiled step split by where its
+           device time goes; then the gradients of the first batch on the
+           kernel path against the plain path, leaf by leaf, in f32
+           within GRAD_TOL (a faulty plain path above it; the bf16
+           reading reported), for mamba2-370m and for glm4-9b at full
+           width cut to 2 layers (B 1, S 4096: one build_grad_step, which
+           must launch flash_attention twice a layer); and Fig 9
+           (bench/fig9_ml.py) at the reference's sizes, its rows equal to
+           a CPU run's, with one PS round timed
 
 Launch counts are set to 0 just before each path and read just after:
 the oltp sessions and commits, the olap queries (Database.execute
 alone), Fig 8b's kernel row, the one path of the f32 grouped_agg
-entry, in serve each timed prefill step and each engine wave, and in
-shards the 4-shard oltp waves and the 4-shard queries; each path must
-have launched every kernel it runs.  The shuffle
+entry, in serve each timed prefill step and each engine wave, in
+shards the 4-shard oltp waves and the 4-shard queries, and in train
+each trainer run, Fig 9 and glm4's grad step; each path must have launched
+every kernel it runs.  The gradient checks' launches count on no path.
+The shuffle
 microbench's launches are reported beside it and counted on no path.
 Then three lines: the per-kernel JSON record (launches summed over the
 paths named in its "paths"), the card's name and power limit
@@ -96,12 +116,14 @@ paths named in its "paths"), the card's name and power limit
     python3 chip_smoke.py --phases env,build,kernels --quick
     python3 chip_smoke.py --out smoke.jsonl   # also keep every phase line
     python3 chip_smoke.py --phases env,build,shards   # the n-shard fabric
+    python3 chip_smoke.py --phases env,build,train    # training
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -113,7 +135,7 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 peak
 BF16_FLOP_PER_S = 989e12           # H100 SXM dense bf16 tensor cores
 PHASES = ("env", "build", "kernels", "oltp", "olap", "fig6", "serve",
-          "shards")
+          "shards", "train")
 SERVE_ARCHS = {"glm4-9b": "flash_attention", "mamba2-370m": "ssd_scan"}
 ROW_TOL = 2 ** -6        # bf16, kernel vs plain: rms(diff) / rms(plain)
                          # per row (a query row of one head; an SSD output
@@ -136,6 +158,18 @@ KERNEL_ROW_KERNELS = ("grouped_agg",)
 SHARDS = 4                       # the paper's 3 storage and 4 client nodes
                                  # as one n
 SHARD_GROUPS = (64, 1 << 20, 1 << 26)
+TRAIN_ARCH = "mamba2-370m"
+TRAIN_BATCH, TRAIN_SEQ = 8, 2048
+TRAIN_MODES = (("allreduce", True, 6),          # (sync mode, compressed
+               ("paramserver(staleness=0)", False, 6),   # push, steps)
+               ("paramserver(staleness=4)", True, 8))
+PARITY_RTOL = 1e-4       # allreduce vs raw paramserver(staleness=0) losses
+GRAD_TOL = 2 ** -8       # kernel vs plain path gradients, f32 masters and
+                         # f32 activations: rms(diff) / rms(plain) per
+                         # leaf, the worst leaf (on an H100: sound 2.4e-5
+                         # and 2.3e-4, faulty controls 0.034 and 0.90, for
+                         # mamba2-370m and glm4-9b)
+GLM_GRAD = ("glm4-9b", 2, 1, 4096)   # arch, layers, batch, seq
 _OUT = []                        # a file every emitted line also goes to
 
 
@@ -1485,9 +1519,10 @@ def faulty_plain(kernel: str):
     fault = {"flash_attention": _attn_tile_dropped,
              "ssd_scan": _ssd_state_dropped}[kernel]
 
-    def patched(*args, impl=None, **kw):
+    def patched(*args, impl=None, backward=None, **kw):
         if impl == "plain":
             return fault(*args, **kw)
+        kw["backward"] = backward
         return orig(*args, impl=impl, **kw)
     setattr(ops, kernel, patched)
     try:
@@ -1595,6 +1630,239 @@ def phase_serve(quick: bool, record: dict):
         del pre, eng, plain
 
 
+def _grad_check(cfg, params, batch, kernel: str) -> dict:
+    """Gradients of ``batch`` on the kernel path against the plain path
+    (the functions the model trains through), leaf by leaf
+    (``bench.train.leaf_check``), held in f32 (both paths' activations f32:
+    the kernels' f32 entries), where a faulty plain path (``faulty_plain``)
+    must read above GRAD_TOL; and the same reading with bf16 activations,
+    reported (there rounding the depth amplifies is as large as the
+    control's fault).  The kernel path's launches here are a
+    comparison's and count on no path."""
+    import torch
+    from repro_torch.bench import train as bt
+    from repro_torch.models import lm
+    from repro_torch.train.train_step import build_grad_step
+
+    def both():
+        gk, mk = build_grad_step(cfg)(params, batch)
+        gp, mp = build_grad_step(cfg, impl="plain")(params, batch)
+        chk = bt.leaf_check(gk, gp)
+        chk.pop("per_leaf")
+        chk["loss"] = [float(mk["loss"]), float(mp["loss"])]
+        chk["grad_norm"] = [float(mk["grad_norm"]), float(mp["grad_norm"])]
+        return gk, chk
+
+    saved = lm.ACT_DTYPE
+    lm.ACT_DTYPE = torch.float32
+    try:
+        gk, out = both()
+        torch.cuda.empty_cache()
+        with faulty_plain(kernel):
+            gf, _ = build_grad_step(cfg, impl="plain")(params, batch)
+        out["control"] = bt.leaf_check(gk, gf)["max"]
+        del gk, gf
+    finally:
+        lm.ACT_DTYPE = saved
+    torch.cuda.empty_cache()
+    out["bf16"] = both()[1]
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_ps_route(cfg, stats: dict) -> dict:
+    """The rank and the scatter at a PS push's shapes for ``cfg`` (S = 4
+    rows of the compressed payload's L/4 + L/256 lanes, and of the raw
+    payload's L lanes): bit-exact against ref, then timed beside the
+    plain version and the bytes bound (rows read once, the buffer written
+    once).  No earlier path routes rows this wide."""
+    import torch
+    from repro_torch.analytics import DEFAULT_SHARDS
+    from repro_torch.kernels import radix_partition as rp, ref
+    from repro_torch.models import api
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(17)
+    n_values = sum(math.prod(s) for s in _leaves(api.param_shapes(cfg)))
+    S = DEFAULT_SHARDS
+    L = -(-n_values // S)
+    L += (-L) % 256
+    out = {}
+    dest = torch.zeros((S,), dtype=torch.int32, device=dev)
+    got = rp.rank(dest, 1, S)
+    for x, y in zip(got, ref.rank(dest, 1, S)):
+        if not torch.equal(x, y):
+            raise AssertionError(f"radix rank differs at the PS push: A={S}")
+    slot, counts = got[0], got[3]
+    for name, w in (("compressed", L // 4 + L // 256), ("raw", L)):
+        rows = torch.randint(-2 ** 31, 2 ** 31 - 1, (S, w), generator=g,
+                             device=dev, dtype=torch.int32)
+        kb = rp.scatter(rows, slot, S, counts=counts)
+        pb = ref.scatter(rows, slot, S, counts=counts)
+        if not torch.equal(kb, pb):
+            raise AssertionError(f"radix scatter differs at the {name} PS "
+                                 f"push: A={S} w={w}")
+        stats["scatter"] = max(stats["scatter"], _err(kb, pb))
+        del kb, pb
+        out[name] = {
+            "A": S, "w": w,
+            "ms": time_ms(lambda: rp.scatter(rows, slot, S, counts=counts),
+                          iters=10),
+            "plain_ms": time_ms(lambda: ref.scatter(rows, slot, S,
+                                                    counts=counts), iters=5),
+            "bound_ms": bound_ms(S * w * 4 + S * 4 + S * (w + 1) * 4),
+            "bound_by": "bytes"}
+        del rows
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_train(quick: bool, record: dict):
+    """First the rank and the scatter at the PS push's shapes
+    (check_ps_route).  Then the trainer (src/repro_torch/bench/train.py)
+    at mamba2-370m's full config (--quick: 4 layers, S=512), f32 masters
+    from seed 0, AdamW
+    (cfg.optimizer), SyntheticLM batches of TRAIN_BATCH x TRAIN_SEQ, in
+    each of TRAIN_MODES through Trainer.run: losses finite; ssd_scan
+    launched twice a layer a step (forward and the remat recompute), the
+    rank and the scatter once a push; the raw paramserver(staleness=0)
+    losses equal allreduce's within PARITY_RTOL; the compressed
+    paramserver(staleness=4) ends at epoch == steps with every push's
+    route bytes bench.train.route_bytes(S, L, 256).  Then the gradient
+    check on the trainer's first batch (kernel vs plain path within
+    GRAD_TOL in f32, a faulty plain path above it; the bf16 reading
+    reported), Fig 9 on the card (its rows equal to the CPU's), and
+    glm4-9b at full width cut to 2 layers: one build_grad_step on the
+    kernel path (flash_attention twice a layer: forward and recompute)
+    held to the plain path the same way.  Each phase line is printed
+    before a failure is raised."""
+    import torch
+    from repro_torch.bench import train as bt
+    from repro_torch.kernels import ops
+    from repro_torch.train.train_step import build_grad_step
+    dev = torch.device("cuda")
+    cfg = bt.config(TRAIN_ARCH, 4 if quick else None)
+    seq = 512 if quick else TRAIN_SEQ
+    ckpt = ROOT / "build" / "train_ckpt"
+    ssd_a_step = 2 * cfg.num_layers
+    failures, runs = [], {}
+    t0 = time.perf_counter()
+    err = {"scatter": 0}
+    emit("train_ps_route", arch=cfg.name, **check_ps_route(cfg, err),
+         max_abs_err=err, gpu=smi())
+    for mode, compress, steps in TRAIN_MODES:
+        r = bt.train(cfg, mode=mode, compress=compress, steps=steps,
+                     batch=TRAIN_BATCH, seq=seq, device=dev, ckpt_dir=ckpt)
+        torch.cuda.empty_cache()
+        runs[mode] = r
+        bad = []
+        if len(r["losses"]) != steps or not all(
+                math.isfinite(x) for x in r["losses"]):
+            bad.append(f"losses {r['losses']}")
+        ps = mode != "allreduce"
+        want = {"ssd_scan": ssd_a_step * steps}
+        if ps:
+            want.update(radix_partition_rank=steps,
+                        radix_partition_scatter=steps)
+        got = {k: v for k, v in r["launches"].items() if v}
+        if got != want:
+            bad.append(f"launches {got}, expected {want}")
+        if ps:
+            rb = bt.route_bytes(r["num_shards"], r["shard_len"], 256,
+                                compress)
+            if r["epoch"] != steps:
+                bad.append(f"epoch {r['epoch']} after {steps} pushes")
+            if r["push_route_bytes"] != [rb] * steps:
+                bad.append(f"push route bytes {r['push_route_bytes']}, "
+                           f"expected {rb} each")
+        failures += [f"train {mode}: {b}" for b in bad]
+        emit("train", arch=cfg.name, layers=cfg.num_layers, **{
+            k: v for k, v in r.items() if k not in ("fabric",)},
+            gpu=smi())
+        _count(tuple(want), r["launches"], record,
+               f"train {cfg.name} {mode}")
+    a = runs["allreduce"]["losses"]
+    b = runs["paramserver(staleness=0)"]["losses"]
+    parity = max(abs(x - y) / abs(y) for x, y in zip(a, b))
+    if not parity <= PARITY_RTOL:
+        failures.append(f"allreduce and paramserver(staleness=0) losses "
+                        f"differ by {parity} relative (> {PARITY_RTOL})")
+    del runs
+    params = bt.masters(cfg, dev)
+    batch = bt.first_batch(cfg, batch=TRAIN_BATCH, seq=seq, device=dev)
+    chk = _grad_check(cfg, params, batch, "ssd_scan")
+    del params, batch
+    torch.cuda.empty_cache()
+    if not chk["max"] <= GRAD_TOL:
+        failures.append(f"{cfg.name} f32 gradients differ from the plain "
+                        f"path's by {chk['max']} > {GRAD_TOL}")
+    if not chk["control"] > GRAD_TOL:
+        failures.append(f"the gradient check read {chk['control']} on a "
+                        f"faulty plain path, not above {GRAD_TOL}")
+    emit("train_grad_check", arch=cfg.name, layers=cfg.num_layers,
+         parity_rel=parity, parity_rtol=PARITY_RTOL, held_to=GRAD_TOL,
+         **chk, gpu=smi())
+    # Fig 9 at the reference's sizes on the card: its rows depend on the
+    # schedule and the counters, not on values, so they equal the CPU's
+    from repro_torch.bench import fig9_ml
+    ops.reset_launch_counts()
+    rows, extras = fig9_ml.run(timed=True, device=dev)
+    fig9_launches = ops.launch_counts()
+    cpu_rows, _ = fig9_ml.run(device="cpu")
+    if rows != cpu_rows:
+        failures.append("fig9 rows on the card differ from the CPU's")
+    emit("train_fig9", rows=rows, measured_s=extras["measured_s"],
+         wallclock_s=extras["wallclock_s"], launches=fig9_launches,
+         gpu=smi())
+    _count(("radix_partition_rank", "radix_partition_scatter"),
+           fig9_launches, record, "fig9")
+    arch, layers, gb, gs = GLM_GRAD
+    gcfg = bt.config(arch, layers)
+    gs = 512 if quick else gs
+    params = bt.masters(gcfg, dev)
+    batch = bt.first_batch(gcfg, batch=gb, seq=gs, device=dev)
+    step = build_grad_step(gcfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t1 = time.perf_counter()
+    g, m = step(params, batch)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t1
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    finite = all(bool(torch.isfinite(x).all()) for x in _leaves(g))
+    del g
+    torch.cuda.empty_cache()
+    gchk = _grad_check(gcfg, params, batch, "flash_attention")
+    nparams = sum(x.numel() for x in _leaves(params))
+    del params, batch
+    torch.cuda.empty_cache()
+    if launches["flash_attention"] != 2 * layers:
+        failures.append(f"glm4 grad step launched flash_attention "
+                        f"{launches['flash_attention']} times, not "
+                        f"{2 * layers}")
+    if not (finite and math.isfinite(float(m["loss"]))):
+        failures.append("glm4 grad step not finite")
+    if not gchk["max"] <= GRAD_TOL:
+        failures.append(f"glm4 f32 gradients differ from the plain path's by "
+                        f"{gchk['max']} > {GRAD_TOL}")
+    if not gchk["control"] > GRAD_TOL:
+        failures.append(f"the glm4 gradient check read {gchk['control']} "
+                        f"on a faulty plain path, not above {GRAD_TOL}")
+    emit("train_glm4_grad", arch=gcfg.name, layers=layers, batch=gb,
+         seq=gs, params=nparams, step_s=step_s, peak_bytes=peak,
+         step_loss=float(m["loss"]), launches=launches, held_to=GRAD_TOL,
+         **gchk, failures=failures, seconds=time.perf_counter() - t0,
+         gpu=smi())
+    if failures:
+        raise AssertionError("train: " + "; ".join(failures))
+    _count(("flash_attention",), launches, record, f"train {arch} grad")
+    record["ssd_scan"]["paths"] += f", train {cfg.name}"
+    record["flash_attention"]["paths"] += f", train {arch} grad"
+    for name in ("radix_partition_rank", "radix_partition_scatter"):
+        record[name]["paths"] += ", train paramserver, fig9"
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1610,7 +1878,8 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", default=",".join(PHASES))
     ap.add_argument("--quick", action="store_true",
                     help="small sweep, 2 waves, serve at 4 layers and "
-                    "S=1024 (a first look only)")
+                    "S=1024, train at 4 layers and S=512 (a first look "
+                    "only)")
     ap.add_argument("--out", default=None,
                     help="also append every phase line to this file")
     args = ap.parse_args(argv)
@@ -1674,6 +1943,8 @@ def main(argv=None) -> int:
         phase_serve(args.quick, record)
     if "shards" in phases:
         phase_shards(args.quick, record)
+    if "train" in phases:
+        phase_train(args.quick, record)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "paths")
     print(json.dumps({"kernels": [

@@ -65,6 +65,7 @@ def prompt(cfg, batch: int, seq: int, device) -> torch.Tensor:
                          device=device)
 
 
+@torch.inference_mode()
 def last_logits(cfg, params, tokens, *, impl=None) -> torch.Tensor:
     """f32 logits of the last position (the prefill step's argmax input);
     the head runs on that position alone."""

@@ -6,6 +6,16 @@ CPU tensor.  ``impl="kernel"`` on a CPU tensor raises.  ``impl="plain"``
 runs the plain version on any device; it exists for the tests and for
 ``chip_smoke.py``'s comparison, never as a fallback: a kernel that fails
 to build or launch raises.
+
+Gradients.  The plain versions are differentiable torch code.  The
+wrappers of ``flash_attention`` and ``ssd_scan`` return tensors with no
+``grad_fn``, so when autograd needs one, the kernel runs inside an
+``autograd.Function`` (:class:`FlashAttentionFn`, :class:`SSDScanFn`)
+whose backward recomputes a plain function given by the caller
+(``backward=``) on the saved inputs and returns its autograd gradient.
+The JAX package has no backward kernel either: it trains through its
+plain chunked functions, which are what the models pass here, and which
+the plain path runs under autograd in place of the plain twins.
 """
 from __future__ import annotations
 
@@ -128,18 +138,106 @@ def grouped_sum_u32_by_key(keys, vals, groups: int, *, chunks: int = 1,
                                       n=n)
 
 
-def flash_attention(q, k, v, *, causal: bool = True, impl=None):
+# the profiler's label of a backward's plain recompute
+PLAIN_BACKWARD = "ops.plain_backward"
+
+
+def _wants_grad(*ts) -> bool:
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in ts)
+
+
+def _plain_grads(ctx, fn, inputs, grads_out):
+    """The gradients of ``fn(*inputs)`` (a tensor or a tuple whose first
+    ``len(grads_out)`` entries carry gradient) for the inputs that need
+    one, recomputed under autograd on detached copies of the inputs."""
+    need = ctx.needs_input_grad[:len(inputs)]
+    xs = [None if x is None else x.detach().requires_grad_(bool(w))
+          for x, w in zip(inputs, need)]
+    with torch.profiler.record_function(PLAIN_BACKWARD), \
+            torch.enable_grad():
+        out = fn(*xs)
+        outs = (out,) if isinstance(out, torch.Tensor) else tuple(out)
+        wrt = [x for x, w in zip(xs, need) if w and x is not None]
+        got = iter(torch.autograd.grad(outs[:len(grads_out)], wrt,
+                                       grads_out, allow_unused=True)
+                   ) if wrt else iter(())
+    return [next(got) if w and x is not None else None
+            for x, w in zip(xs, need)]
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Forward: the hand-written kernel.  Backward: the autograd gradient
+    of ``plain(q, k, v, causal)``, recomputed on the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, plain):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.plain = causal, plain
+        return _fa.flash_attention(q, k, v, causal=causal)
+
+    @staticmethod
+    def backward(ctx, g):
+        causal, plain = ctx.causal, ctx.plain
+        grads = _plain_grads(ctx, lambda q, k, v: plain(q, k, v, causal),
+                             ctx.saved_tensors, (g,))
+        return (*grads, None, None)
+
+
+class SSDScanFn(torch.autograd.Function):
+    """Forward: the hand-written SSD scan, (y, final state).  Backward:
+    the autograd gradient of y of ``plain(xh, bv, cv, dt, a, state0)``
+    (which returns (y, state)), recomputed on the saved inputs.  The
+    final state carries no gradient."""
+
+    @staticmethod
+    def forward(ctx, xh, bv, cv, dt, a, state0, plain):
+        ctx.save_for_backward(xh, bv, cv, dt, a, state0)
+        ctx.plain = plain
+        y, state = _ssd.ssd_scan(xh, bv, cv, dt, a, state0)
+        ctx.mark_non_differentiable(state)
+        return y, state
+
+    @staticmethod
+    def backward(ctx, gy, _gstate):
+        grads = _plain_grads(ctx, ctx.plain, ctx.saved_tensors, (gy,))
+        return (*grads, None)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, impl=None,
+                    backward=None):
     """Blockwise GQA attention (the Pallas ``flash_attention``'s
     function): q (B, S, H, D), k/v (B, T, KH, D) -> (B, S, H, D) in q's
-    dtype, head h reading kv head h // (H // KH)."""
+    dtype, head h reading kv head h // (H // KH).  ``backward(q, k, v,
+    causal)``: the plain function the model trains through.  Under
+    autograd the kernel's output takes its gradient (a kernel call that
+    autograd must differentiate raises without it), and the plain path
+    runs it in place of the plain twin, so both paths differentiate the
+    same function."""
     if resolve_impl(q, impl) == "kernel":
+        if _wants_grad(q, k, v):
+            if backward is None:
+                raise ValueError("flash_attention needs backward= to be "
+                                 "differentiated on the kernel path")
+            return FlashAttentionFn.apply(q, k, v, causal, backward)
         return _fa.flash_attention(q, k, v, causal=causal)
+    if backward is not None and _wants_grad(q, k, v):
+        return backward(q, k, v, causal)
     return ref.flash_attention(q, k, v, causal=causal)
 
 
-def ssd_scan(xh, bv, cv, dt, a, state0=None, *, impl=None):
+def ssd_scan(xh, bv, cv, dt, a, state0=None, *, impl=None, backward=None):
     """The Mamba2 SSD scan: (y (B, S, H, hd) in xh's dtype, final state
-    (B, H, hd, N) f32), from ``state0`` (zeros if None)."""
+    (B, H, hd, N) f32), from ``state0`` (zeros if None).
+    ``backward(xh, bv, cv, dt, a, state0) -> (y, state)``: the plain
+    function the model trains through, as in :func:`flash_attention`."""
     if resolve_impl(xh, impl) == "kernel":
+        if _wants_grad(xh, bv, cv, dt, a, state0):
+            if backward is None:
+                raise ValueError("ssd_scan needs backward= to be "
+                                 "differentiated on the kernel path")
+            return SSDScanFn.apply(xh, bv, cv, dt, a, state0, backward)
         return _ssd.ssd_scan(xh, bv, cv, dt, a, state0)
+    if backward is not None and _wants_grad(xh, bv, cv, dt, a, state0):
+        return backward(xh, bv, cv, dt, a, state0)
     return ref.ssd_scan(xh, bv, cv, dt, a, state0)

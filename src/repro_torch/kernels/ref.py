@@ -260,7 +260,10 @@ def ssd_scan(xh, bv, cv, dt, a, state0=None):
                    * torch.exp(seg)[..., None])
         # intra-chunk: (C_i . B_j) exp(seg_i - seg_j) dt_j x_j, j <= i
         cb = torch.einsum("bin,bjn->bij", cc, bc)
-        decay = torch.exp(seg[:, :, None, :] - seg[:, None, :, :])
+        # masked before exp, so no overflow above the diagonal reaches a
+        # gradient (0 * inf); the unmasked values are unchanged
+        decay = torch.exp(torch.where(mask, seg[:, :, None, :]
+                                      - seg[:, None, :, :], -torch.inf))
         m = torch.where(mask, decay * dc[:, None, :, :], 0.0)  # (B,i,j,H)
         y_intra = torch.einsum("bijh,bjhp->bihp", cb[..., None] * m, xc)
         # state update

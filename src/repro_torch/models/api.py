@@ -28,6 +28,10 @@ def forward(cfg, params, tokens, **kw):
     return _mod(cfg).forward(cfg, params, tokens, **kw)
 
 
+def loss_fn(cfg, params, batch, **kw):
+    return _mod(cfg).loss_fn(cfg, params, batch, **kw)
+
+
 def init_decode_state(cfg, params, batch, seq, **kw):
     return _mod(cfg).init_decode_state(cfg, params, batch, seq, **kw)
 

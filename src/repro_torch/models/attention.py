@@ -1,11 +1,14 @@
 """Grouped-query attention, full sequence and decode (the GQA half of
 ``repro.models.attention``).
 
-Full-sequence causal attention (every prefill) runs the hand-written
-flash kernel through :func:`repro_torch.kernels.ops.flash_attention`: the
-JAX model names that swap in its docstring but runs a chunked stand-in.
-Every other case (decode against a cache with ``kv_len``, explicit
-positions, T != S) keeps the chunked plain path.  MLA and
+Full-sequence causal attention (every prefill and every training
+forward) runs the hand-written flash kernel through
+:func:`repro_torch.kernels.ops.flash_attention`: the JAX model names that
+swap in its docstring but runs a chunked stand-in, and trains through it.
+So the kernel's gradient is the chunked path's (:func:`chunked_attend`),
+recomputed in the backward.  Every other case (decode against a cache
+with ``kv_len``, explicit positions, T != S) keeps the chunked plain
+path.  MLA and
 cross-attention are not ported yet (ROADMAP queue 1 item 6).
 """
 from __future__ import annotations
@@ -42,15 +45,36 @@ def grouped_attend(q, k, v, *, causal: bool, q_pos=None, kv_len=None,
     The causal full-sequence case (no kv_len, default positions, T == S)
     goes to the flash kernel, with heads flattened so that head k*G + g
     reads kv head k; the kernel's wrapper raises on a shape it does not
-    take.  Otherwise scores are
-    taken in f32 over query chunks, masked at -1e30, softmaxed, and p is
-    cast to v's dtype before P.V, as in the JAX chunked path."""
+    take.  Its gradient is that of :func:`chunked_attend`, the function
+    the JAX package trains through.  Every other case runs
+    :func:`chunked_attend`."""
     B, S, K, G, hd = q.shape
     T = k.shape[1]
     if causal and kv_len is None and q_pos is None and T == S:
         out = ops.flash_attention(q.reshape(B, S, K * G, hd), k, v,
-                                  causal=True, impl=impl)
+                                  causal=True, impl=impl,
+                                  backward=_flat_chunked_attend)
         return out.reshape(B, S, K, G, hd)
+    return chunked_attend(q, k, v, causal=causal, q_pos=q_pos,
+                          kv_len=kv_len, chunk=chunk)
+
+
+def _flat_chunked_attend(q, k, v, causal):
+    """:func:`chunked_attend` on the kernel's layout: q (B, S, H, hd)."""
+    B, S, H, hd = q.shape
+    K = k.shape[2]
+    out = chunked_attend(q.reshape(B, S, K, H // K, hd), k, v,
+                         causal=causal)
+    return out.reshape(B, S, H, hd)
+
+
+def chunked_attend(q, k, v, *, causal: bool, q_pos=None, kv_len=None,
+                   chunk: int = 512):
+    """The JAX package's chunked attention: scores are taken in f32 over
+    query chunks, masked at -1e30, softmaxed, and p is cast to v's dtype
+    before P.V.  Shapes as :func:`grouped_attend`'s."""
+    B, S, K, G, hd = q.shape
+    T = k.shape[1]
     scale = hd ** -0.5
     kv_pos = torch.arange(T, dtype=torch.int32, device=q.device)
     if q_pos is None:

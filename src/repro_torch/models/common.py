@@ -87,3 +87,14 @@ def apply_mlp(cfg, p, x):
     else:
         h = F.gelu(h, approximate="tanh")
     return torch.einsum("bsf,fd->bsd", h, p["wo"].to(x.dtype))
+
+
+def cross_entropy(logits, labels):
+    """Mean token CE in f32; logits (B,S,V), labels int (B,S); labels
+    below 0 are ignored."""
+    logits = logits.to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = logits.gather(-1, labels.clamp(min=0)[..., None].long())[..., 0]
+    mask = (labels >= 0).to(torch.float32)
+    loss = (lse - ll) * mask
+    return loss.sum() / torch.clamp_min(mask.sum(), 1.0)

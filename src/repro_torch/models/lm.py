@@ -5,8 +5,11 @@ Parameters keep the JAX tree: ``embed``, ``final_norm``, ``lm_head``
 (untied only) and ``groups``, whose leaves are stacked over the G layer
 groups.  The body loops over groups where JAX scans them.  Activations
 are ``ACT_DTYPE`` (bf16), read at call time so a test can set f32.
-Everything here runs under ``torch.inference_mode()``; training (the
-loss, the chunked cross-entropy) comes with the training slice.
+``loss_fn`` is the training loss (the mean token cross-entropy, or its
+sequence-chunked form when ``CE_CHUNK`` is set); with autograd on, each
+group of the body is recomputed in the backward (``remat``, JAX's
+``jax.checkpoint`` of its scan body).  The decode functions run under
+``torch.inference_mode()``.
 
 The decode state is updated in place: ``decode_step`` writes the new
 KV entries and SSM states into the state's tensors and returns them with
@@ -15,10 +18,11 @@ KV entries and SSM states into the state's tensors and returns them with
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch._bits import resolve_device
 from repro_torch.models import blocks as B
-from repro_torch.models.common import Mk, rmsnorm
+from repro_torch.models.common import Mk, cross_entropy, rmsnorm
 
 ACT_DTYPE = torch.bfloat16
 
@@ -89,23 +93,78 @@ def num_groups(params) -> int:
     return leaf.shape[0]
 
 
-@torch.inference_mode()
-def forward_hidden(cfg, params, tokens, *, impl=None):
+def group_views(groups, G: int) -> list:
+    """The G per-group trees of a stacked tree, as views (``unbind``: one
+    backward node a leaf stacks every group's gradient at once, where G
+    indexings would each write a full-size gradient)."""
+    if isinstance(groups, dict):
+        per = {k: group_views(v, G) for k, v in groups.items()}
+        return [{k: per[k][g] for k in groups} for g in range(G)]
+    return list(groups.unbind(0))
+
+
+# stream the cross-entropy over sequence chunks so the full (B, S, V) f32
+# logits never materialize (the JAX package's memory lever; off there too)
+CE_CHUNK = 0
+
+
+def forward_hidden(cfg, params, tokens, *, impl=None, remat=True):
     """tokens: (B, S) int -> final hidden (B, S, D), before the head.
-    ``impl`` picks the kernels' dispatch (None: the kernels on the card)."""
+    ``impl`` picks the kernels' dispatch (None: the kernels on the card).
+    ``remat``: with autograd on, each group's activations are recomputed
+    in the backward instead of kept (JAX's default too)."""
     x = _embed(params, tokens)
-    for g in range(num_groups(params)):
-        x = B.apply_group(cfg, tree_index(params["groups"], g), x,
-                          impl=impl)
+    ckpt = remat and torch.is_grad_enabled()
+    for gp in group_views(params["groups"], num_groups(params)):
+        if ckpt:
+            x = checkpoint(B.apply_group, cfg, gp, x, impl=impl,
+                           use_reentrant=False)
+        else:
+            x = B.apply_group(cfg, gp, x, impl=impl)
     return x
 
 
-@torch.inference_mode()
-def forward(cfg, params, tokens, *, impl=None):
+def forward(cfg, params, tokens, *, impl=None, remat=True):
     """tokens: (B, S) int -> (logits (B, S, V), aux).  aux is the MoE
     router loss in JAX; with no MoE ported it is 0.0."""
     return _head(cfg, params, forward_hidden(cfg, params, tokens,
-                                             impl=impl)), 0.0
+                                             impl=impl, remat=remat)), 0.0
+
+
+def _chunked_ce(cfg, params, x, labels, chunk: int):
+    """CE streamed over sequence chunks: per-chunk logits in f32,
+    recomputed in the backward, so O(B*chunk*V) is live instead of
+    O(B*S*V)."""
+    S = x.shape[1]
+    n = max(S // chunk, 1)
+    c = S // n
+
+    def body(xc, yc):
+        logits = _head(cfg, params, xc).to(torch.float32)
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = logits.gather(-1, yc.clamp(min=0)[..., None].long())[..., 0]
+        mask = (yc >= 0).to(torch.float32)
+        return ((lse - ll) * mask).sum(), mask.sum()
+
+    remat = torch.is_grad_enabled()
+    tot = cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(n):
+        xc, yc = x[:, i * c:(i + 1) * c], labels[:, i * c:(i + 1) * c]
+        t, m = (checkpoint(body, xc, yc, use_reentrant=False) if remat
+                else body(xc, yc))
+        tot, cnt = tot + t, cnt + m
+    return tot / torch.clamp_min(cnt, 1.0)
+
+
+def loss_fn(cfg, params, batch, *, impl=None):
+    """Mean token cross-entropy of ``batch["tokens"]`` against
+    ``batch["labels"]`` (labels < 0 ignored).  JAX adds the MoE router
+    loss times its coefficient; with no MoE ported that term is 0."""
+    if CE_CHUNK:
+        x = forward_hidden(cfg, params, batch["tokens"], impl=impl)
+        return _chunked_ce(cfg, params, x, batch["labels"], CE_CHUNK)
+    logits, _ = forward(cfg, params, batch["tokens"], impl=impl)
+    return cross_entropy(logits, batch["labels"])
 
 
 # --------------------------------------------------------------- decode ---

@@ -1,11 +1,16 @@
 """Mamba2 (SSD, state-space duality) block (a port of ``repro.models.ssm``).
 
-The full-sequence path (every prefill) runs the hand-written SSD scan
-through :func:`repro_torch.kernels.ops.ssd_scan`, which returns y and the
-final state: the JAX model names that kernel as the "Pallas twin" of its
-chunked scan but never calls it.  Decode is the one-token recurrence.
+The full-sequence path (every prefill and every training forward) runs
+the hand-written SSD scan through :func:`repro_torch.kernels.ops.ssd_scan`,
+which returns y and the final state: the JAX model names that kernel as
+the "Pallas twin" of its chunked scan but never calls it.  The JAX model
+trains through its chunked scan, so the kernel's gradient is that of
+:func:`ssd_chunked_plain`, the port of that scan, recomputed in the
+backward.  Decode is the one-token recurrence.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -81,13 +86,75 @@ def _proj_conv(cfg, p, x, conv_cache=None):
     return z, xh, Bv, Cv, dt, new_cache
 
 
-def ssd_chunked(xh, Bv, Cv, dt, A, state0=None, *, impl=None):
+def ssd_chunked(xh, Bv, Cv, dt, A, state0=None, *, impl=None,
+                chunk: int = 256):
     """SSD over the whole sequence.  xh: (B,S,H,hd); Bv/Cv: (B,S,N); dt:
     (B,S,H) f32; A: (H,) f32 negative.  Returns (y in xh's dtype,
-    final_state (B,H,hd,N) f32).  The JAX function of this name scans
-    chunks of ``chunk`` steps; the kernel here runs the recurrence, so the
-    chunk length is no argument."""
-    return ops.ssd_scan(xh, Bv, Cv, dt, A, state0, impl=impl)
+    final_state (B,H,hd,N) f32).  The kernel picks its own chunk length;
+    ``chunk`` is that of :func:`ssd_chunked_plain`, whose gradient y
+    takes on the kernel path."""
+    return ops.ssd_scan(xh, Bv, Cv, dt, A, state0, impl=impl,
+                        backward=functools.partial(_plain_scan, chunk=chunk))
+
+
+def _plain_scan(xh, Bv, Cv, dt, A, state0, *, chunk):
+    return ssd_chunked_plain(xh, Bv, Cv, dt, A, chunk, state0)
+
+
+def ssd_chunked_plain(xh, Bv, Cv, dt, A, chunk: int, state0=None):
+    """The JAX package's chunked SSD (``repro.models.ssm.ssd_chunked``) in
+    plain torch, differentiable.  xh: (B,S,H,hd); Bv/Cv: (B,S,N); dt:
+    (B,S,H) f32; A: (H,) f32 negative; S a multiple of ``chunk``.  Returns
+    (y in xh's dtype, final_state (B,H,hd,N) f32).  Its values are JAX's;
+    its gradient stays finite where the masked half of a chunk's decay
+    overflows, which makes JAX's NaN.  Unlike JAX's scan body, a chunk
+    is not checkpointed: both callers already recompute the whole scan in
+    the backward (the kernel's ``SSDScanFn``, and the layer group's remat
+    on the plain path), and a second recompute a chunk nearly doubled a
+    mamba2-370m training step on the card (``PERF.md`` §6)."""
+    Bsz, S, H, hd = xh.shape
+    N = Bv.shape[-1]
+    if S % chunk:
+        raise ValueError(f"sequence {S} is not a multiple of chunk {chunk}")
+    C_n = S // chunk
+    f32 = torch.float32
+    xc = xh.reshape(Bsz, C_n, chunk, H, hd)
+    bc = Bv.reshape(Bsz, C_n, chunk, N)
+    cc = Cv.reshape(Bsz, C_n, chunk, N)
+    dc = dt.reshape(Bsz, C_n, chunk, H)
+    state = (torch.zeros((Bsz, H, hd, N), dtype=f32, device=xh.device)
+             if state0 is None else state0)
+    mask = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                 device=xh.device))[None, :, :, None]
+
+    def body(state, x_c, b_c, c_c, dt_c):
+        dA = dt_c * A                              # (B,L,H) negative
+        seg = torch.cumsum(dA, dim=1)
+        # inter-chunk: y_i += C_i . state * exp(seg_i)
+        y_inter = torch.einsum("bln,bhdn,blh->blhd", c_c.to(f32), state,
+                               torch.exp(seg))
+        # intra-chunk: scores_ij = (C_i.B_j) exp(seg_i - seg_j) dt_j, j<=i
+        cb = torch.einsum("bin,bjn->bij", c_c.to(f32), b_c.to(f32))
+        # exp of -inf above the diagonal, not of seg_i - seg_j > 0: JAX
+        # takes exp of both and masks after, and over a 256-step chunk the
+        # masked exponent passes 88, so exp overflows and its gradient is
+        # 0 * inf = NaN; the unmasked values are the same
+        decay = torch.exp(torch.where(mask, seg[:, :, None, :]
+                                      - seg[:, None, :, :], -torch.inf))
+        m = torch.where(mask, decay * dt_c[:, None], 0.0)   # (B,i,j,H)
+        y_intra = torch.einsum("bij,bijh,bjhd->bihd", cb, m, x_c.to(f32))
+        # state update
+        w = torch.exp(seg[:, -1:, :] - seg) * dt_c          # (B,L,H)
+        s_new = (state * torch.exp(seg[:, -1])[:, :, None, None]
+                 + torch.einsum("blh,blhd,bln->bhdn", w, x_c.to(f32),
+                                b_c.to(f32)))
+        return s_new, (y_inter + y_intra).to(xh.dtype)
+
+    ys = []
+    for ci in range(C_n):
+        state, y = body(state, xc[:, ci], bc[:, ci], cc[:, ci], dc[:, ci])
+        ys.append(y)
+    return torch.stack(ys, dim=1).reshape(Bsz, S, H, hd), state
 
 
 def apply_ssm(cfg, p, x, *, impl=None):
@@ -95,7 +162,8 @@ def apply_ssm(cfg, p, x, *, impl=None):
     d_in, _, _ = dims(cfg)
     z, xh, Bv, Cv, dt, _ = _proj_conv(cfg, p, x)
     A = -torch.exp(p["A_log"].to(torch.float32))
-    y, _ = ssd_chunked(xh, Bv, Cv, dt, A, impl=impl)
+    y, _ = ssd_chunked(xh, Bv, Cv, dt, A, impl=impl,
+                       chunk=min(cfg.ssm.chunk, xh.shape[1]))
     y = y + p["D"].to(y.dtype)[None, None, :, None] * xh
     y = y.reshape(*y.shape[:2], d_in)
     y = rmsnorm(y * F.silu(z), p["gnorm"], cfg.norm_eps)

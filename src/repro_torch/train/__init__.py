@@ -1,2 +1,2 @@
-"""Step functions of the port.  The serving steps are here; the training
-steps come with the training slice."""
+"""Step functions (``train_step``), optimizers, gradient compression and
+the trainer of the port."""

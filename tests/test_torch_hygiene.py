@@ -4,8 +4,9 @@
     ``jax`` or anything of the JAX package ``repro``;
   * with no card present, every entry point that was not given
     ``device=`` (the database, the transport, the store, the model's
-    parameters, the serving engine and its launcher) raises instead of
-    running on the CPU;
+    parameters, the serving engine and its launcher, the parameter
+    server, the trainer and its launcher) raises instead of running on
+    the CPU;
   * a kernel wrapper given a CPU tensor raises before it builds anything;
   * every device-kernel name a wrapper lists (``KERNELS``, which the
     profiling code reads) is a ``__global__`` function of the sources.
@@ -19,14 +20,17 @@ import torch
 
 from repro_torch import fabric
 from repro_torch._bits import resolve_device
+from repro_torch.analytics import ParameterServer
 from repro_torch.core import rsi
 from repro_torch.configs import get_config, reduce_config
 from repro_torch.db import Database
 from repro_torch.kernels import (cas_lock, flash_attention, grouped_agg, ops,
                                  radix_partition, ssd_scan)
 from repro_torch.launch import serve as launch_serve
+from repro_torch.launch import train as launch_train
 from repro_torch.models import api
 from repro_torch.serving import ServeEngine
+from repro_torch.train.trainer import Trainer, TrainerConfig
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
@@ -51,8 +55,15 @@ def test_port_imports_neither_jax_nor_repro(path):
 
 
 def test_port_files_found():
-    names = {p.name for p in PORT_FILES}
-    assert {"chip_smoke.py", "rsi.py", "router.py", "ops.py"} <= names
+    names = {str(p.relative_to(ROOT / "src" / "repro_torch"))
+             for p in PORT_FILES if p.name != "chip_smoke.py"}
+    assert {"core/rsi.py", "fabric/router.py", "kernels/ops.py",
+            "core/workqueue.py", "train/grad_compress.py",
+            "analytics/paramserver.py", "analytics/__init__.py",
+            "bench/fig9_ml.py", "train/optimizer.py", "train/trainer.py",
+            "data/pipeline.py", "checkpoint/manager.py", "launch/train.py",
+            "bench/train.py", "tree.py"} <= names
+    assert ROOT / "chip_smoke.py" in PORT_FILES
     assert len(list((ROOT / "src" / "repro_torch" / "kernels" / "csrc")
                     .glob("*.cu"))) == 5
 
@@ -81,6 +92,12 @@ def test_entry_points_raise_without_a_card(no_card):
         ServeEngine(cfg, params)
     with pytest.raises(RuntimeError, match="CUDA"):
         launch_serve.main(["--arch", "glm4-9b", "--smoke"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ParameterServer({"w": torch.zeros(4)})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Trainer(cfg, TrainerConfig(steps=1))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        launch_train.main(["--arch", "glm4-9b", "--smoke", "--steps", "1"])
     assert Database(device="cpu").device == torch.device("cpu")
     assert ServeEngine(cfg, params, device="cpu").device == \
         torch.device("cpu")
