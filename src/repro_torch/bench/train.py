@@ -215,7 +215,9 @@ def train(cfg, *, mode: str, steps: int, batch: int, seq: int, device,
         log = tr.run()
     launches = ops.launch_counts()
     secs = time.perf_counter() - t0
-    out = {"mode": mode, "compress": compress, "steps": steps,
+    out = {"device": (torch.cuda.get_device_name(dev)
+                      if dev.type == "cuda" else "cpu"),
+           "mode": mode, "compress": compress, "steps": steps,
            "batch": batch, "seq": seq, "losses": [l for _, l in log],
            "step_s": tr.step_times, "run_s": secs, "launches": launches}
     later = tr.step_times[1:] or tr.step_times
