@@ -89,13 +89,16 @@ exits non-zero:
            losses equal to allreduce's within PARITY_RTOL) and compressed
            paramserver(staleness=4) (8 steps, epoch 8, every push routing
            bench.train.route_bytes); seconds a step, tokens/s, pull and
-           push ms, peak memory and one profiled step split by where its
-           device time goes; then the gradients of the first batch on the
-           kernel path against the plain path, leaf by leaf, in f32
-           within GRAD_TOL (a faulty plain path above it; the bf16
-           reading reported), for mamba2-370m and for glm4-9b at full
-           width cut to 2 layers (B 1, S 4096: one build_grad_step, which
-           must launch flash_attention twice a layer); and Fig 9
+           push ms, peak memory and one more step, profiled, split by
+           where its device time goes; then, on the first batch, every
+           layer's bf16 kernel against its plain version at the training
+           shapes within ROW_TOL, and the gradients on the kernel path
+           against the plain path, leaf by leaf, in f32 within GRAD_TOL
+           (a faulty plain path above both limits) and in bf16 within
+           each leaf's spread of bf16 rounding, for mamba2-370m and
+           for glm4-9b at full width cut to 2 layers (B 1, S 4096: one
+           build_grad_step, which must launch flash_attention twice a
+           layer); and Fig 9
            (bench/fig9_ml.py) at the reference's sizes, its rows equal to
            a CPU run's, with one PS round timed
 
@@ -1630,44 +1633,109 @@ def phase_serve(quick: bool, record: dict):
         del pre, eng, plain
 
 
+def _layer_check(cfg, params, tokens, kernel: str) -> dict:
+    """bench.serve.layer_check at a training forward's shapes and dtypes
+    (f32 masters, bf16 activations: the kernels' bf16 entries, which every
+    training step launches): each layer's kernel against its plain version
+    on that layer's own inputs, every position; and the same reading of
+    the first layer with a faulty plain path (``faulty_plain``)."""
+    import torch
+    from repro_torch.bench import serve
+    with torch.no_grad():
+        out = serve.layer_check(cfg, params, tokens)
+        with faulty_plain(kernel):
+            out["control"] = serve.layer_check(cfg, params, tokens,
+                                               groups=1)["max"]
+    return out
+
+
 def _grad_check(cfg, params, batch, kernel: str) -> dict:
-    """Gradients of ``batch`` on the kernel path against the plain path
-    (the functions the model trains through), leaf by leaf
-    (``bench.train.leaf_check``), held in f32 (both paths' activations f32:
-    the kernels' f32 entries), where a faulty plain path (``faulty_plain``)
-    must read above GRAD_TOL; and the same reading with bf16 activations,
-    reported (there rounding the depth amplifies is as large as the
-    control's fault).  The kernel path's launches here are a
-    comparison's and count on no path."""
+    """Unclipped gradients of ``batch`` on the kernel path against the
+    plain path (the functions the model trains through), leaf by leaf
+    (``bench.train.leaf_check``: rms(diff) / rms(plain)).  The kernel
+    path's launches here are a comparison's and count on no path.
+
+    * ``f32``: both paths with f32 activations (the kernels' f32 entries):
+      the autograd Functions' plumbing, held within GRAD_TOL; a faulty
+      plain path (``faulty_plain``) must read above it.
+    * ``bf16``: bf16 activations, as training runs.  Each leaf's kernel
+      path reading must lie within that leaf's ``rounding``: the plain
+      path's bf16 gradient against its f32 gradient, the spread bf16
+      rounding alone gives the plain path.  A fault smaller than that
+      spread cannot show here (the faulty plain path's readings are
+      reported, ``control_per_leaf``); the layer check holds the bf16
+      kernels themselves."""
     import torch
     from repro_torch.bench import train as bt
     from repro_torch.models import lm
     from repro_torch.train.train_step import build_grad_step
+    inf = float("inf")
+    names = bt.leaf_names(params)
 
-    def both():
-        gk, mk = build_grad_step(cfg)(params, batch)
-        gp, mp = build_grad_step(cfg, impl="plain")(params, batch)
-        chk = bt.leaf_check(gk, gp)
-        chk.pop("per_leaf")
-        chk["loss"] = [float(mk["loss"]), float(mp["loss"])]
-        chk["grad_norm"] = [float(mk["grad_norm"]), float(mp["grad_norm"])]
-        return gk, chk
+    def grads(**kw):
+        g, m = build_grad_step(cfg, max_grad_norm=inf, **kw)(params, batch)
+        return g, float(m["loss"]), float(m["grad_norm"])
 
     saved = lm.ACT_DTYPE
     lm.ACT_DTYPE = torch.float32
     try:
-        gk, out = both()
-        torch.cuda.empty_cache()
+        gk, lk, nk = grads()
+        gp32, lp, np_ = grads(impl="plain")
+        chk = bt.leaf_check(gk, gp32)
+        f32 = {"max": chk["max"], "worst_leaf": names[chk["worst_leaf"]],
+               "loss": [lk, lp], "grad_norm": [nk, np_]}
         with faulty_plain(kernel):
-            gf, _ = build_grad_step(cfg, impl="plain")(params, batch)
-        out["control"] = bt.leaf_check(gk, gf)["max"]
+            gf, _, _ = grads(impl="plain")
+        f32["control"] = bt.leaf_check(gk, gf)["max"]
         del gk, gf
+        torch.cuda.empty_cache()
     finally:
         lm.ACT_DTYPE = saved
+    gk, lk, nk = grads()
+    gp, lp, np_ = grads(impl="plain")
+    per = bt.leaf_check(gk, gp)["per_leaf"]
+    rounding = bt.leaf_check(gp, gp32)["per_leaf"]
+    del gk, gp32
     torch.cuda.empty_cache()
-    out["bf16"] = both()[1]
+    with faulty_plain(kernel):
+        gf, _, _ = grads(impl="plain")
+    ctl = bt.leaf_check(gf, gp)["per_leaf"]
+    del gf, gp
     torch.cuda.empty_cache()
-    return out
+    ratio = [p / r if r > 0 else math.inf for p, r in zip(per, rounding)]
+    worst = ratio.index(max(ratio))
+    bf16 = {"leaves": names, "per_leaf": per, "rounding": rounding,
+            "control_per_leaf": ctl, "max_ratio": ratio[worst],
+            "worst_leaf": names[worst], "loss": [lk, lp],
+            "grad_norm": [nk, np_], "f32_grad_norm": f32["grad_norm"][1]}
+    return {"f32": f32, "bf16": bf16}
+
+
+def _hold_train_checks(name: str, layers: dict, chk: dict, nlayers: int,
+                       failures: list):
+    """The failures of a model's layer check and gradient check."""
+    if len(layers["per_layer"]) != nlayers:
+        failures.append(f"{name} layer check read "
+                        f"{len(layers['per_layer'])} kernel calls")
+    if not layers["max"] <= ROW_TOL:
+        failures.append(f"{name} layer {layers['worst_layer']}'s kernel "
+                        f"differs from the plain path at training shapes "
+                        f"by {layers['max']} > {ROW_TOL}")
+    if not layers["control"] > ROW_TOL:
+        failures.append(f"{name} layer check read {layers['control']} on a "
+                        f"faulty plain path, not above {ROW_TOL}")
+    f32, bf16 = chk["f32"], chk["bf16"]
+    if not f32["max"] <= GRAD_TOL:
+        failures.append(f"{name} f32 gradients differ from the plain "
+                        f"path's by {f32['max']} > {GRAD_TOL}")
+    if not f32["control"] > GRAD_TOL:
+        failures.append(f"{name} f32 gradient check read {f32['control']} "
+                        f"on a faulty plain path, not above {GRAD_TOL}")
+    if not bf16["max_ratio"] <= 1:
+        failures.append(f"{name} bf16 gradient of {bf16['worst_leaf']} "
+                        f"differs from the plain path's by "
+                        f"{bf16['max_ratio']} times the spread of bf16 "
+                        f"rounding")
 
 
 def check_ps_route(cfg, stats: dict) -> dict:
@@ -1677,15 +1745,13 @@ def check_ps_route(cfg, stats: dict) -> dict:
     plain version and the bytes bound (rows read once, the buffer written
     once).  No earlier path routes rows this wide."""
     import torch
-    from repro_torch.analytics import DEFAULT_SHARDS
+    from repro_torch.analytics import row_layout
     from repro_torch.kernels import radix_partition as rp, ref
     from repro_torch.models import api
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(17)
-    n_values = sum(math.prod(s) for s in _leaves(api.param_shapes(cfg)))
-    S = DEFAULT_SHARDS
-    L = -(-n_values // S)
-    L += (-L) % 256
+    S, L = row_layout(sum(math.prod(s) for s in
+                          _leaves(api.param_shapes(cfg))))
     out = {}
     dest = torch.zeros((S,), dtype=torch.int32, device=dev)
     got = rp.rank(dest, 1, S)
@@ -1727,14 +1793,16 @@ def phase_train(quick: bool, record: dict):
     rank and the scatter once a push; the raw paramserver(staleness=0)
     losses equal allreduce's within PARITY_RTOL; the compressed
     paramserver(staleness=4) ends at epoch == steps with every push's
-    route bytes bench.train.route_bytes(S, L, 256).  Then the gradient
-    check on the trainer's first batch (kernel vs plain path within
-    GRAD_TOL in f32, a faulty plain path above it; the bf16 reading
-    reported), Fig 9 on the card (its rows equal to the CPU's), and
-    glm4-9b at full width cut to 2 layers: one build_grad_step on the
-    kernel path (flash_attention twice a layer: forward and recompute)
-    held to the plain path the same way.  Each phase line is printed
-    before a failure is raised."""
+    route bytes bench.train.route_bytes(S, L, 256).  Then, on the
+    trainer's first batch, the layer check (every layer's bf16 kernel
+    against its plain version at the training shapes within ROW_TOL, a
+    faulty plain path above it) and the gradient check (kernel vs plain
+    path in f32 within GRAD_TOL, a faulty plain path above it; in bf16
+    within the spread of bf16 rounding, leaf by leaf), Fig 9 on the card
+    (its rows equal to the CPU's), and glm4-9b at full width cut to 2
+    layers: one build_grad_step on the kernel path (flash_attention twice
+    a layer: forward and recompute) and the same two checks.  Each phase
+    line is printed before a failure is raised."""
     import torch
     from repro_torch.bench import train as bt
     from repro_torch.kernels import ops
@@ -1789,18 +1857,16 @@ def phase_train(quick: bool, record: dict):
     del runs
     params = bt.masters(cfg, dev)
     batch = bt.first_batch(cfg, batch=TRAIN_BATCH, seq=seq, device=dev)
+    layers = _layer_check(cfg, params, batch["tokens"], "ssd_scan")
+    torch.cuda.empty_cache()
     chk = _grad_check(cfg, params, batch, "ssd_scan")
     del params, batch
     torch.cuda.empty_cache()
-    if not chk["max"] <= GRAD_TOL:
-        failures.append(f"{cfg.name} f32 gradients differ from the plain "
-                        f"path's by {chk['max']} > {GRAD_TOL}")
-    if not chk["control"] > GRAD_TOL:
-        failures.append(f"the gradient check read {chk['control']} on a "
-                        f"faulty plain path, not above {GRAD_TOL}")
+    _hold_train_checks(cfg.name, layers, chk, cfg.num_layers, failures)
     emit("train_grad_check", arch=cfg.name, layers=cfg.num_layers,
-         parity_rel=parity, parity_rtol=PARITY_RTOL, held_to=GRAD_TOL,
-         **chk, gpu=smi())
+         batch=TRAIN_BATCH, seq=seq, parity_rel=parity,
+         parity_rtol=PARITY_RTOL, layer_check=layers,
+         layer_check_held_to=ROW_TOL, held_to=GRAD_TOL, **chk, gpu=smi())
     # Fig 9 at the reference's sizes on the card: its rows depend on the
     # schedule and the counters, not on values, so they equal the CPU's
     from repro_torch.bench import fig9_ml
@@ -1833,6 +1899,8 @@ def phase_train(quick: bool, record: dict):
     finite = all(bool(torch.isfinite(x).all()) for x in _leaves(g))
     del g
     torch.cuda.empty_cache()
+    glayers = _layer_check(gcfg, params, batch["tokens"], "flash_attention")
+    torch.cuda.empty_cache()
     gchk = _grad_check(gcfg, params, batch, "flash_attention")
     nparams = sum(x.numel() for x in _leaves(params))
     del params, batch
@@ -1843,17 +1911,13 @@ def phase_train(quick: bool, record: dict):
                         f"{2 * layers}")
     if not (finite and math.isfinite(float(m["loss"]))):
         failures.append("glm4 grad step not finite")
-    if not gchk["max"] <= GRAD_TOL:
-        failures.append(f"glm4 f32 gradients differ from the plain path's by "
-                        f"{gchk['max']} > {GRAD_TOL}")
-    if not gchk["control"] > GRAD_TOL:
-        failures.append(f"the glm4 gradient check read {gchk['control']} "
-                        f"on a faulty plain path, not above {GRAD_TOL}")
+    _hold_train_checks(gcfg.name, glayers, gchk, layers, failures)
     emit("train_glm4_grad", arch=gcfg.name, layers=layers, batch=gb,
          seq=gs, params=nparams, step_s=step_s, peak_bytes=peak,
-         step_loss=float(m["loss"]), launches=launches, held_to=GRAD_TOL,
-         **gchk, failures=failures, seconds=time.perf_counter() - t0,
-         gpu=smi())
+         step_loss=float(m["loss"]), launches=launches,
+         layer_check=glayers, layer_check_held_to=ROW_TOL,
+         held_to=GRAD_TOL, **gchk,
+         failures=failures, seconds=time.perf_counter() - t0, gpu=smi())
     if failures:
         raise AssertionError("train: " + "; ".join(failures))
     _count(("flash_attention",), launches, record, f"train {arch} grad")

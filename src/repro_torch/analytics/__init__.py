@@ -8,6 +8,7 @@ under a bounded-staleness epoch gate and updated by compressed gradient
 pushes through the fabric router.
 """
 from repro_torch.analytics.paramserver import (DEFAULT_SHARDS,
-                                               ParameterServer, sgd_apply)
+                                               ParameterServer, row_layout,
+                                               sgd_apply)
 
-__all__ = ["ParameterServer", "sgd_apply", "DEFAULT_SHARDS"]
+__all__ = ["ParameterServer", "sgd_apply", "row_layout", "DEFAULT_SHARDS"]

@@ -47,6 +47,23 @@ from repro_torch.tree import ravel, tree_map
 DEFAULT_SHARDS = 4
 
 
+def row_layout(n_values: int, *, n: int = 1, num_shards=None,
+               block: int = 256) -> tuple:
+    """(S, L) of the ``ps/params`` rows for ``n_values`` parameters on a
+    transport of ``n`` shards: S rows (``num_shards``, by default
+    DEFAULT_SHARDS rounded up to a multiple of n, so every fabric shard
+    owns equal rows) of L values, L the ceiling of n_values / S rounded
+    up to a whole number of compression blocks."""
+    S = int(num_shards) if num_shards else n * max(
+        1, -(-DEFAULT_SHARDS // n))
+    if S % n != 0:
+        raise ValueError(f"num_shards={S} not a multiple of "
+                         f"transport shards n={n}")
+    L = -(-n_values // S)                              # ceil
+    L += (-L) % block                                  # block-align rows
+    return S, L
+
+
 @dataclass
 class _Cache:
     """One worker's pulled view (already unraveled: a cache hit is free,
@@ -93,16 +110,8 @@ class ParameterServer:
 
         flat, self._unravel = ravel(params)
         self._n_values = flat.numel()
-        n = self.transport.n
-        # default: the §5.4 cluster size, rounded up to a multiple of the
-        # transport's shard count so every fabric shard owns equal rows
-        S = int(num_shards) if num_shards else n * max(
-            1, -(-DEFAULT_SHARDS // n))
-        if S % n != 0:
-            raise ValueError(f"num_shards={S} not a multiple of "
-                             f"transport shards n={n}")
-        L = -(-self._n_values // S)                    # ceil
-        L += (-L) % self.block                         # block-align rows
+        S, L = row_layout(self._n_values, n=self.transport.n,
+                          num_shards=num_shards, block=self.block)
         self.num_shards, self.shard_len = S, L
 
         self.pool = fabric.NamPool()

@@ -11,11 +11,12 @@ with f32 master parameters drawn on the device from seed 0:
   ``SyntheticLM`` batches; it reports the loss of every step, seconds a
   step and tokens/s, the parameter server's pull and push times (CUDA
   events around each call), peak memory, the kernels' launches over the
-  run (counted between a reset and a read), every push's route bytes, and
-  one step under ``torch.profiler`` split by where its device time goes
-  (:func:`split`).
+  run (counted between a reset and a read), every push's route bytes, and,
+  after the timed steps, one more step under ``torch.profiler`` (behind
+  a warm-up step) split by where its device time goes (:func:`split`).
 * :func:`leaf_check`: a gradient tree against another (the kernel path's
-  against the plain path's), leaf by leaf.
+  against the plain path's), leaf by leaf; :func:`leaf_names` names the
+  leaves.
 * :func:`route_bytes`: the bytes one push routes for (S, L, block); the
   CPU tests hold it to the JAX package's counter at mamba2-370m's (S, L).
 """
@@ -41,7 +42,7 @@ from repro_torch.tree import leaves
 LABELS = ("ps.compress", "ps.route", "ps.decompress", "ps.install",
           ops.PLAIN_BACKWARD, ts.OPTIMIZER)
 TOP = 15                 # device kernels listed by time in a split
-PROFILED_STEP = 4        # the step (from 1) each run profiles
+PROFILED_STEPS = 2       # after the timed steps: a warm-up, then the profiled
 
 
 def config(arch: str, layers=None):
@@ -187,39 +188,20 @@ def train(cfg, *, mode: str, steps: int, batch: int, seq: int, device,
                               - before)
             return out
         tr.ps.push = counted_push
-    # one step under the profiler: the batch fetch opens a step, so the
-    # profiler steps there
-    prof = None
-    if dev.type == "cuda":
-        from torch.profiler import ProfilerActivity, profile, schedule
-        prof = profile(activities=[ProfilerActivity.CPU,
-                                   ProfilerActivity.CUDA],
-                       schedule=schedule(wait=PROFILED_STEP - 1, warmup=1,
-                                         active=1, repeat=1))
-        nb = tr.data.next_batch
-
-        def stepped(*a, **kw):
-            prof.step()
-            return nb(*a, **kw)
-        tr.data.next_batch = stepped
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
         torch.cuda.reset_peak_memory_stats(dev)
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    if prof is not None:
-        with prof:
-            log = tr.run()
-            prof.step()
-    else:
-        log = tr.run()
+    log = tr.run()
     launches = ops.launch_counts()
     secs = time.perf_counter() - t0
     out = {"device": (torch.cuda.get_device_name(dev)
                       if dev.type == "cuda" else "cpu"),
            "mode": mode, "compress": compress, "steps": steps,
            "batch": batch, "seq": seq, "losses": [l for _, l in log],
-           "step_s": tr.step_times, "run_s": secs, "launches": launches}
+           "step_s": list(tr.step_times), "run_s": secs,
+           "launches": launches}
     later = tr.step_times[1:] or tr.step_times
     out["median_step_s"] = statistics.median(later)
     out["tokens_per_s"] = batch * seq / out["median_step_s"]
@@ -227,17 +209,28 @@ def train(cfg, *, mode: str, steps: int, batch: int, seq: int, device,
         out["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
     if tr.ps is not None:
         out.update(epoch=tr.ps.epoch, num_shards=tr.ps.num_shards,
-                   shard_len=tr.ps.shard_len, push_route_bytes=push_bytes,
+                   shard_len=tr.ps.shard_len,
+                   push_route_bytes=list(push_bytes),
                    wire_bytes_per_push=tr.ps.wire_bytes_per_push(),
                    fabric=tr.ps.fabric_stats(), comm=tr.comm_log[-1]
                    if tr.comm_log else None)
         if dev.type == "cuda":
             out["pull_ms"] = _ms(pulls)
             out["push_ms"] = _ms(pushes)
-    if prof is not None:
+    if dev.type == "cuda":
+        # after the timed run: a warm-up step, then the profiled one
+        from torch.profiler import ProfilerActivity, profile, schedule
+        prof = profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA],
+                       schedule=schedule(wait=0, warmup=1, active=1,
+                                         repeat=1))
+        with prof:
+            for _ in range(PROFILED_STEPS):
+                tr.train_step()
+                prof.step()
         t1 = time.perf_counter()
         out["profile"] = split(prof)
-        out["profiled_step"] = PROFILED_STEP
+        out["profiled_step"] = tr.step
         out["profile_s"] = time.perf_counter() - t1
     del tr
     shutil.rmtree(ckpt_dir, ignore_errors=True)
@@ -257,6 +250,15 @@ def rel_rms(got: torch.Tensor, want: torch.Tensor) -> float:
     d = (got.double() - want.double()).square().mean().sqrt()
     w = want.double().square().mean().sqrt()
     return float(d / w) if float(w) > 0 else float(d)
+
+
+def leaf_names(tree, prefix: str = "") -> list:
+    """The "/"-joined key path of each leaf of a dict tree, in flatten
+    order."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree)
+                for n in leaf_names(tree[k], f"{prefix}/{k}")]
+    return [prefix]
 
 
 def leaf_check(a, b) -> dict:

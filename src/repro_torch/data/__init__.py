@@ -1,5 +1,6 @@
 """The port's data pipeline (``repro.data``): a deterministic, resumable
-synthetic token stream and a background prefetcher."""
-from repro_torch.data.pipeline import Prefetcher, SyntheticLM
+synthetic token stream.  JAX's background ``Prefetcher`` is not ported:
+no caller needs it yet (ROADMAP queue 1)."""
+from repro_torch.data.pipeline import SyntheticLM
 
-__all__ = ["SyntheticLM", "Prefetcher"]
+__all__ = ["SyntheticLM"]

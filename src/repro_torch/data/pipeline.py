@@ -12,7 +12,6 @@ paper's §3.2 decentralized load balancing).
 """
 from __future__ import annotations
 
-import queue
 import threading
 from dataclasses import dataclass
 
@@ -87,28 +86,3 @@ class SyntheticLM:
         parts = [results[i] for i in range(shards)]
         return {k: np.concatenate([p[k] for p in parts], axis=0)
                 for k in parts[0]}
-
-
-class Prefetcher:
-    """Background prefetch (depth N): the storage manager's prefetching
-    idea of §3.2 applied to the input pipeline."""
-
-    def __init__(self, it_fn, depth: int = 2):
-        self._q = queue.Queue(maxsize=depth)
-        self._stop = False
-
-        def loop():
-            while not self._stop:
-                try:
-                    self._q.put(it_fn(), timeout=1)
-                except queue.Full:
-                    continue
-
-        self._t = threading.Thread(target=loop, daemon=True)
-        self._t.start()
-
-    def next(self, timeout=30):
-        return self._q.get(timeout=timeout)
-
-    def close(self):
-        self._stop = True

@@ -39,6 +39,7 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import bucket_ranks
+from repro_torch.tree import tree_flatten, tree_unflatten
 
 WORD = torch.int32
 WORD_BYTES = 4
@@ -63,65 +64,6 @@ class RouteResult:
     dropped: torch.Tensor
     sent: Any
     sent_valid: torch.Tensor
-
-
-# ----------------------------------------------------------- pytrees -----
-
-class TreeDef:
-    """Structure of a pytree of tensors: ``kind`` is "leaf", "dict",
-    "list" or "tuple"; dict keys are kept sorted, as JAX orders them."""
-
-    __slots__ = ("kind", "keys", "children")
-
-    def __init__(self, kind, keys=(), children=()):
-        self.kind, self.keys, self.children = kind, tuple(keys), tuple(
-            children)
-
-    def __eq__(self, other):
-        return (isinstance(other, TreeDef) and self.kind == other.kind
-                and self.keys == other.keys
-                and self.children == other.children)
-
-    def __repr__(self):
-        return f"TreeDef({self.kind}, {self.keys}, {self.children})"
-
-
-def tree_flatten(tree):
-    """(leaves, TreeDef) of a pytree of tensors."""
-    if isinstance(tree, torch.Tensor):
-        return [tree], TreeDef("leaf")
-    if isinstance(tree, dict):
-        keys = sorted(tree)
-        items = [tree[k] for k in keys]
-        kind = "dict"
-    elif isinstance(tree, (list, tuple)):
-        keys, items = (), list(tree)
-        kind = "tuple" if isinstance(tree, tuple) else "list"
-    else:
-        raise TypeError(f"route fields must be tensors, dicts, lists or "
-                        f"tuples, got {type(tree).__name__}")
-    leaves, children = [], []
-    for item in items:
-        sub, td = tree_flatten(item)
-        leaves += sub
-        children.append(td)
-    return leaves, TreeDef(kind, keys, children)
-
-
-def _build(td: TreeDef, it):
-    if td.kind == "leaf":
-        return next(it)
-    items = [_build(c, it) for c in td.children]
-    if td.kind == "dict":
-        return dict(zip(td.keys, items))
-    return tuple(items) if td.kind == "tuple" else items
-
-
-def tree_unflatten(treedef: TreeDef, leaves):
-    # a module-level builder: a recursive closure would be a reference
-    # cycle holding the leaves (the routed buffers) until the next garbage
-    # collection, not until the caller drops them
-    return _build(treedef, iter(leaves))
 
 
 # ---------------------------------------------------- packed wire format --

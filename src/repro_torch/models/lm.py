@@ -7,8 +7,8 @@ groups.  The body loops over groups where JAX scans them.  Activations
 are ``ACT_DTYPE`` (bf16), read at call time so a test can set f32.
 ``loss_fn`` is the training loss (the mean token cross-entropy, or its
 sequence-chunked form when ``CE_CHUNK`` is set); with autograd on, each
-group of the body is recomputed in the backward (``remat``, JAX's
-``jax.checkpoint`` of its scan body).  The decode functions run under
+group of the body is recomputed in the backward (JAX's remat, its
+``jax.checkpoint`` of the scan body).  The decode functions run under
 ``torch.inference_mode()``.
 
 The decode state is updated in place: ``decode_step`` writes the new
@@ -108,13 +108,13 @@ def group_views(groups, G: int) -> list:
 CE_CHUNK = 0
 
 
-def forward_hidden(cfg, params, tokens, *, impl=None, remat=True):
+def forward_hidden(cfg, params, tokens, *, impl=None):
     """tokens: (B, S) int -> final hidden (B, S, D), before the head.
     ``impl`` picks the kernels' dispatch (None: the kernels on the card).
-    ``remat``: with autograd on, each group's activations are recomputed
-    in the backward instead of kept (JAX's default too)."""
+    With autograd on, each group's activations are recomputed in the
+    backward instead of kept (JAX's default remat)."""
     x = _embed(params, tokens)
-    ckpt = remat and torch.is_grad_enabled()
+    ckpt = torch.is_grad_enabled()
     for gp in group_views(params["groups"], num_groups(params)):
         if ckpt:
             x = checkpoint(B.apply_group, cfg, gp, x, impl=impl,
@@ -124,11 +124,11 @@ def forward_hidden(cfg, params, tokens, *, impl=None, remat=True):
     return x
 
 
-def forward(cfg, params, tokens, *, impl=None, remat=True):
+def forward(cfg, params, tokens, *, impl=None):
     """tokens: (B, S) int -> (logits (B, S, V), aux).  aux is the MoE
     router loss in JAX; with no MoE ported it is 0.0."""
     return _head(cfg, params, forward_hidden(cfg, params, tokens,
-                                             impl=impl, remat=remat)), 0.0
+                                             impl=impl)), 0.0
 
 
 def _chunked_ce(cfg, params, x, labels, chunk: int):

@@ -97,7 +97,7 @@ def build_prefill_step(cfg):
 
     @torch.inference_mode()
     def step(params, batch):
-        logits, _ = api.forward(cfg, params, batch["tokens"], remat=False)
+        logits, _ = api.forward(cfg, params, batch["tokens"])
         return logits[:, -1:].argmax(dim=-1)
 
     return step

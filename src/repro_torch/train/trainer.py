@@ -185,25 +185,7 @@ class Trainer:
         if self.opt_state is None and not self.maybe_restore():
             self.init()
         while self.step < self.tcfg.steps:
-            batch = self._batch()
-            t0 = time.perf_counter()
-            if self.ps is not None:
-                view, _epoch = self.ps.pull()
-                grads, m = self.grad_fn(view, batch)
-                del view
-                self.ps.push(grads)
-                del grads
-            else:
-                self.params, self.opt_state, m = self.step_fn(
-                    self.params, self.opt_state, batch)
-            loss = float(m["loss"])
-            dt = time.perf_counter() - t0
-            self.step += 1
-            self._watchdog(dt)
-            if self.step % self.tcfg.log_every == 0:
-                self.metrics_log.append((self.step, loss))
-                if self.ps is not None:
-                    self.comm_log.append(self._comm_entry())
+            self.train_step()
             if self.step % self.tcfg.checkpoint_every == 0:
                 self.save(async_=True)
             if preempt_at is not None and self.step >= preempt_at:
@@ -212,6 +194,32 @@ class Trainer:
         self.ckpt.wait()
         self.save(async_=False)
         return self.metrics_log
+
+    def train_step(self) -> float:
+        """One step on the next batch (a pull, the gradient and a push in
+        paramserver mode; else the optimizer step), timed and logged;
+        returns its loss.  :meth:`run` takes these steps and checkpoints
+        between them."""
+        batch = self._batch()
+        t0 = time.perf_counter()
+        if self.ps is not None:
+            view, _epoch = self.ps.pull()
+            grads, m = self.grad_fn(view, batch)
+            del view
+            self.ps.push(grads)
+            del grads
+        else:
+            self.params, self.opt_state, m = self.step_fn(
+                self.params, self.opt_state, batch)
+        loss = float(m["loss"])
+        dt = time.perf_counter() - t0
+        self.step += 1
+        self._watchdog(dt)
+        if self.step % self.tcfg.log_every == 0:
+            self.metrics_log.append((self.step, loss))
+            if self.ps is not None:
+                self.comm_log.append(self._comm_entry())
+        return loss
 
     def _comm_entry(self) -> dict:
         """§6 comm-cost model prediction next to the fabric transport's

@@ -15,7 +15,8 @@ import torch
 from repro.analytics import ParameterServer as JPS
 from repro.analytics import sgd_apply as jsgd
 from repro.fabric import LocalTransport as JLocal
-from repro_torch.analytics import DEFAULT_SHARDS, ParameterServer, sgd_apply
+from repro_torch.analytics import (DEFAULT_SHARDS, ParameterServer,
+                                   row_layout, sgd_apply)
 from repro_torch.fabric import LocalTransport, MeshTransport
 from repro_torch.train import grad_compress as gc
 from repro_torch.tree import ravel
@@ -268,6 +269,23 @@ def test_staleness_must_be_non_negative():
                         transport=LocalTransport(device="cpu"))
 
 
+@pytest.mark.parametrize("n_values,block,num_shards", [
+    (1, 256, None), (255, 32, None), (1000, 256, None), (4097, 32, None),
+    (4097, 256, 2), (1000, 32, 8)])
+def test_row_layout_equals_jax_servers(n_values, block, num_shards):
+    """``row_layout`` (the (S, L) rows that phase ``train`` routes at
+    mamba2's size without a server) is the JAX server's layout, and the
+    port's server takes its own from it."""
+    p = np.arange(n_values, dtype=np.float32)
+    j = JPS({"p": jnp.asarray(p)}, block=block, num_shards=num_shards)
+    t = ParameterServer({"p": torch.from_numpy(p)}, block=block,
+                        num_shards=num_shards,
+                        transport=LocalTransport(device="cpu"))
+    want = (j.num_shards, j.shard_len)
+    assert row_layout(n_values, block=block, num_shards=num_shards) == want
+    assert (t.num_shards, t.shard_len) == want
+
+
 @pytest.mark.parametrize("compress", [True, False])
 def test_route_bytes_at_mamba2_size(compress):
     """``bench.train.route_bytes`` (what phase ``train`` holds every push
@@ -278,9 +296,7 @@ def test_route_bytes_at_mamba2_size(compress):
     from repro_torch.models import api
     n = sum(int(np.prod(s)) for s in _shape_leaves(
         api.param_shapes(get_config("mamba2-370m"))))
-    S = DEFAULT_SHARDS
-    L = -(-n // S)
-    L += (-L) % 256
+    S, L = row_layout(n)
     jt = JLocal()
     if compress:
         fields = {"codes": jax.ShapeDtypeStruct((S, L), jnp.int8),
