@@ -102,15 +102,42 @@ exits non-zero:
            (bench/fig9_ml.py) at the reference's sizes, its rows equal to
            a CPU run's, with one PS round timed
 
+  scale    fig_scale (bench/fig_scale.py): at the JAX benchmark's sizes
+           (4096 records, W in 1..64, uniform / zipf 0.9 / zipf 1.2) the
+           kernel path against the plain path (txn_stats, attempts, ids,
+           masks, store leaves equal) and the three panels' asserts; at
+           the oltp store (1 000 000 records of 1 KB, 64 transactions a
+           worker, T = 4096 at W = 64, max_retries 3) each point's
+           grouped wave: launches, read-back, commits + final aborts ==
+           sessions, host seconds, device time profiled; at W = 64 zipf
+           1.2 the store equal to the plain path's; panels (b) and (c) on
+           those traces, with the simulator's host time
+  contention  Fig 10 (bench/fig10_contention.py): the window sweep; the
+           planner's load crossover on the §5.4 join (R and S of 128M
+           tuples, sel 0.25) at loads 0, 8, 64; one GHJ and one RRJ at
+           128M recorded through an EventTracer on the kernel and the
+           plain path (traces equal event for event, values equal to the
+           ground truth) and replayed on every profile; fig8a's replay
+           row; then fabric-check on the card: every suite (0
+           violations) and one 4096-session checkout wave through a
+           ScheduleRecorder, race-checked (0 violations)
+
+The kernels' f32 entries (flash_f32, ssd_kernel), which no timed path
+runs, are timed in phase kernels at the f32 witnesses' shapes, and their
+launches are counted where serve's f32 witness and train's f32 gradient
+check run them (a comparison's launches, on no path): one f32_entries
+line.
+
 Launch counts are set to 0 just before each path and read just after:
 the oltp sessions and commits, the olap queries (Database.execute
 alone), Fig 8b's kernel row, the one path of the f32 grouped_agg
 entry, in serve each timed prefill step and each engine wave, in
 shards the 4-shard oltp waves and the 4-shard queries, and in train
-each trainer run, Fig 9 and glm4's grad step; each path must have launched
-every kernel it runs.  The gradient checks' launches count on no path.
-The shuffle
-microbench's launches are reported beside it and counted on no path.
+each trainer run, Fig 9 and glm4's grad step, in scale every grouped
+wave, in contention each traced join and the recorded wave; each path
+must have launched every kernel it runs.  The gradient checks' launches
+count on no path.  The shuffle microbench's launches are reported beside
+it and counted on no path.
 Then three lines: the per-kernel JSON record (launches summed over the
 paths named in its "paths"), the card's name and power limit
 (nvidia-smi), and {"ok": true, "device": ...}.
@@ -120,6 +147,7 @@ paths named in its "paths"), the card's name and power limit
     python3 chip_smoke.py --out smoke.jsonl   # also keep every phase line
     python3 chip_smoke.py --phases env,build,shards   # the n-shard fabric
     python3 chip_smoke.py --phases env,build,train    # training
+    python3 chip_smoke.py --phases env,build,scale,contention   # under load
 """
 from __future__ import annotations
 
@@ -137,8 +165,9 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 peak
 BF16_FLOP_PER_S = 989e12           # H100 SXM dense bf16 tensor cores
+F32_FLOP_PER_S = 67e12             # H100 SXM float32 outside tensor cores
 PHASES = ("env", "build", "kernels", "oltp", "olap", "fig6", "serve",
-          "shards", "train")
+          "shards", "train", "scale", "contention")
 SERVE_ARCHS = {"glm4-9b": "flash_attention", "mamba2-370m": "ssd_scan"}
 ROW_TOL = 2 ** -6        # bf16, kernel vs plain: rms(diff) / rms(plain)
                          # per row (a query row of one head; an SSD output
@@ -173,6 +202,14 @@ GRAD_TOL = 2 ** -8       # kernel vs plain path gradients, f32 masters and
                          # and 2.3e-4, faulty controls 0.034 and 0.90, for
                          # mamba2-370m and glm4-9b)
 GLM_GRAD = ("glm4-9b", 2, 1, 4096)   # arch, layers, batch, seq
+SCALE_TXNS = 64          # fig_scale at the oltp store: transactions a
+                         # worker, so T = 4096 at W = 64 (the oltp wave)
+SCALE_QUICK = (65_536, 16, 16)   # --quick: records, payload words, txns
+CONTENTION_VARIANTS = ("ghj", "rrj")
+JOIN_KERNELS = ("radix_partition_rank", "radix_partition_scatter")
+F32 = {"flash_f32": {}, "ssd_kernel": {}}   # the kernels' f32 entries:
+                         # timed in phase kernels, launches counted where
+                         # the f32 witnesses and gradient checks run them
 _OUT = []                        # a file every emitted line also goes to
 
 
@@ -280,6 +317,20 @@ def device_ops(fn, *, iters=10) -> dict:
 
 def bound_ms(nbytes: int) -> float:
     return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def launches_since(before: dict) -> dict:
+    """Kernel launches since ``before`` (an ``ops.launch_counts()``), for
+    a comparison that counts on no path and must not reset the counts."""
+    from repro_torch.kernels import ops
+    return {k: v - before[k] for k, v in ops.launch_counts().items()}
+
+
+def _count_f32(entry: str, wrapper: str, before: dict):
+    """Add the launches of an f32 witness or gradient check (every launch
+    of ``wrapper`` since ``before`` is its f32 entry) to F32."""
+    n = launches_since(before)[wrapper]
+    F32[entry]["launches"] = F32[entry].get("launches", 0) + n
 
 
 # -------------------------------------------------------------- phases ---
@@ -1025,6 +1076,81 @@ def time_flash(record: dict) -> dict:
     return t
 
 
+def time_f32_entries() -> dict:
+    """The f32 entries of flash_attention (``flash_f32``, an FMA body) and
+    ssd_scan (``ssd_kernel``, the recurrence) at the shapes of the f32
+    full-depth witnesses (FLASH_PATH and SSD_PATH in f32: glm4-9b's and
+    mamba2-370m's prefill), held to their plain versions within the
+    sweeps' f32 tolerances (2e-5; y and state 2e-3), timed beside them
+    and, for flash_f32, beside SDPA on the same f32 inputs (no one
+    PyTorch call computes the SSD scan).  Bound: the larger of the operations at 67 TFLOP/s (both bodies run
+    outside the tensor cores; the SSD's recurrence, 4 B S H hd N) and
+    the bytes at 3.35 TB/s."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa, ref, ssd_scan as sk
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(22)
+    B, S, H, KH, D = FLASH_PATH
+    q = _normal(g, (B, S, H, D), torch.float32, dev)
+    k = _normal(g, (B, S, KH, D), torch.float32, dev)
+    v = _normal(g, (B, S, KH, D), torch.float32, dev)
+    err = float((fa.flash_attention(q, k, v)
+                 - ref.flash_attention(q, k, v)).abs().max())
+    if not err <= 2e-5:
+        raise AssertionError(f"flash_f32 off at the glm4 witness shape: "
+                             f"max {err}")
+    flops = 4 * B * H * D * S * (S + 1) // 2
+    nbytes = 4 * (2 * q.numel() + 2 * k.numel())
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    F32["flash_f32"].update(
+        ms=time_ms(lambda: fa.flash_attention(q, k, v), iters=5),
+        plain_ms=time_ms(lambda: ref.flash_attention(q, k, v), iters=3,
+                         warmup=1),
+        bound_ms=max(bound_ms(nbytes), flops / F32_FLOP_PER_S * 1e3),
+        bound_by=("operations" if flops / F32_FLOP_PER_S
+                  > nbytes / HBM_BYTES_PER_S else "bytes"),
+        library_ms=time_ms(lambda: torch.nn.functional
+                           .scaled_dot_product_attention(
+                               qt, kt, vt, is_causal=True, enable_gqa=True),
+                           iters=5),
+        max_abs_err=err, flops=flops, bytes=nbytes,
+        shape={"B": B, "S": S, "H": H, "KH": KH, "D": D, "dtype": "f32"})
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    B, S, H, P, N = SSD_PATH
+    xh = _normal(g, (B, S, H, P), torch.float32, dev, 0.5)
+    bv = _normal(g, (B, S, N), torch.float32, dev, 0.5)
+    cv = _normal(g, (B, S, N), torch.float32, dev, 0.5)
+    dt = torch.nn.functional.softplus(
+        torch.randn((B, S, H), generator=g, device=dev))
+    a = -torch.exp(torch.randn((H,), generator=g, device=dev) * 0.3)
+    y, st = sk.ssd_scan(xh, bv, cv, dt, a)
+    yr, sr = ref.ssd_scan(xh, bv, cv, dt, a)
+    err = float((y - yr).abs().max())
+    serr = float((st - sr).abs().max())
+    if not (torch.allclose(y, yr, atol=2e-3, rtol=2e-3)
+            and torch.allclose(st, sr, atol=2e-3, rtol=2e-3)):
+        raise AssertionError(f"ssd_kernel off at the mamba2 witness shape: "
+                             f"y {err}, state {serr}")
+    del y, st, yr, sr
+    flops = 4 * B * S * H * P * N
+    nbytes = 4 * (2 * xh.numel() + 2 * bv.numel() + dt.numel() + H
+                  + B * H * P * N)
+    F32["ssd_kernel"].update(
+        ms=time_ms(lambda: sk.ssd_scan(xh, bv, cv, dt, a), iters=5),
+        plain_ms=time_ms(lambda: ref.ssd_scan(xh, bv, cv, dt, a), iters=3,
+                         warmup=1),
+        bound_ms=max(bound_ms(nbytes), flops / F32_FLOP_PER_S * 1e3),
+        bound_by=("operations" if flops / F32_FLOP_PER_S
+                  > nbytes / HBM_BYTES_PER_S else "bytes"),
+        library_ms=None, max_abs_err=err, state_max_abs_err=serr,
+        flops=flops, bytes=nbytes,
+        shape={"B": B, "S": S, "H": H, "hd": P, "N": N, "dtype": "f32"})
+    del xh, bv, cv, dt
+    torch.cuda.empty_cache()
+    return F32
+
+
 def ssd_chunked_flops(B, S, H, P, N, L=256) -> int:
     """Operations of the chunked SSD at chunk L (the JAX model's form):
     per chunk C B^T (2 L^2 N), and per head the causal intra-chunk product
@@ -1106,7 +1232,8 @@ def phase_kernels(quick: bool, record: dict):
                                                    err["flash_bf16"])
     record["ssd_scan"]["max_abs_err"] = err["ssd"]
     timing = {"flash_attention": time_flash(record),
-              "ssd_scan": time_ssd(record)}
+              "ssd_scan": time_ssd(record),
+              "f32_entries": time_f32_entries()}
     time_kernels(record)
     timing.update({k: {kk: v for kk, v in record[k].items() if kk not in (
         "source", "replaces", "route", "launches", "paths", "max_abs_err")}
@@ -1556,6 +1683,7 @@ def phase_serve(quick: bool, record: dict):
     The phase line is printed before a failure is raised."""
     import torch
     from repro_torch.bench import serve
+    from repro_torch.kernels import ops
     for arch, kernel in SERVE_ARCHS.items():
         cfg = serve.config(arch, 4 if quick else None)
         batch, seq = serve.PREFILL[arch]
@@ -1576,7 +1704,10 @@ def phase_serve(quick: bool, record: dict):
         plain = serve.engine(cfg, params, impl="plain")
         del params
         torch.cuda.empty_cache()
+        before = ops.launch_counts()
         f32 = serve.f32_witness(cfg, batch=batch, seq=seq, device="cuda")
+        _count_f32("flash_f32" if kernel == "flash_attention"
+                   else "ssd_kernel", kernel, before)
         torch.cuda.empty_cache()
         failures = []
         for launches in pre["launches"]:
@@ -1676,10 +1807,14 @@ def _grad_check(cfg, params, batch, kernel: str) -> dict:
         g, m = build_grad_step(cfg, max_grad_norm=inf, **kw)(params, batch)
         return g, float(m["loss"]), float(m["grad_norm"])
 
+    from repro_torch.kernels import ops
     saved = lm.ACT_DTYPE
     lm.ACT_DTYPE = torch.float32
     try:
+        before = ops.launch_counts()
         gk, lk, nk = grads()
+        _count_f32("flash_f32" if kernel == "flash_attention"
+                   else "ssd_kernel", kernel, before)
         gp32, lp, np_ = grads(impl="plain")
         chk = bt.leaf_check(gk, gp32)
         f32 = {"max": chk["max"], "worst_leaf": names[chk["worst_leaf"]],
@@ -1769,15 +1904,29 @@ def check_ps_route(cfg, stats: dict) -> dict:
                                  f"push: A={S} w={w}")
         stats["scatter"] = max(stats["scatter"], _err(kb, pb))
         del kb, pb
+        # the nearest PyTorch call: index_copy_ of the rows with their
+        # valid lane into the wire buffer, at the rank's slots
+        wide = torch.cat([rows, torch.ones((S, 1), dtype=torch.int32,
+                                           device=dev)], 1)
+        buf = torch.zeros((S, w + 1), dtype=torch.int32, device=dev)
+        slot64 = slot.to(torch.int64)
+
+        def lib_copy():
+            return buf.index_copy_(0, slot64, wide)
+
+        def scatter():
+            return rp.scatter(rows, slot, S, counts=counts)
         out[name] = {
             "A": S, "w": w,
-            "ms": time_ms(lambda: rp.scatter(rows, slot, S, counts=counts),
-                          iters=10),
+            "ms": time_ms(scatter, iters=10),
+            "host_ms": host_ms(scatter, iters=20),
             "plain_ms": time_ms(lambda: ref.scatter(rows, slot, S,
                                                     counts=counts), iters=5),
             "bound_ms": bound_ms(S * w * 4 + S * 4 + S * (w + 1) * 4),
-            "bound_by": "bytes"}
-        del rows
+            "bound_by": "bytes",
+            "library_ms": time_ms(lib_copy, iters=10),
+            "library_host_ms": host_ms(lib_copy, iters=20)}
+        del rows, wide, buf
         torch.cuda.empty_cache()
     return out
 
@@ -1927,6 +2076,294 @@ def phase_train(quick: bool, record: dict):
         record[name]["paths"] += ", train paramserver, fig9"
 
 
+def _scale_point(fs, W, s, *, sizes: dict, record: dict, path: str,
+                 keep_db: bool = False) -> dict:
+    """One real-size fig_scale point on the card: the grouped wave with
+    its launches counted between a reset and a read, the accounting and
+    read-back checks, then the same wave again under torch.profiler."""
+    import torch
+    from repro_torch.bench import profile_commit
+    from repro_torch.kernels import ops
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    st, sets, att, tids, run = fs.run_economics(W, s, device="cuda",
+                                                keep=True, **sizes)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    _count(OLTP_KERNELS, launches, record, path)
+    sessions = [x for g in run["groups"] for x in g]
+    final_aborts = sum(int((~m).sum()) for m in run["masks"])
+    if st["commits"] + final_aborts != len(sessions):
+        raise AssertionError(f"{path}: commits {st['commits']} + final "
+                             f"aborts {final_aborts} != {len(sessions)}")
+    t1 = time.perf_counter()
+    readback = fs.read_back(run["db"], sessions)
+    t2 = time.perf_counter()
+    prof = []
+    fs.run_economics(W, s, device="cuda", sets=sets,
+                     around=lambda: profile_commit._profiled(prof), **sizes)
+    out = {"W": W, "skew": s, "sessions": len(sessions),
+           "rounds": max(max(a) for a in att), "txn_stats": st,
+           "final_aborts": final_aborts, "host_s": run["host_s"],
+           "device": {k: prof[0][k] for k in ("device_s", "port_kernels_s",
+                                               "device_ops", "by_kernel")},
+           "launches": {k: v for k, v in launches.items() if v},
+           "readback": readback,
+           "seconds": {"run": t1 - t0, "readback": t2 - t1,
+                       "profiled_run": time.perf_counter() - t2}}
+    return out, (st, sets, att, tids), (run if keep_db else None)
+
+
+def phase_scale(quick: bool, record: dict):
+    """fig_scale (src/repro_torch/bench/fig_scale.py) on the card.
+
+    (a) at the JAX benchmark's sizes (4096 one-word records, 8
+    transactions of 2 writes a worker, max_retries 3; --quick: W in 4, 8,
+    32): every point on the kernel path and on the plain path, whose
+    txn_stats, attempts, transaction ids, committed masks and store
+    leaves must be equal, and whose economics must equal a CPU run's
+    (which the CPU tests hold to the JAX benchmark); then the three
+    panels with the JAX benchmark's asserts.  At the real size, the paper's §4.3 store (1 000 000 records
+    of 256 words; 64 transactions a worker, so T = 4096 at W = 64):
+    every point's launches counted between a reset and a read, its
+    committed writes read back, commits + final aborts == sessions, the
+    host seconds of its grouped wave (retry waves included) and the
+    device time of the same wave profiled; at W = 64, zipf 1.2 the store
+    and txn_stats equal the plain path's.  Then panels (b) and (c) on the
+    real-size traces, each install WRITE carrying the real row (1028 B),
+    with the simulator's own host seconds."""
+    import numpy as np
+    import torch
+    from repro_torch.bench import checkout, fig_scale as fs
+    from repro_torch.kernels import ops
+    t0 = time.perf_counter()
+    workers = (4, 8, 32) if quick else fs.WORKERS
+    profiles = fs.DEFAULT_PROFILES
+
+    # (a) at the JAX benchmark's sizes: the kernel path against the plain
+    ops.reset_launch_counts()
+    kern = {sn: {W: fs.run_economics(W, s, device="cuda", keep=True)
+                 for W in workers} for sn, s in fs.SKEWS.items()}
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    _count(OLTP_KERNELS, launches, record, "scale at JAX's sizes")
+    diffs = []
+    for sn, s in fs.SKEWS.items():
+        for W in workers:
+            p = fs.run_economics(W, s, device="cuda", impl="plain",
+                                 keep=True)
+            c = fs.run_economics(W, s, device="cpu")
+            k = kern[sn][W]
+            same = (k[0] == p[0] == c[0] and k[2] == p[2] == c[2]
+                    and k[3] == p[3] == c[3]
+                    and all(np.array_equal(a, b) for a, b in
+                            zip(k[4]["masks"], p[4]["masks"]))
+                    and fs.store_equal(k[4]["db"], p[4]["db"]))
+            if not same:
+                diffs.append(f"{sn} W={W}")
+    if ops.launch_counts() != launches:
+        raise AssertionError("the plain runs launched a kernel")
+    if diffs:
+        raise AssertionError(f"scale: the kernel path differs from the "
+                             f"plain path or the CPU at {diffs}")
+    t_equal = time.perf_counter() - t0
+    econ = {sn: {W: kern[sn][W][:4] for W in workers} for sn in kern}
+    del kern
+    rows = []
+    abort_rate = fs.economics_panel(econ, workers, rows)
+    ts = time.perf_counter()
+    tput = fs.throughput_panel(econ, workers, profiles, rows)
+    ops.reset_launch_counts()
+    loc = fs.run_economics(fs.LOCALITY_WORKERS, fs.SKEWS["zipf12"],
+                           shared=False, device="cuda")
+    loc_launches = ops.launch_counts()
+    _count(OLTP_KERNELS, loc_launches, record, "scale locality")
+    locality = fs.locality_panel(loc, profiles, rows)
+    emit("scale_jax_size", workers=list(workers), abort_rate=abort_rate,
+         throughput=tput, locality=locality, rows=rows,
+         plain_equal=True, cpu_equal=True,
+         launches={k: v for k, v in launches.items()
+                                     if v},
+         sim_host_s=time.perf_counter() - ts, equal_check_s=t_equal,
+         seconds=time.perf_counter() - t0, gpu=smi())
+
+    # the real size: the oltp phase's store
+    records, words, txns = (SCALE_QUICK if quick else
+                            (checkout.PRODUCTS, checkout.PAYLOAD_WORDS,
+                             SCALE_TXNS))
+    sizes = {"records": records, "payload_words": words,
+             "txns_per_worker": txns}
+    real, kept = {}, None
+    for sn, s in fs.SKEWS.items():
+        real[sn] = {}
+        for W in workers:
+            keep = sn == "zipf12" and W == max(workers)
+            point, econ_pt, run = _scale_point(
+                fs, W, s, sizes=sizes, record=record,
+                path=f"scale {sn} W={W}", keep_db=keep)
+            real[sn][W] = econ_pt
+            if keep:
+                kept = run
+            emit("scale_point", **sizes, **point, gpu=smi())
+            torch.cuda.empty_cache()
+    plain = fs.run_economics(max(workers), fs.SKEWS["zipf12"], device="cuda",
+                             impl="plain", keep=True,
+                             sets=real["zipf12"][max(workers)][1], **sizes)
+    if not (plain[0] == real["zipf12"][max(workers)][0]
+            and fs.store_equal(kept["db"], plain[4]["db"])):
+        raise AssertionError("scale: the real-size zipf12 wave differs from "
+                             "the plain path")
+    del kept, plain
+    torch.cuda.empty_cache()
+    rows = []
+    ts = time.perf_counter()
+    tput = fs.throughput_panel(real, workers, profiles, rows,
+                               records=records,
+                               row_bytes=fs.row_bytes(words))
+    sim_b = time.perf_counter() - ts
+    ops.reset_launch_counts()
+    loc = fs.run_economics(fs.LOCALITY_WORKERS, fs.SKEWS["zipf12"],
+                           shared=False, device="cuda", **sizes)
+    loc_launches = ops.launch_counts()
+    _count(OLTP_KERNELS, loc_launches, record, "scale locality, real size")
+    ts = time.perf_counter()
+    locality = fs.locality_panel(loc, profiles, rows, records=records,
+                                 row_bytes=fs.row_bytes(words))
+    sim_c = time.perf_counter() - ts
+    emit("scale", **sizes, row_bytes=fs.row_bytes(words),
+         workers=list(workers),
+         abort_rate={sn: {str(W): real[sn][W][0]["abort_rate"]
+                          for W in workers} for sn in real},
+         throughput=tput, locality=locality, rows=rows,
+         plain_equal_at=f"zipf12 W={max(workers)}",
+         sim_host_s={"throughput": sim_b, "locality": sim_c},
+         seconds=time.perf_counter() - t0, gpu=smi())
+
+
+def phase_contention(quick: bool, record: dict):
+    """Fig 10 (src/repro_torch/bench/fig10_contention.py) on the card.
+
+    (a) the window sweep, WRITE against SEND, with the JAX benchmark's
+    asserts.  (b) the planner prices the paper's §5.4 join (R and S of
+    128 000 000 tuples, sel 0.25; --quick: 2^22) at loads 0, 8 and 64 and
+    must flip on the RDMA profile.  (c) one GHJ and one RRJ over those
+    relations, each recorded through an EventTracer on the kernel path
+    (launches counted between a reset and a read) and on the plain path:
+    the traces must be equal event for event and the joins equal to the
+    ground truth with no dropped row; each trace is replayed on every
+    profile (lower bound <= makespan; the window-1 replay equal to the
+    analytic sum).  Fig 8a's replay row is printed beside it.  Then
+    fabric-check on the card: every suite of repro_torch.fabric.check
+    (0 violations), and one 4096-session checkout wave of the oltp store
+    through a ScheduleRecorder (launches counted), race-checked: 0
+    violations, its access and fence counts and the checker's host
+    seconds."""
+    import dataclasses as dc
+    import torch
+    from repro_torch.bench import checkout, fig8a_joins
+    from repro_torch.bench import fig10_contention as f10
+    from repro_torch.db import Database
+    from repro_torch.fabric import LocalTransport, check, netsim
+    from repro_torch.kernels import ops
+    from repro_torch.configs import OLTP
+    t0 = time.perf_counter()
+    n = OLAP_QUICK_N if quick else OLAP_N
+    rows = []
+    windows = {p: {v: {str(w): t for w, t in c.items()}
+                   for v, c in f10.sweep_rows(p, rows).items()}
+               for p in f10.DEFAULT_PROFILES}
+
+    rk, rv, sk, sv = fig8a_joins.relations(f10.JOIN_SEL, n, device="cuda")
+    truth = fig8a_joins.ground_truth(sk, n)
+    dbs = {impl: Database(device="cuda", impl=impl,
+                          net=f10.DEFAULT_PROFILES[0])
+           for impl in (None, "plain")}
+    for d in dbs.values():
+        d.create_table("R", n, payload_words=1, partitioning="hash")
+        d.create_table("S", n, payload_words=1, partitioning="hash")
+        d.table("R").load(rk, rv)
+        d.table("S").load(sk, sv)
+    del rk, rv, sk, sv
+    db = dbs[None]
+    crossover = f10.planner_rows(db, f10.join_query(db), f10.DEFAULT_PROFILES,
+                                 rows)
+    profiles = sorted(netsim.PROFILES)
+    traces, replay, joins = {}, {}, {}
+    for v in CONTENTION_VARIANTS:
+        ops.reset_launch_counts()
+        t1 = time.perf_counter()
+        trace, res = f10.record_join(db, f10.join_query(db), v)
+        torch.cuda.synchronize()
+        join_s = time.perf_counter() - t1
+        launches = ops.launch_counts()
+        _count(JOIN_KERNELS, launches, record, f"contention {v}")
+        before = ops.launch_counts()
+        ptrace, pres = f10.record_join(dbs["plain"],
+                                       f10.join_query(dbs["plain"]), v)
+        if launches_since(before) != {k: 0 for k in before}:
+            raise AssertionError("the plain join launched a kernel")
+        value = int(res.value) & 0xFFFFFFFF
+        if value != truth or res.dropped != 0 or \
+                int(pres.value) & 0xFFFFFFFF != truth:
+            raise AssertionError(f"contention {v}: value {value} (truth "
+                                 f"{truth}), dropped {res.dropped}")
+        if [dc.astuple(e) for e in trace] != [dc.astuple(e) for e in ptrace]:
+            raise AssertionError(f"contention {v}: the kernel path's trace "
+                                 "differs from the plain path's")
+        ts = time.perf_counter()
+        replay[v] = f10.replay_rows(trace, profiles, rows, v)
+        joins[v] = {"events": [dc.asdict(e) for e in trace],
+                    "join_s": join_s, "replay_host_s":
+                    time.perf_counter() - ts,
+                    "launches": {k: x for k, x in launches.items() if x},
+                    "value": value, "trace_equal_plain": True}
+    del db, dbs
+    torch.cuda.empty_cache()
+    emit("contention", n=n, sel=f10.JOIN_SEL, windows=windows,
+         crossover=crossover, replay=replay, joins=joins, rows=rows,
+         fig8a_replay=fig8a_joins.replay_row(n), gpu=smi())
+
+    # fabric-check on the card
+    ts = time.perf_counter()
+    reports = check.check_all("cuda")
+    summ = check.summarize(reports)
+    suites_s = time.perf_counter() - ts
+    rec = check.ScheduleRecorder()
+    cdb = Database(LocalTransport(recorder=rec, device="cuda"))
+    size = {"products": checkout.PRODUCTS,
+            "payload_words": checkout.PAYLOAD_WORDS}
+    checkout.create_table(cdb, waves=1, T=MAIN_T, **size)
+    rec.declare_locks("products/words", ("products/payload",
+                                         "products/cids"), lock_bit=1 << 31)
+    plan = checkout.plan(seed=7, waves=1, T=MAIN_T, **size)
+    ops.reset_launch_counts()
+    tw = time.perf_counter()
+    ss = checkout.sessions(cdb, plan[0])
+    mask = cdb.commit(ss, max_retries=2)
+    torch.cuda.synchronize()
+    wave_s = time.perf_counter() - tw
+    launches = ops.launch_counts()
+    _count(OLTP_KERNELS, launches, record, "contention recorded wave")
+    tc = time.perf_counter()
+    rep = check.check_schedule(rec, target=f"sessions/checkout[T={MAIN_T}]")
+    check_s = time.perf_counter() - tc
+    wave = {"sessions": len(ss), "committed": int(mask.sum()),
+            **rec.summary(), "violations": [str(v) for v in rep.violations],
+            "record_wave_s": wave_s, "check_host_s": check_s,
+            "launches": {k: v for k, v in launches.items() if v}}
+    del cdb, rec
+    torch.cuda.empty_cache()
+    emit("contention_check", targets=len(reports),
+         rules=len(summ["rules_run"]), violations=summ["violations"],
+         exemptions=summ["exemptions"], suites_host_s=suites_s, wave=wave,
+         oltp_width={"products": OLTP.num_products,
+                     "record_bytes": OLTP.record_bytes},
+         seconds=time.perf_counter() - t0, gpu=smi())
+    if summ["violations"] or not rep.ok:
+        raise AssertionError(f"fabric-check on the card: "
+                             f"{summ['violations']} {wave['violations']}")
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1983,9 +2420,10 @@ def main(argv=None) -> int:
             "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
             "replaces": "src/repro/kernels/ssd_scan.py:55"},
     }
-    paths = {"radix_partition_rank": "oltp, olap",
-             "radix_partition_scatter": "oltp, olap",
-             "cas_lock": "oltp, serve engine waves",
+    paths = {"radix_partition_rank": "oltp, olap, scale, contention",
+             "radix_partition_scatter": "oltp, olap, scale, contention",
+             "cas_lock": "oltp, serve engine waves, scale, contention "
+                         "recorded wave",
              "grouped_agg": "fig8b kernel row", "grouped_sum_u32": "olap",
              "flash_attention": "serve glm4-9b prefill",
              "ssd_scan": "serve mamba2-370m prefill"}
@@ -2009,6 +2447,12 @@ def main(argv=None) -> int:
         phase_shards(args.quick, record)
     if "train" in phases:
         phase_train(args.quick, record)
+    if "scale" in phases:
+        phase_scale(args.quick, record)
+    if "contention" in phases:
+        phase_contention(args.quick, record)
+    if any(F32.values()):
+        emit("f32_entries", **F32, gpu=smi())
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "paths")
     print(json.dumps({"kernels": [

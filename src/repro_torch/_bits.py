@@ -37,6 +37,27 @@ def mul32(a: torch.Tensor, b) -> torch.Tensor:
     return (lo + (hi << 16)) & M32
 
 
+def put_rows(dst: torch.Tensor, idx: torch.Tensor, values: torch.Tensor,
+             keep: torch.Tensor) -> torch.Tensor:
+    """``dst[idx[keep]] = values[keep]`` in place, without a host sync: a
+    bool-mask index runs ``nonzero``, whose size the host must read from
+    the device.  The dropped requests go to row 0, which then gets back
+    its old contents or, if a kept request names it, the last such
+    request's row.  Returns ``dst``."""
+    if idx.numel() == 0 or dst.shape[0] == 0:
+        return dst
+    idx = torch.where(keep, idx.to(torch.int64), 0)
+    values = values.to(dst.dtype)
+    row0 = dst[0].clone()
+    dst[idx] = values
+    pos = torch.arange(idx.shape[0], device=idx.device)
+    last = torch.where(keep & (idx == 0), pos, -1).max()
+    # a 1-element index: a 0-d one would be read by the host
+    src = values[last.clamp(min=0).reshape(1)][0]
+    dst[0] = torch.where(last >= 0, src, row0)
+    return dst
+
+
 def np_to_i32(a) -> np.ndarray:
     """numpy u32 (or anything castable to it) -> int32 bit view."""
     return np.ascontiguousarray(np.asarray(a).astype(np.uint32)).view(

@@ -24,8 +24,8 @@ the same one-sided verbs that rebuilt OLTP (§4) and OLAP (§5):
 All protocol logic (the gate, compression, the apply rule) runs on the
 client side against counted verbs.  ``apply_fn(params_tree, grads_tree)
 -> params_tree`` defaults to SGD; the trainer passes its optimizer's
-update.  The schedule-recorder hooks are looked up with ``getattr`` and do
-nothing while the port has no race detector.
+update.  An attached schedule recorder (``fabric.check``) sees the
+epoch declaration, each pull and each push's install.
 """
 from __future__ import annotations
 

@@ -89,7 +89,8 @@ def drive(db, waves, *, max_retries: int = 2, around=None):
     return masks, every, commit_s
 
 
-def check_readback(db, every, *, sample: int = 256) -> dict:
+def check_readback(db, every, *, sample: int = 256,
+                   table: str = "products") -> dict:
     """Every committed write reads back through ``snapshot_read``: each
     written row holds its last writer's version, and (for a sample of
     rows) that version is visible at the writer's own cid.  Raises on a
@@ -102,13 +103,13 @@ def check_readback(db, every, *, sample: int = 256) -> dict:
     recs = np.fromiter(last, np.int32)
     want_pay = np.stack([last[int(r)][1] for r in recs])
     want_cid = np.array([last[int(r)][0] for r in recs], np.uint32)
-    pay, cid, ok = db.snapshot_read("products", recs)
+    pay, cid, ok = db.snapshot_read(table, recs)
     if not (bool(ok.all()) and np.array_equal(np_u32(pay), want_pay)
             and np.array_equal(np_u32(cid), want_cid)):
         raise AssertionError("a committed write did not read back")
     for r in recs[:sample]:
         c, p = last[int(r)]
-        pay, _, ok = db.snapshot_read("products", [r], rid=c)
+        pay, _, ok = db.snapshot_read(table, [r], rid=c)
         if not (bool(ok[0]) and np.array_equal(np_u32(pay)[0], p)):
             raise AssertionError(f"row {r} did not read back at cid {c}")
     return {"rows": int(recs.size), "own_cid_checked": min(sample, recs.size)}

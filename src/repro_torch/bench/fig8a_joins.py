@@ -26,8 +26,8 @@ motion inside every join, with ``overlap`` on and off.  A
 benchmark nothing asserts that it wins.  The two legs also differ in how
 they pack: the overlap leg gathers through the inverted plan in plain
 torch and launches no scatter kernel, the other runs the scatter kernel.
-The JAX benchmark's replay pricing of the route schedule needs the
-contention simulator, which the port does not have yet.
+:func:`route_replay_pricing` prices the double-buffered route schedule
+on the contention simulator, as the JAX benchmark's ``replay`` row does.
 
 :func:`joins` runs the queries alone, :func:`shuffle_route_bench` one
 leg of the microbench, and :func:`run` the whole figure.
@@ -45,7 +45,7 @@ import torch
 from repro_torch._bits import M32, np_u32, resolve_device, u32
 from repro_torch.bench import queries
 from repro_torch.db import JOIN_VARIANTS, Database
-from repro_torch.fabric import LocalTransport, make_transport, netsim
+from repro_torch.fabric import LocalTransport, make_transport, netsim, sim
 
 SELS = (0.25, 0.5, 0.75, 1.0)
 DEFAULT_PROFILES = ("rdma_fdr4x",)       # the paper's measured cluster
@@ -96,6 +96,30 @@ def shuffle_route_bench(n_rows: int, *, device=None, overlap: bool = False,
     once()                                               # warm-up
     return statistics.median(queries.time_call(once, dev)[1]
                              for _ in range(3))
+
+
+def route_replay_pricing(profile_name: str, n: int, cap: int,
+                         chunks: int, row_words: int = 3) -> dict:
+    """Price the double-buffered route schedule on the contention
+    simulator: per chunk, a pack (compute) event then the chunk's wire
+    event, the pack sized to the chunk's wire time.  ``window=1`` replays
+    the synchronous schedule and lands on the analytic serial sum;
+    ``window=2`` is the double-buffered one, and the gap is the modeled
+    value of the overlap on this profile."""
+    p = netsim.get_profile(profile_name)
+    nbytes = n * cap * 4 * row_words / chunks
+    wire_s = p.t_call(n, nbytes)
+    tr = sim.EventTracer()
+    for _ in range(chunks):
+        tr.emit_compute(wire_s)
+        tr.emit("route", n, nbytes, collective=True)
+    serial = sim.analytic_time(tr.events, p)
+    nodes = max(2, n)
+    sync = sim.replay(tr.events, p, nodes=nodes, window=1).makespan
+    over = sim.replay(tr.events, p, nodes=nodes, window=2).makespan
+    return {"profile": p.name, "chunks": chunks, "serial_s": serial,
+            "window1_s": sync, "window2_s": over,
+            "overlap_speedup": serial / over if over else 0.0}
 
 
 def joins(n: int, *, device=None, seed: int = 0, sels=SELS,
@@ -152,15 +176,26 @@ def joins(n: int, *, device=None, seed: int = 0, sels=SELS,
             "rows": rows, "modeled_wire_s": modeled}
 
 
+def replay_row(n: int, profiles=DEFAULT_PROFILES) -> dict:
+    """The figure's ``replay`` row: the microbench's route of N rows (one
+    shard, priced on at least 2 nodes, cap 2N/nodes) on the first
+    profile, as the JAX benchmark prices it."""
+    nodes = 2                  # max(2, shards) for the one shard it routes on
+    return route_replay_pricing(profiles[0], nodes, 2 * n // nodes,
+                                ROUTE_CHUNKS)
+
+
 def run(n: int, *, device=None, seed: int = 0, **kw) -> dict:
     """The whole figure: :func:`joins` (``kw`` goes there), then the
-    shuffle microbench with overlap on and off."""
+    shuffle microbench with overlap on and off and its replay pricing."""
     out = joins(n, device=device, seed=seed, **kw)
     on = shuffle_route_bench(n, device=device, overlap=True,
                              chunks=ROUTE_CHUNKS, seed=seed)
     off = shuffle_route_bench(n, device=device, seed=seed)
-    out["shuffle_route"] = {"rows": n, "overlap_on_s": on,
-                            "overlap_off_s": off, "chunks": ROUTE_CHUNKS}
+    out["shuffle_route"] = {
+        "rows": n, "overlap_on_s": on, "overlap_off_s": off,
+        "chunks": ROUTE_CHUNKS,
+        "replay": replay_row(n, kw.get("profiles", DEFAULT_PROFILES))}
     return out
 
 

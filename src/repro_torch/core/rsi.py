@@ -31,7 +31,7 @@ import numpy as np
 import torch
 
 from repro_torch._bits import (CID_MASK, LOCK_BIT, M32, np_to_i32, np_u32,
-                               resolve_device, to_i32, u32)
+                               put_rows, resolve_device, to_i32, u32)
 from repro_torch.fabric import LocalTransport
 
 WORD = torch.int32
@@ -174,13 +174,13 @@ def _install(transport, words, payload, cids, res2, r_local: int,
                             region=region_ns + "words")
     pay_idx = torch.where((r2["do_pay"] > 0) & (v2 > 0), lrec2, -1)
     sel = pay_idx >= 0
-    rows = pay_idx[sel].to(torch.int64)
-    if payload.shape[1] > 1:
-        # shift the committed rows' versions (read before any write)
-        payload[rows, 1:] = payload[rows, :-1]
-        cids[rows, 1:] = cids[rows, :-1]
-    payload[rows, 0] = r2["npay"][sel]
-    cids[rows, 0] = r2["val"][sel]
+    # the committed rows: the new version in slot 0, the older ones
+    # shifted by one (each row is read before any is written)
+    rows = pay_idx.clamp(min=0).to(torch.int64)
+    put_rows(payload, pay_idx, torch.cat(
+        [r2["npay"].unsqueeze(1), payload[rows, :-1]], 1), sel)
+    put_rows(cids, pay_idx, torch.cat(
+        [r2["val"].unsqueeze(1), cids[rows, :-1]], 1), sel)
     # install bytes are billed to the routed buffer; log the scatter
     # record-only for an attached race detector
     transport.record_access("WRITE", region_ns + "payload", pay_idx,
@@ -196,7 +196,7 @@ def _burn(transport, bitvec, cid, me, region_ns: str):
     bv_local = bitvec.shape[0]
     cbit = cid.to(torch.int32) - me * bv_local
     inr = (cbit >= 0) & (cbit < bv_local)
-    bitvec[cbit[inr].to(torch.int64)] = True
+    put_rows(bitvec, cbit, torch.ones_like(inr), inr)
     transport.record_access("WRITE", region_ns + "bitvec",
                             torch.where(inr, cbit, -1), region_len=bv_local)
     return bitvec

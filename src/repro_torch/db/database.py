@@ -465,9 +465,8 @@ class Database:
 
     def _planner_for(self, profile, load: int = 0) -> Planner:
         """The db's planner, or a per-(profile, load) one (same modeled
-        cluster) for sweeping the 1GbE -> EDR axis without touching db
-        state.  ``load > 0`` raises (the planner's contention pricing is
-        not ported)."""
+        cluster) for sweeping the 1GbE -> EDR axis and the tenant-load
+        axis without touching db state."""
         load = max(int(load), 0)
         if profile is None and load == self.planner.load:
             return self.planner
@@ -507,7 +506,10 @@ class Database:
     def explain(self, plan: Plan, *, profile=None, load: int = 0) -> Explain:
         """Costed alternatives for a plan, argmin first — no execution.
         ``profile`` prices the plan on another point of the network axis
-        (preset name or NetworkProfile) without changing db state."""
+        (preset name or NetworkProfile) without changing db state;
+        ``load`` prices it under that many concurrent tenant streams
+        (``sim.contended_profile``): the argmin under contention can
+        differ from the isolated one (fig10)."""
         kind, alts, inputs = self._analyze(plan,
                                            self._planner_for(profile, load))
         return Explain(plan.describe(), kind, tuple(alts), inputs)

@@ -14,8 +14,9 @@ observed wall clock, and later plans are priced with the observed wire
 rate.
 
 Planning under load (``load > 0``) derates the wire with the contention
-simulator (``fabric/sim.py``), which the port does not have yet:
-``Planner(load>0)`` raises ``NotImplementedError``.
+simulator: :func:`repro_torch.fabric.sim.contended_profile` measures the
+bandwidth a probe transfer gets while ``load`` tenant streams share its
+ingress, and the plans are priced on that profile.
 """
 from __future__ import annotations
 
@@ -24,7 +25,7 @@ from typing import List, Optional
 
 from repro_torch.core import costmodel
 from repro_torch.core.shuffle import JOIN_VARIANTS
-from repro_torch.fabric import netsim
+from repro_torch.fabric import netsim, sim
 
 AGG_VARIANTS = ("dist_agg", "rdma_agg")
 
@@ -60,10 +61,13 @@ class Planner:
     nodes:  cluster size the cost model assumes (the §5.4 deployment); the
             Database passes the transport's shard count, or the paper's
             4-node cluster for the single-shard degenerate case.
-    load:   concurrent tenant streams sharing the fabric.  Only 0 (an
-            isolated fabric, the classic analytic argmin) is supported
-            until the contention simulator (``fabric/sim.py``) is ported;
-            any other load raises ``NotImplementedError``.
+    load:   concurrent tenant streams sharing the fabric (0 = isolated,
+            the classic analytic argmin).  A non-zero load derates the
+            wire constant through ``sim.contended_profile``, so the plan
+            chosen under contention can differ from the isolated argmin
+            (the fig10 crossover: rrj ships full relations and loses its
+            fused-pass advantage as the wire degrades, while ghj_bloom
+            ships only the reduced fraction).
     """
 
     def __init__(self, net="rdma", nodes: int = 4, load: int = 0):
@@ -71,10 +75,7 @@ class Planner:
         self.net = net if isinstance(net, str) else self.profile.name
         self.nodes = max(int(nodes), 1)
         self.load = max(int(load), 0)
-        if self.load:
-            raise NotImplementedError(
-                f"Planner(load={self.load}): planning under load needs the "
-                "contention simulator (fabric/sim.py), not ported yet")
+        self._contended: Optional[netsim.NetworkProfile] = None
         self._c_net_measured: Optional[float] = None
 
     # ------------------------------------------------------- calibration --
@@ -120,12 +121,27 @@ class Planner:
         }[variant]
 
     @property
+    def loaded_profile(self) -> netsim.NetworkProfile:
+        """The profile as the simulator measures it under ``self.load``
+        concurrent tenant streams (the profile itself at load 0); the
+        contention simulation runs once per planner."""
+        if self.load == 0:
+            return self.profile
+        if self._contended is None:
+            self._contended = sim.contended_profile(self.profile, self.load)
+        return self._contended
+
+    @property
     def effective_net(self):
         """What t_net is priced with: the measured s/byte if calibrated,
-        else the network profile."""
+        else the (load-derated) network profile.  A calibrated constant is
+        scaled by the same simulated degradation the profile sees."""
         if self._c_net_measured is not None:
-            return self._c_net_measured
-        return self.profile
+            if self.load == 0:
+                return self._c_net_measured
+            scale = self.loaded_profile.c_net / self.profile.c_net
+            return self._c_net_measured * scale
+        return self.loaded_profile
 
     # -------------------------------------------------------------- joins --
 

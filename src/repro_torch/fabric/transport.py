@@ -16,9 +16,10 @@ trace time.  Under :class:`MeshTransport` a body runs once per shard, and
 only shard 0 counts: JAX traces a ``shard_map`` body once, so it counts
 each call site once, not once per shard.
 
-``recorder=`` and ``tracer=`` take the JAX package's hook objects (a
-schedule recorder and an event tracer, ported with the race detector and
-the contention simulator); with ``None`` they do nothing.
+``recorder=`` takes a :class:`~repro_torch.fabric.check.ScheduleRecorder`
+(the race detector's) and ``tracer=`` an
+:class:`~repro_torch.fabric.sim.EventTracer` (the contention simulator's);
+with ``None`` they do nothing.
 
 ``device=`` is where the transport's tensors live: the card unless the
 caller asks for the CPU (:func:`repro_torch._bits.resolve_device`).

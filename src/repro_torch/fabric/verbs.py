@@ -23,7 +23,7 @@ from dataclasses import dataclass, field
 
 import torch
 
-from repro_torch._bits import M32, to_i32, u32
+from repro_torch._bits import M32, put_rows, to_i32, u32
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import lex_winner as _lex_winner
 
@@ -125,8 +125,7 @@ def read(region_arr, idx):
 def write(region_arr, idx, values):
     """One-sided WRITE of rows, in place; indices outside [0, R) dropped."""
     keep = (idx >= 0) & (idx < region_arr.shape[0])
-    region_arr[idx[keep].to(torch.int64)] = values[keep].to(region_arr.dtype)
-    return region_arr
+    return put_rows(region_arr, idx, values, keep)
 
 
 def cas(words, idx, expected, new, priority=None, *, impl=None):

@@ -10,7 +10,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch._bits import LOCK_BIT, to_i32, u32
+from repro_torch._bits import LOCK_BIT, put_rows, to_i32, u32
 
 _IMAX = 2 ** 31 - 1
 
@@ -110,8 +110,7 @@ def cas(words, idx, expected, new, priority) -> torch.Tensor:
     cur = words[idx.clamp(0, R - 1).to(torch.int64)]
     match = (cur == expected) & (idx >= 0)
     ok = lex_winner(idx, priority, match, R)
-    write = ok & (idx < R)
-    words[idx[write].to(torch.int64)] = new[write]
+    put_rows(words, idx, new, ok & (idx < R))
     return ok
 
 

@@ -1,7 +1,7 @@
 """The port stands alone and runs on the card unless asked otherwise.
 
   * no module of ``src/repro_torch`` and not ``chip_smoke.py`` imports
-    ``jax`` or anything of the JAX package ``repro``;
+    ``jax``, anything of the JAX package ``repro`` or its ``benchmarks``;
   * with no card present, every entry point that was not given
     ``device=`` (the database, the transport, the store, the model's
     parameters, the serving engine and its launcher, the parameter
@@ -50,7 +50,7 @@ def _imported_modules(path: Path):
                          ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
 def test_port_imports_neither_jax_nor_repro(path):
     bad = [m for m in _imported_modules(path)
-           if m.split(".")[0] in ("jax", "jaxlib", "repro")]
+           if m.split(".")[0] in ("jax", "jaxlib", "repro", "benchmarks")]
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
@@ -62,7 +62,9 @@ def test_port_files_found():
             "analytics/paramserver.py", "analytics/__init__.py",
             "bench/fig9_ml.py", "train/optimizer.py", "train/trainer.py",
             "data/pipeline.py", "checkpoint/manager.py", "launch/train.py",
-            "bench/train.py", "tree.py"} <= names
+            "bench/train.py", "tree.py", "fabric/sim.py", "fabric/check.py",
+            "bench/workloads.py", "bench/fig10_contention.py",
+            "bench/fig_scale.py"} <= names
     assert ROOT / "chip_smoke.py" in PORT_FILES
     assert len(list((ROOT / "src" / "repro_torch" / "kernels" / "csrc")
                     .glob("*.cu"))) == 5

@@ -146,11 +146,16 @@ def test_execute_calibrate_installs_measured_rate():
 
 
 def test_planning_under_load_is_not_ported(cols):
-    with pytest.raises(NotImplementedError, match="sim"):
-        Planner(load=1)
-    db = _port_db(_jax_db(cols))
-    with pytest.raises(NotImplementedError, match="sim"):
-        db.explain(_join(db, 0.5), load=2)
+    """Planning under load, once missing from the port, now prices plans
+    on the contention simulator's derated profile, as JAX does."""
+    assert Planner(load=1).loaded_profile.name == "rdma_fdr4x+load1"
+    jdb = _jax_db(cols)
+    db = _port_db(jdb)
+    for load in (0, 2):
+        want = jdb.explain(_join(jdb, 0.5), load=load)
+        got = db.explain(_join(db, 0.5), load=load)
+        _same_alternatives(got.alternatives, want.alternatives)
+        assert got.inputs["load"] == want.inputs["load"] == load
     assert Planner(load=0).load == 0
 
 
