@@ -66,6 +66,20 @@ exits non-zero:
            reported); then ServeEngine(slots=8,
            max_seq=1024) serves 16 requests in two waves, each wave must
            launch cas_lock, and its tokens must equal a plain engine's
+  paged    paged serving (src/repro_torch/bench/serve.py paged_engine):
+           glm4-9b at its full config with bf16 weights drawn on the
+           card; ServeEngine(paged=True, slots=8, max_seq=1024,
+           block_tokens=16, max_resident=16, 128 cold blocks of 640 KiB)
+           takes the 16 requests at once, all-local, async at a 25 % hot
+           tier, blocking at 25 %, all-cold (1 hot block), and async on
+           the plain path: tokens equal to all-local's and the plain run
+           equal to the kernel run; lock words 0; cold reads and dirty
+           write-backs in every configuration but all-local, none there;
+           cas_lock once in each tick that claims a slot, no other
+           kernel; hit rate, read_cold/write_cold msgs and bytes, ms a
+           tick, tokens/s, the share of a tick outside the decode step,
+           peak memory.  Then Fig serve (bench/fig_serve.py) at the JAX
+           benchmark's sizes on the card, with its asserts
   shards   the n-shard fabric (MeshTransport(4) on the one card: a host
            thread a shard, collectives at a barrier): the radix and CAS
            kernels at the shards' shapes against their plain versions;
@@ -118,9 +132,9 @@ exits non-zero:
            128M recorded through an EventTracer on the kernel and the
            plain path (traces equal event for event, values equal to the
            ground truth) and replayed on every profile; fig8a's replay
-           row; then fabric-check on the card: every suite (0
-           violations) and one 4096-session checkout wave through a
-           ScheduleRecorder, race-checked (0 violations)
+           row; then fabric-check on the card: every suite (27
+           targets, 0 violations) and one 4096-session checkout wave
+           through a ScheduleRecorder, race-checked (0 violations)
 
 The kernels' f32 entries (flash_f32, ssd_kernel), which no timed path
 runs, are timed in phase kernels at the f32 witnesses' shapes, and their
@@ -131,11 +145,11 @@ line.
 Launch counts are set to 0 just before each path and read just after:
 the oltp sessions and commits, the olap queries (Database.execute
 alone), Fig 8b's kernel row, the one path of the f32 grouped_agg
-entry, in serve each timed prefill step and each engine wave, in
-shards the 4-shard oltp waves and the 4-shard queries, and in train
-each trainer run, Fig 9 and glm4's grad step, in scale every grouped
-wave, in contention each traced join and the recorded wave; each path
-must have launched every kernel it runs.  The gradient checks' launches
+entry, in serve each timed prefill step and each engine wave, in paged
+each tick of each engine run, in shards the 4-shard oltp waves and the
+4-shard queries, and in train each trainer run, Fig 9 and glm4's grad
+step, in scale every grouped wave, in contention each traced join and
+the recorded wave; each path must have launched every kernel it runs.  The gradient checks' launches
 count on no path.  The shuffle microbench's launches are reported beside
 it and counted on no path.
 Then three lines: the per-kernel JSON record (launches summed over the
@@ -147,6 +161,7 @@ paths named in its "paths"), the card's name and power limit
     python3 chip_smoke.py --out smoke.jsonl   # also keep every phase line
     python3 chip_smoke.py --phases env,build,shards   # the n-shard fabric
     python3 chip_smoke.py --phases env,build,train    # training
+    python3 chip_smoke.py --phases env,build,paged    # paged serving
     python3 chip_smoke.py --phases env,build,scale,contention   # under load
 """
 from __future__ import annotations
@@ -167,7 +182,7 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 peak
 BF16_FLOP_PER_S = 989e12           # H100 SXM dense bf16 tensor cores
 F32_FLOP_PER_S = 67e12             # H100 SXM float32 outside tensor cores
 PHASES = ("env", "build", "kernels", "oltp", "olap", "fig6", "serve",
-          "shards", "train", "scale", "contention")
+          "paged", "shards", "train", "scale", "contention")
 SERVE_ARCHS = {"glm4-9b": "flash_attention", "mamba2-370m": "ssd_scan"}
 ROW_TOL = 2 ** -6        # bf16, kernel vs plain: rms(diff) / rms(plain)
                          # per row (a query row of one head; an SSD output
@@ -207,6 +222,14 @@ SCALE_TXNS = 64          # fig_scale at the oltp store: transactions a
 SCALE_QUICK = (65_536, 16, 16)   # --quick: records, payload words, txns
 CONTENTION_VARIANTS = ("ghj", "rrj")
 JOIN_KERNELS = ("radix_partition_rank", "radix_partition_scatter")
+PAGED_ARCH = "glm4-9b"
+PAGED_CONFIGS = {"all_local": dict(hot_frac=1.0),      # paged engine runs
+                 "async": dict(hot_frac=0.25),         # (bench.serve.
+                 "blocking": dict(hot_frac=0.25, prefetch=False),  # paged_
+                 "all_cold": dict(hot_blocks=1)}       # engine keywords)
+PAGED_PLAIN = "async"            # the configuration also run on the plain
+                                 # path (impl="plain")
+CHECK_TARGETS = 27               # fabric-check: the JAX package's targets
 F32 = {"flash_f32": {}, "ssd_kernel": {}}   # the kernels' f32 entries:
                          # timed in phase kernels, launches counted where
                          # the f32 witnesses and gradient checks run them
@@ -1388,6 +1411,120 @@ def phase_fig6(quick: bool):
 
 # ----------------------------------------------------------- n shards ---
 
+def _paged_failures(name: str, run: dict, kernel: bool) -> list:
+    """The checks of one paged engine run: locks end free; all-local
+    moves no cold block, every other configuration pages (cold reads and
+    dirty write-backs); a kernel run launches cas_lock once in each tick
+    that claims a slot and nothing else, a plain run launches nothing."""
+    out = []
+    if not run["lock_words_zero"]:
+        out.append(f"{name}: slot locks left held")
+    c = run["store"]
+    if name == "all_local":
+        if c["misses"] or c["prefetched"] or c["writebacks"]:
+            out.append(f"all_local paged cold blocks: {c}")
+    elif not (c["misses"] + c["prefetched"] > 0 and c["writebacks"] > 0):
+        out.append(f"{name} did not page: {c}")
+    for i, t in enumerate(run["ticks"]):
+        want = int(kernel and t["claimed"])
+        other = {k: v for k, v in t["launches"].items()
+                 if v and k != "cas_lock"}
+        if t["launches"]["cas_lock"] != want or other:
+            out.append(f"{name} tick {i} launched {t['launches']}, claimed "
+                       f"{t['claimed']}")
+            break
+    return out
+
+
+def _paged_line(run: dict) -> dict:
+    """What the phase line keeps of one paged engine run."""
+    keep = ("seconds", "tick_ms", "step_ms", "tokens_per_s",
+            "new_tokens_per_s", "swap_share", "peak_bytes", "hot_blocks",
+            "block_bytes", "cold", "tiers")
+    return {**{k: run[k] for k in keep},
+            "hit_rate": run["store"]["hit_rate"],
+            "store": {k: run["store"][k] for k in (
+                "hits", "misses", "evictions", "writebacks", "prefetched",
+                "drops", "n_blocks")},
+            "ticks": len(run["ticks"]),
+            "claims": sum(t["claimed"] for t in run["ticks"]),
+            "launches": {k: v for k, v in _summed_launches(run).items()
+                         if v}}
+
+
+def _summed_launches(run: dict) -> dict:
+    """A paged run's launches: its ticks' counts, summed."""
+    return {k: sum(t["launches"][k] for t in run["ticks"])
+            for k in run["ticks"][0]["launches"]}
+
+
+def phase_paged(quick: bool, record: dict):
+    """glm4-9b at its full config (--quick: 4 layers) with bf16 weights
+    drawn on the card, through src/repro_torch/bench/serve.py's
+    paged_engine: ServeEngine(paged=True, slots=8, max_seq=1024,
+    block_tokens=16, max_resident=16) takes the 16 requests of
+    bench.serve.requests at once, in each of PAGED_CONFIGS and once more
+    on the plain path.  Every configuration's tokens must equal the
+    all-local run's, the plain run's the kernel run's; the lock words end
+    at 0; all-local moves no cold block and the others page; each tick is
+    counted between a reset and a read, and in a kernel run cas_lock
+    launches once in each tick that claims a slot and nothing else
+    launches.  Then Fig serve (bench/fig_serve.py) at the JAX benchmark's
+    sizes on the card, with its asserts (a), (b) and (c).  The phase line
+    is printed before a failure is raised."""
+    import torch
+    from repro_torch.bench import fig_serve, serve
+    t0 = time.perf_counter()
+    cfg = serve.config(PAGED_ARCH, 4 if quick else None)
+    params = serve.weights(cfg, device="cuda")
+    runs = {name: serve.paged_engine(cfg, params, **kw)
+            for name, kw in PAGED_CONFIGS.items()}
+    plain = serve.paged_engine(cfg, params, impl="plain",
+                               **PAGED_CONFIGS[PAGED_PLAIN])
+    del params
+    torch.cuda.empty_cache()
+    failures = []
+    base = runs["all_local"]["outs"]
+    if len(base) != serve.REQUESTS or any(
+            len(o) != serve.MAX_NEW for o in base.values()):
+        failures.append(f"all_local finished {len(base)} requests")
+    for name, run in runs.items():
+        if run["outs"] != base:
+            failures.append(f"{name} tokens differ from all_local's")
+        failures += _paged_failures(name, run, kernel=True)
+    if plain["outs"] != runs[PAGED_PLAIN]["outs"]:
+        failures.append("the plain engine's tokens differ from the "
+                        "kernel engine's")
+    failures += _paged_failures(f"plain {PAGED_PLAIN}", plain,
+                                kernel=False)
+    tf = time.perf_counter()
+    try:
+        rows, extras = fig_serve.run(timed=True, device="cuda")
+        fig = {"rows": rows, "recovery": extras["recovery"],
+               "workload": extras["workload"],
+               "record_s": extras["measured_s"],
+               "counters": {k: v["counters"]
+                            for k, v in extras["configs"].items()}}
+    except AssertionError as e:
+        failures.append(f"fig_serve: {e}")
+        fig = None
+    emit("paged", arch=PAGED_ARCH, layers=cfg.num_layers,
+         slots=serve.SLOTS, max_seq=serve.MAX_SEQ,
+         block_tokens=serve.BLOCK_TOKENS, max_resident=serve.MAX_RESIDENT,
+         capacity_blocks=serve.CAPACITY_BLOCKS,
+         runs={name: _paged_line(r) for name, r in runs.items()},
+         plain={PAGED_PLAIN: _paged_line(plain)},
+         tokens_equal=all(r["outs"] == base for r in runs.values()),
+         plain_equal=plain["outs"] == runs[PAGED_PLAIN]["outs"],
+         fig_serve=fig, fig_serve_s=time.perf_counter() - tf,
+         failures=failures, seconds=time.perf_counter() - t0, gpu=smi())
+    if failures:
+        raise AssertionError("paged: " + "; ".join(failures))
+    for name, run in runs.items():
+        _count(("cas_lock",), _summed_launches(run), record,
+               f"paged {name}")
+
+
 def check_shard_shapes(quick: bool, record: dict):
     """The rank, the scatter and the CAS bit-exact against their plain
     versions at the shapes the 4-shard path gives them: a commit shard's
@@ -2359,9 +2496,10 @@ def phase_contention(quick: bool, record: dict):
          oltp_width={"products": OLTP.num_products,
                      "record_bytes": OLTP.record_bytes},
          seconds=time.perf_counter() - t0, gpu=smi())
-    if summ["violations"] or not rep.ok:
-        raise AssertionError(f"fabric-check on the card: "
-                             f"{summ['violations']} {wave['violations']}")
+    if summ["violations"] or not rep.ok or len(reports) != CHECK_TARGETS:
+        raise AssertionError(f"fabric-check on the card: {len(reports)} "
+                             f"targets, {summ['violations']} "
+                             f"{wave['violations']}")
 
 
 def _leaves(tree):
@@ -2422,8 +2560,8 @@ def main(argv=None) -> int:
     }
     paths = {"radix_partition_rank": "oltp, olap, scale, contention",
              "radix_partition_scatter": "oltp, olap, scale, contention",
-             "cas_lock": "oltp, serve engine waves, scale, contention "
-                         "recorded wave",
+             "cas_lock": "oltp, serve engine waves, paged ticks, scale, "
+                         "contention recorded wave",
              "grouped_agg": "fig8b kernel row", "grouped_sum_u32": "olap",
              "flash_attention": "serve glm4-9b prefill",
              "ssd_scan": "serve mamba2-370m prefill"}
@@ -2443,6 +2581,8 @@ def main(argv=None) -> int:
         phase_fig6(args.quick)
     if "serve" in phases:
         phase_serve(args.quick, record)
+    if "paged" in phases:
+        phase_paged(args.quick, record)
     if "shards" in phases:
         phase_shards(args.quick, record)
     if "train" in phases:

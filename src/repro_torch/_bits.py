@@ -76,14 +76,19 @@ def np_u32(x) -> np.ndarray:
 
 def resolve_device(device=None) -> torch.device:
     """The port's device rule: ``None`` means the card, and a missing card
-    raises; the CPU runs only when the caller asks for it."""
+    raises; the CPU runs only when the caller asks for it.  A card named
+    without an index is the current one, so ``"cuda"`` and the device of
+    a tensor made on it compare equal."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError("no CUDA device is available; pass "
                                "device='cpu' to run on the CPU")
         return torch.device("cuda", torch.cuda.current_device())
     device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {device} requested but CUDA is not "
-                           "available")
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"device {device} requested but CUDA is "
+                               "not available")
+        if device.index is None:
+            return torch.device("cuda", torch.cuda.current_device())
     return device

@@ -18,6 +18,11 @@ seed 0:
 * :func:`engine`: ``ServeEngine(slots, max_seq)`` runs ``requests``
   requests (prompts of 16-64 tokens from a numpy seed, ``max_new`` new
   tokens each) in waves of ``slots``; launches are counted per wave.
+* :func:`paged_engine`: the same requests, all enqueued at once, through
+  ``ServeEngine(paged=True)`` (``max_resident`` of them in the two-tier
+  block space, ``slots`` decoding a round); launches, CAS claims and
+  seconds are taken per tick, and the seconds of each decode step apart
+  from those of the swaps around it.
 """
 from __future__ import annotations
 
@@ -38,6 +43,11 @@ from repro_torch.train.train_step import build_prefill_step
 # (batch, seq) of the prefill path per architecture
 PREFILL = {"glm4-9b": (1, 8192), "mamba2-370m": (8, 8192)}
 SLOTS, MAX_SEQ, REQUESTS, MAX_NEW = 8, 1024, 16, 32
+# the paged engine: 16 requests resident over 8 slots, 16-token blocks; a
+# cold region of 128 blocks holds the requests' peak of 98 live blocks
+# (JAX's fig_serve sizes its region the same way), so a 25 % hot tier is
+# 32 blocks, below that peak
+BLOCK_TOKENS, MAX_RESIDENT, CAPACITY_BLOCKS = 16, 16, 128
 PROMPT_LENS = (16, 64)
 KERNELS = ("flash_attention", "ssd_scan")     # the model path's kernels
 NUDGE = 2.0 ** -20     # relative, about the kernel and plain paths' f32
@@ -289,3 +299,71 @@ def engine(cfg, params, *, slots: int = SLOTS, max_seq: int = MAX_SEQ,
             "peak_bytes": _peak(dev),
             "lock_words_zero": bool((eng.slot_words == 0).all()),
             "fabric": eng.db.fabric_stats()}
+
+
+def paged_engine(cfg, params, *, slots: int = SLOTS, max_seq: int = MAX_SEQ,
+                 block_tokens: int = BLOCK_TOKENS,
+                 max_resident: int = MAX_RESIDENT,
+                 capacity_blocks: int = CAPACITY_BLOCKS, impl=None,
+                 n: int = REQUESTS, max_new: int = MAX_NEW, **kw) -> dict:
+    """Enqueue the requests at once and tick a paged engine until all have
+    finished.  ``kw`` goes to ``ServeEngine`` (``hot_frac``,
+    ``hot_blocks``, ``prefetch``).  Each tick runs between a reset and a
+    read of the launch counts, on the host clock with the device
+    synchronized on both sides; its decode step is timed apart, after a
+    synchronize that ends the swaps' device work, so a tick's seconds
+    split into the step's and the rest (swap-out, swap-in, prefetch and
+    the slot claim)."""
+    reqs = requests(cfg, n=n, max_new=max_new)
+    dev = params["embed"].device
+    eng = ServeEngine(cfg, params, slots=slots, max_seq=max_seq, paged=True,
+                      block_tokens=block_tokens, max_resident=max_resident,
+                      capacity_blocks=capacity_blocks, device=dev, impl=impl,
+                      **kw)
+    step, step_s = eng._step, []
+
+    def timed_step(tok):
+        out, s = _sync_s(lambda: step(tok), dev)
+        step_s.append(s)
+        return out
+    eng._step = timed_step
+    for r in reqs:
+        eng.enqueue(r)
+    tp = eng.db.transport
+    _reset_peak(dev)
+    ticks, outs = [], {}
+    while eng.resident or eng.waiting:
+        claims = tp.stats().get("cas", {}).get("calls", 0)
+        ops.reset_launch_counts()
+        done, s = _sync_s(eng.tick, dev)
+        ticks.append({"s": s, "step_s": step_s[-1],
+                      "claimed": tp.stats().get("cas", {}).get(
+                          "calls", 0) > claims,
+                      "launches": ops.launch_counts()})
+        outs.update({r.rid: list(r.out) for r in done})
+    eng.quiesce()
+    del eng._step            # the timer holds the engine: free it now
+    secs = sum(t["s"] for t in ticks)
+    step_secs = sum(t["step_s"] for t in ticks)
+    new = sum(len(o) for o in outs.values())
+    prompt = sum(len(r.prompt) for r in reqs)
+    fab = eng.db.fabric_stats()
+    tick_ms = [t["s"] * 1e3 for t in ticks]
+    return {"outs": outs, "ticks": ticks, "seconds": secs,
+            "tick_ms": {"median": statistics.median(tick_ms),
+                        "max": max(tick_ms)},
+            "tokens_per_s": (new + prompt) / secs,
+            "new_tokens_per_s": new / secs,
+            "swap_share": (secs - step_secs) / secs,
+            "step_ms": {"median": statistics.median(
+                [t["step_s"] * 1e3 for t in ticks])},
+            "peak_bytes": _peak(dev),
+            "lock_words_zero": bool((eng.slot_words == 0).all()),
+            "store": eng.store.stats(),
+            "hot_blocks": eng.store.hot_blocks,
+            "block_bytes": eng.kv.block_words * 4,
+            "cold": {v: {k: fab.get(v, {}).get(k, 0)
+                         for k in ("calls", "msgs", "bytes")}
+                     for v in ("read_cold", "write_cold")},
+            "tiers": fab.get("tiers"),
+            "fabric": fab}

@@ -607,11 +607,22 @@ class Database:
     def fabric_stats(self) -> dict:
         """Cumulative per-verb message/byte counters, plus a ``"txn"``
         pseudo-verb with the commit/abort/retry economics once any
-        transaction has committed through this database."""
+        transaction has committed through this database, and a ``"tiers"``
+        pseudo-verb with the hot-tier hit rate of each verb once any verb
+        ran tiered (``read_hot``/``read_cold``, ``write_hot``/
+        ``write_cold``)."""
         stats = dict(self.transport.stats())
         if any(self.txn_stats.values()):
             stats["txn"] = {"calls": self.txn_stats["commits"]
                             + self.txn_stats["aborts"],
                             "msgs": 0, "bytes": 0, **self.txn_stats}
+        rates = {}
+        for verb in ("read", "write"):
+            hot = stats.get(f"{verb}_hot", {}).get("msgs", 0)
+            cold = stats.get(f"{verb}_cold", {}).get("msgs", 0)
+            if hot + cold:
+                rates[f"{verb}_hot_rate"] = hot / (hot + cold)
+        if rates:
+            stats["tiers"] = {"calls": 0, "msgs": 0, "bytes": 0, **rates}
         return stats
 

@@ -6,6 +6,11 @@
   route()    the radix-into-fixed-buffers router: one packed wire buffer
              per route, ``RoutePlan``/``plan_route`` for slot reuse; on
              the card the rank and the scatter are hand-written kernels
+  tier       ``NamPool.alloc_tiered`` + ``TieredStore``: a bounded local
+             hot tier in front of a cold region, clock/LRU eviction,
+             signaled dirty write-back, one batched async prefetch; cold
+             traffic counts as ``read_cold``/``write_cold``, hot hits as
+             local ``read_hot``/``write_hot``
   transports ``LocalTransport`` (one shard) and ``MeshTransport`` (n
              shards on one device, a host thread each, collectives at a
              barrier), counting messages and bytes per verb
@@ -30,14 +35,17 @@ from repro_torch.fabric.router import (RoutePlan, RouteResult, bucket_ranks,
                                        chunked_all_to_all, pack_fields,
                                        packed_row_words, plan_route, route,
                                        unpack_fields)
+from repro_torch.fabric.tier import TieredStore
 from repro_torch.fabric.transport import (LocalTransport, MeshTransport,
                                           ShardFailure, Transport,
                                           make_transport)
-from repro_torch.fabric.verbs import (Completion, NamPool, Region, cas,
-                                      fetch_add, read, write)
+from repro_torch.fabric.verbs import (Completion, NamPool, Region,
+                                      TieredRegion, cas, fetch_add, read,
+                                      write)
 
 __all__ = [
     "NamPool", "Region", "read", "write", "cas", "fetch_add", "Completion",
+    "TieredRegion", "TieredStore",
     "route", "RouteResult", "RoutePlan", "plan_route", "bucket_ranks",
     "pack_fields", "unpack_fields", "packed_row_words", "chunked_all_to_all",
     "Transport", "LocalTransport", "MeshTransport", "ShardFailure",

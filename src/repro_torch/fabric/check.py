@@ -54,9 +54,9 @@ torch tensors: it copies index tensors to the host while it is attached
 cpu]`` lints the hot-path targets on a ``MeshTransport(4)`` and
 race-checks eager schedules of the real protocols on a
 ``LocalTransport``, and ends in ``fabriccheck: N targets, M rules, K
-violation(s)``.  The JAX package's ``serve`` suite (and the ``fig_serve``
-figure it gates) needs the tiered store and the paged engine, which the
-port does not have yet.
+violation(s)``: the JAX package's 27 targets, its ``serve`` suite (the
+paged engine's page-in and swap-out, and its recorded schedules)
+included.
 """
 from __future__ import annotations
 
@@ -941,6 +941,43 @@ def lint_ps_push(device=None) -> Report:
                    target="paramserver.push")
 
 
+def lint_paged_decode(blocks: int = 2, device=None) -> List[Report]:
+    """Lint the paged-decode data paths: page-in (one batched one-sided
+    READ of cold KV blocks unpacked bit-exact into the dense decode state)
+    and swap-out (the inverse pack).  Both stay sort-free, host-free and
+    collective-free: residency is host bookkeeping, and paging is pure
+    one-sided traffic.  The slot claim (``Table.claim_locks``, which
+    returns the claimed rows to the host) is not a paging op and is not
+    linted, as in the JAX package."""
+    from repro_torch.fabric import verbs
+    from repro_torch.serving.paging import PagedKV
+    dev = resolve_device(device)
+    slots, max_seq, bk = 2, 32, 8
+
+    def cache():
+        return torch.zeros((2, slots, max_seq, 4), dtype=torch.bfloat16,
+                           device=dev)
+    state = {"caches": {"k": cache(), "v": cache()},
+             "pos": torch.zeros((), dtype=torch.int32, device=dev)}
+    kv = PagedKV(state, slots=slots, max_seq=max_seq, block_tokens=bk)
+    cold = torch.zeros((16, kv.block_words), dtype=torch.int32, device=dev)
+    js = list(range(blocks))
+
+    def page_in(cold, state):
+        rows = verbs.read(cold, torch.arange(blocks, dtype=torch.int32,
+                                             device=dev))
+        return kv.insert_blocks(state, 1, js, rows)
+
+    def swap_out(state):
+        return kv.extract_blocks(state, 1, js)
+
+    rules = HOT_PATH_RULES + (CollectiveBudget({"all_to_all": 0}),)
+    return [lint_fn(page_in, cold, state, rules=rules,
+                    target=f"serve/page_in[{blocks}b]"),
+            lint_fn(swap_out, state, rules=rules,
+                    target=f"serve/swap_out[{blocks}b]")]
+
+
 # -------------------------------------- canned protocol race schedules ---
 
 
@@ -1127,11 +1164,43 @@ def race_grouped_commit(max_retries: int = 1, device=None) -> Report:
                           target=f"rsi/grouped[retries={max_retries}]")
 
 
+def record_paged_decode(*, hot_frac: float = 0.25, prefetch: bool = True,
+                        device=None) -> ScheduleRecorder:
+    """Run a real paged serving engine (the tiny model, more resident
+    requests than dense slots, so every round swaps KV blocks through the
+    two-tier store) through a recording transport and return the
+    schedule.  It records clean because of the shipped ordering edges:
+    write-backs are signaled WRITEs, slot releases are signaled, and every
+    prefetch Completion is waited before its blocks are used."""
+    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.db import Database
+    from repro_torch.models import api
+    from repro_torch.serving.engine import Request, ServeEngine
+    rec, tp = _recording(device)
+    cfg = reduce_config(get_config("glm4-9b"))
+    params = api.init_params(cfg, device=tp.device)
+    eng = ServeEngine(cfg, params, slots=2, max_seq=64, db=Database(tp),
+                      paged=True, block_tokens=8, max_resident=4,
+                      hot_frac=hot_frac, prefetch=prefetch)
+    reqs = [Request(rid=i, prompt=np.array([2 + i, 5], np.int32),
+                    max_new_tokens=3) for i in range(4)]
+    eng.run(reqs)
+    eng.quiesce()
+    return rec
+
+
+def race_paged_decode(*, hot_frac: float = 0.25, prefetch: bool = True,
+                      device=None) -> Report:
+    return check_schedule(
+        record_paged_decode(hot_frac=hot_frac, prefetch=prefetch,
+                            device=device),
+        target=f"serve/paged[hot={hot_frac:g}"
+               f"{',prefetch' if prefetch else ''}]")
+
+
 # ------------------------------------------------------- CLI plumbing ----
 
-#: each suite takes the device.  The JAX package's "serve" suite is not
-#: here: it needs the tiered store and the paged engine (ROADMAP queue 1
-#: item 7).
+#: each suite takes the device.
 SUITES: Dict[str, Callable[..., List[Report]]] = {
     "route": lambda d: [lint_route(1, device=d), lint_route(5, device=d),
                         lint_route(3, chunks=4, device=d),
@@ -1159,9 +1228,18 @@ SUITES: Dict[str, Callable[..., List[Report]]] = {
     "scale": lambda d: [lint_commit_grouped(3, d),
                         lint_commit_grouped(1, d),
                         race_grouped_commit(1, d)],
+    # the page-in and swap-out packs stay sort-free, host-free and
+    # collective-free, and the real paged engine's schedule (signaled
+    # write-backs and slot releases, waited prefetches) records clean with
+    # a cold tier in play and in the all-hot release/re-claim regime
+    "serve": lambda d: [*lint_paged_decode(2, d),
+                        race_paged_decode(hot_frac=0.25, prefetch=True,
+                                          device=d),
+                        race_paged_decode(hot_frac=1.0, prefetch=False,
+                                          device=d)],
 }
 
-#: which check suites gate each paper figure (fig_serve needs "serve").
+#: which check suites gate each paper figure.
 FIGURE_SUITES: Dict[str, Tuple[str, ...]] = {
     "fig2": ("verbs", "route"),
     "fig6": ("rsi", "2pc"),
@@ -1171,6 +1249,7 @@ FIGURE_SUITES: Dict[str, Tuple[str, ...]] = {
     "fig9": ("paramserver", "route"),
     "fig10": ("sim", "route"),
     "fig_scale": ("scale", "rsi"),
+    "fig_serve": ("serve", "sim"),
 }
 
 

@@ -119,7 +119,10 @@ class Transport:
 
     def stats(self) -> dict:
         """{verb: {calls, msgs, bytes, peak_outstanding, queue_hist
-        [, modeled_s]}} accumulated since reset."""
+        [, modeled_s]}} accumulated since reset.  Tiered verbs count under
+        suffixed keys: ``read_cold`` is wire traffic to a cold region,
+        ``read_hot`` a hot-tier hit counted by :meth:`count_local` (no
+        ``modeled_s``, never in :meth:`modeled_time`)."""
         out = {}
         for src in (self._stats, self._local_stats):
             for k, v in src.items():
@@ -167,15 +170,25 @@ class Transport:
         return self.recorder.record(verb, region, idx,
                                     region_len=arr.shape[0], **kw)
 
-    def read(self, region_arr, idx, *, region=None):
-        self._count("read", idx.numel(),
+    @staticmethod
+    def _tiered(verb: str, tier) -> str:
+        """Counter key of a verb call on a tier of a
+        :class:`~repro_torch.fabric.verbs.TieredRegion`: ``read`` ->
+        ``read_cold``.  The recorder still sees the plain READ or WRITE
+        (races are tier-blind); the counters, the modeled time and the
+        tracer carry the tier."""
+        return f"{verb}_{tier}" if tier else verb
+
+    def read(self, region_arr, idx, *, region=None, tier=None):
+        self._count(self._tiered("read", tier), idx.numel(),
                     idx.numel() * _row_bytes(region_arr))
         out = _verbs.read(region_arr, idx)
         self._record("READ", region, idx, region_arr)
         return out
 
-    def write(self, region_arr, idx, values, *, region=None):
-        self._count("write", idx.numel(), _nbytes(values))
+    def write(self, region_arr, idx, values, *, region=None, tier=None):
+        self._count(self._tiered("write", tier), idx.numel(),
+                    _nbytes(values))
         out = _verbs.write(region_arr, idx, values)
         self._record("WRITE", region, idx, region_arr)
         return out
@@ -202,19 +215,21 @@ class Transport:
         on_wait = (lambda: rec.complete(acc)) if acc is not None else None
         return _verbs.Completion(value, on_wait=on_wait)
 
-    def read_async(self, region_arr, idx, *, region=None):
+    def read_async(self, region_arr, idx, *, region=None, tier=None):
         """Async READ: counts and computes like :meth:`read`; the access is
         recorded deferred and its fence fires at ``wait()``."""
-        self._count("read", idx.numel(),
+        self._count(self._tiered("read", tier), idx.numel(),
                     idx.numel() * _row_bytes(region_arr))
         out = _verbs.read(region_arr, idx)
         return self._deferred(out, self._record("READ", region, idx,
                                                 region_arr, deferred=True))
 
-    def write_async(self, region_arr, idx, values, *, region=None):
+    def write_async(self, region_arr, idx, values, *, region=None,
+                    tier=None):
         """Async WRITE: ``wait()`` is a signaled write (a completion
         fence the plain WRITE never has)."""
-        self._count("write", idx.numel(), _nbytes(values))
+        self._count(self._tiered("write", tier), idx.numel(),
+                    _nbytes(values))
         out = _verbs.write(region_arr, idx, values)
         return self._deferred(out, self._record("WRITE", region, idx,
                                                 region_arr, deferred=True))

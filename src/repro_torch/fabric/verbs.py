@@ -27,8 +27,8 @@ from repro_torch._bits import M32, put_rows, to_i32, u32
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import lex_winner as _lex_winner
 
-__all__ = ["Region", "NamPool", "Completion", "read", "write", "cas",
-           "fetch_add", "_lex_winner"]
+__all__ = ["Region", "TieredRegion", "NamPool", "Completion", "read",
+           "write", "cas", "fetch_add", "_lex_winner"]
 
 
 @dataclass(frozen=True)
@@ -37,6 +37,26 @@ class Region:
     shape: tuple
     dtype: object
     logical_axes: tuple
+
+
+@dataclass(frozen=True)
+class TieredRegion:
+    """Descriptor of a two-tier block region: a bounded LOCAL hot tier in
+    front of a disaggregated cold region.  Only the cold tier is a NAM
+    region (``cold``: fixed-size u32 blocks, reached by one-sided READ and
+    WRITE); the hot tier is client memory of ``hot_blocks`` rows that
+    never crosses the wire.  :class:`repro_torch.fabric.tier.TieredStore`
+    keeps the residency."""
+
+    name: str
+    n_blocks: int
+    block_words: int
+    hot_blocks: int
+    cold: Region
+
+    @property
+    def hot_fraction(self) -> float:
+        return self.hot_blocks / self.n_blocks
 
 
 @dataclass
@@ -53,6 +73,24 @@ class NamPool:
         r = Region(name, tuple(shape), dtype, la)
         self.regions[name] = r
         return r
+
+    def alloc_tiered(self, name: str, n_blocks: int, block_words: int, *,
+                     hot_blocks: int) -> TieredRegion:
+        """Allocate a two-tier block region: the cold ``(n_blocks,
+        block_words)`` u32 region in the pool, and a bound of
+        ``hot_blocks`` local rows in front of it, clamped to [1, n_blocks]
+        (1: the all-cold staging buffer; n_blocks: the all-local
+        baseline)."""
+        n_blocks = int(n_blocks)
+        block_words = int(block_words)
+        if n_blocks < 1 or block_words < 1:
+            raise ValueError("alloc_tiered needs n_blocks >= 1 and "
+                             "block_words >= 1")
+        hot_blocks = max(1, min(int(hot_blocks), n_blocks))
+        cold = self.alloc(name, (n_blocks, block_words), torch.int32)
+        return TieredRegion(name=name, n_blocks=n_blocks,
+                            block_words=block_words, hot_blocks=hot_blocks,
+                            cold=cold)
 
     def zeros(self, device) -> dict:
         return {n: torch.zeros(r.shape, dtype=r.dtype, device=device)

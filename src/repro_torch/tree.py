@@ -12,8 +12,8 @@ import math
 
 import torch
 
-__all__ = ["TreeDef", "tree_flatten", "tree_unflatten", "leaves", "tree_map",
-           "ravel"]
+__all__ = ["TreeDef", "tree_flatten", "tree_flatten_with_path",
+           "tree_unflatten", "leaves", "tree_map", "ravel"]
 
 
 class TreeDef:
@@ -55,6 +55,24 @@ def tree_flatten(tree):
         leaves += sub
         children.append(td)
     return leaves, TreeDef(kind, keys, children)
+
+
+def tree_flatten_with_path(tree):
+    """([(path, leaf)], TreeDef) in :func:`tree_flatten`'s order, as
+    ``jax.tree_util.tree_flatten_with_path`` gives them: ``path`` is the
+    tuple of keys from the root to the leaf, a dict key or a list/tuple
+    index each."""
+    flat, td = tree_flatten(tree)
+    return list(zip(_paths(td, ()), flat)), td
+
+
+def _paths(td: TreeDef, prefix: tuple):
+    if td.kind == "leaf":
+        yield prefix
+        return
+    keys = td.keys if td.kind == "dict" else range(len(td.children))
+    for k, child in zip(keys, td.children):
+        yield from _paths(child, prefix + (k,))
 
 
 def _build(td: TreeDef, it):

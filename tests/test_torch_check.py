@@ -8,11 +8,12 @@ detector, held against the JAX package's ``repro.fabric.check``.
     unsignaled lock release) runs on both packages' transports and
     reports the same violations: rule, region and detail;
   * **real schedules**: the session waves, the PS trainer loop, the
-    windowed and overlapped routes and the pipelined and grouped commits
-    record clean, access for access and fence for fence as JAX records
-    them (both eager);
+    windowed and overlapped routes, the pipelined and grouped commits and
+    the paged serving engine record clean, access for access and fence
+    for fence as JAX records them (both eager);
   * **lint**: the hot paths lint clean on ``MeshTransport(4)`` with JAX's
-    budgets (one exchange a route direction, 3 a commit wave), the
+    budgets (one exchange a route direction, 3 a commit wave), the paged
+    decode's page-in and swap-out with none, the
     FETCH_ADD's sort is reported as a declared exemption, and seeded
     faults are each flagged: a sort, an extra exchange, a ``.item()``, a
     bool-mask index or another op sized by the data, and a float wire;
@@ -362,6 +363,10 @@ RECORDED = {
     "overlapped_route": lambda c, **k: c.record_overlapped_route(**k),
     "pipelined_commit": lambda c, **k: c.record_pipelined_commit(2, **k),
     "grouped_commit": lambda c, **k: c.record_grouped_commit(1, **k),
+    "paged_decode": lambda c, **k: c.record_paged_decode(
+        hot_frac=0.25, prefetch=True, **k),
+    "paged_decode_all_hot": lambda c, **k: c.record_paged_decode(
+        hot_frac=1.0, prefetch=False, **k),
 }
 
 
@@ -561,11 +566,30 @@ def test_budget_regressions_both_directions():
 # --------------------------------------------------- CLI + summaries -----
 
 def test_suites_mirror_jax_but_serve():
-    assert set(check.SUITES) == set(jcheck.SUITES) - {"serve"}
-    assert check.FIGURE_SUITES == {k: v for k, v in
-                                   jcheck.FIGURE_SUITES.items()
-                                   if k != "fig_serve"}
+    """Every suite and figure of the JAX package, the serve suite and
+    fig_serve included (the name is older than the serve suite's port)."""
+    assert set(check.SUITES) == set(jcheck.SUITES)
+    assert check.FIGURE_SUITES == jcheck.FIGURE_SUITES
+    assert check.FIGURE_SUITES["fig_serve"] == ("serve", "sim")
     assert check.SCHEDULE_RULES == jcheck.SCHEDULE_RULES
+
+
+def test_paged_decode_lints_clean():
+    """Page-in and swap-out: sort-free, host-free, collective-free, with
+    JAX's targets."""
+    reps = check.lint_paged_decode(2, device="cpu")
+    assert [r.target for r in reps] == ["serve/page_in[2b]",
+                                        "serve/swap_out[2b]"]
+    for rep in reps:
+        assert rep.ok, rep.render()
+        assert not rep.exempted
+
+
+def test_serve_suite_targets_equal_jax():
+    reps = check.run_suite("serve", "cpu")
+    assert [r.target for r in reps] == [r.target for r in
+                                        jcheck.run_suite("serve")]
+    assert all(r.ok for r in reps), [r.render() for r in reps]
 
 
 def test_cli_all_figures_pass_with_the_final_line(tmp_path, capsys):
@@ -575,7 +599,7 @@ def test_cli_all_figures_pass_with_the_final_line(tmp_path, capsys):
     text = capsys.readouterr().out
     assert rc == 0
     assert text.strip().splitlines()[-1] == \
-        "fabriccheck: 23 targets, 9 rules, 0 violation(s)"
+        "fabriccheck: 27 targets, 9 rules, 0 violation(s)"
     assert "exempt [sort-free]" in text          # -q still prints it
     payload = json.loads(out.read_text())
     assert payload["ok"] and payload["violations"] == []

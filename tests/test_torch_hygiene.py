@@ -64,7 +64,8 @@ def test_port_files_found():
             "data/pipeline.py", "checkpoint/manager.py", "launch/train.py",
             "bench/train.py", "tree.py", "fabric/sim.py", "fabric/check.py",
             "bench/workloads.py", "bench/fig10_contention.py",
-            "bench/fig_scale.py"} <= names
+            "bench/fig_scale.py", "fabric/tier.py", "serving/paging.py",
+            "bench/fig_serve.py"} <= names
     assert ROOT / "chip_smoke.py" in PORT_FILES
     assert len(list((ROOT / "src" / "repro_torch" / "kernels" / "csrc")
                     .glob("*.cu"))) == 5
@@ -103,6 +104,18 @@ def test_entry_points_raise_without_a_card(no_card):
     assert Database(device="cpu").device == torch.device("cpu")
     assert ServeEngine(cfg, params, device="cpu").device == \
         torch.device("cpu")
+
+
+def test_a_card_named_without_an_index_is_the_current_one(monkeypatch):
+    """``"cuda"`` resolves to the current card's index, as a tensor made on
+    it reports, so an engine given ``device="cuda"`` accepts parameters
+    drawn there (no card is touched: both calls are stubbed)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 3)
+    assert resolve_device("cuda") == torch.device("cuda", 3)
+    assert resolve_device(None) == torch.device("cuda", 3)
+    assert resolve_device("cuda:1") == torch.device("cuda", 1)
+    assert resolve_device("cpu") == torch.device("cpu")
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():

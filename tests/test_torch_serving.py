@@ -8,10 +8,11 @@
   differ from JAX's by no more than twice JAX's own bf16 error (its bf16
   logits against its f32 ones), as in tests/test_torch_models.py.
 * The prefill step's tokens equal JAX's ``build_prefill_step``'s (f32).
-* ``paged=True`` raises; the launcher runs on the CPU; the card's serve
-  runner (``repro_torch.bench.serve``) rehearses at a small size, and its
-  layer check reads above ``chip_smoke.ROW_TOL`` when the plain path has
-  the faults of ``chip_smoke``'s controls.
+* The paged engine's tokens equal the JAX paged engine's (f32), and
+  mamba2 refuses paged mode as JAX does; the launcher runs on the CPU;
+  the card's serve runner (``repro_torch.bench.serve``) rehearses at a
+  small size, and its layer check reads above ``chip_smoke.ROW_TOL`` when
+  the plain path has the faults of ``chip_smoke``'s controls.
 """
 import dataclasses
 import importlib.util
@@ -133,10 +134,32 @@ def test_prefill_step_matches_jax_f32(models, monkeypatch):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
-def test_paged_mode_not_ported(models):
-    _, cfg, _, tp = models
-    with pytest.raises(NotImplementedError, match="item 7"):
-        ServeEngine(cfg, tp, paged=True, device="cpu")
+def test_paged_mode_not_ported(models, monkeypatch):
+    """Paged mode is ported: glm4's paged engine (2 slots, 4 resident, a
+    2-block hot tier) decodes the JAX paged engine's tokens in f32 and
+    frees its slot locks; mamba2, with no sequence leaf to page, raises
+    JAX's ValueError in both packages."""
+    jcfg, cfg, jp, tp = models
+    _act(monkeypatch, "f32")
+    jcfg = dataclasses.replace(jcfg)
+    kw = dict(slots=2, max_seq=64, paged=True, block_tokens=8,
+              max_resident=4, hot_blocks=2)
+    reqs = _waves(n_waves=1, slots=6)[0]
+    if cfg.family == "ssm":
+        with pytest.raises(ValueError, match="seq-axis leaf"):
+            JEngine(jcfg, jp, **kw)
+        with pytest.raises(ValueError, match="seq-axis leaf"):
+            ServeEngine(cfg, tp, device="cpu", **kw)
+        return
+    je = JEngine(jcfg, jp, **kw)
+    te = ServeEngine(cfg, tp, device="cpu", **kw)
+    jout = {r.rid: r.out for r in je.run(
+        [JRequest(rid=i, prompt=p, max_new_tokens=m) for i, p, m in reqs])}
+    tout = {r.rid: r.out for r in te.run(
+        [Request(rid=i, prompt=p, max_new_tokens=m) for i, p, m in reqs])}
+    assert len(tout) == 6 and tout == jout
+    assert te.store.counters == je.store.counters
+    assert not bool(te.slot_words.any())
 
 
 def test_engine_refuses_parameters_elsewhere(models):
