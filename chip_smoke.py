@@ -22,7 +22,9 @@ exits non-zero:
            and at glm4's S = 8192, where a control with one key tile
            dropped must read above ROW_TOL; ssd_scan within 2e-3 in f32
            and, in bf16, y within 2e-2 and the f32 state within 2e-3, over
-           SSD_SWEEP and at mamba2's layer), radix_partition also at the
+           SSD_SWEEP and at mamba2's layer; the MLA entry of flash in bf16
+           over MLA_SWEEP and at deepseek's layer (q.k 192, v 128), with a
+           dropped-tile control there), radix_partition also at the
            joins' A = 128 000 000 and its rank alone at 2^24 requests into
            8 and 64 buckets, then each timed at the
            main paths' shapes (per call between CUDA events, and its device
@@ -66,6 +68,24 @@ exits non-zero:
            reported); then ServeEngine(slots=8,
            max_seq=1024) serves 16 requests in two waves, each wave must
            launch cas_lock, and its tokens must equal a plain engine's
+  moe      the MoE and MLA model stack (bench/serve.py): llama4-maverick at
+           full width cut to 2 of 48 layers (a dense and an MoE layer:
+           128 experts of d_ff 8192 at top-1 and a shared expert) and
+           deepseek-v2 at full width cut to 5 of 60 layers (the dense
+           first layer and four MoE layers of 160 experts at top-6 and 2
+           shared, MLA with q.k 192 / v 128), bf16 weights drawn on the
+           card from seed 0; jamba-1.5-large at reduce_config only (one
+           period of its layers at full width passes the card).  For each:
+           the prefill step (B 1, S 8192; median of 3 after a warm-up)
+           must launch exactly MOE_ARCHS' kernels (flash_attention or its
+           MLA entry once an attention layer, the rank once an MoE layer,
+           where it packs the experts' rows, ssd_scan once an SSM layer);
+           every layer's kernel against its plain version and every MoE
+           layer's packed experts against the reference loop on their own
+           inputs within ROW_TOL, each with a faulty control above it (a
+           dropped key tile, a dropped expert, a lost state); the rank at
+           the dispatch's shape timed; a 16-request engine whose tokens
+           must equal a plain engine's, lock words 0; peak memory
   paged    paged serving (src/repro_torch/bench/serve.py paged_engine):
            glm4-9b at its full config with bf16 weights drawn on the
            card; ServeEngine(paged=True, slots=8, max_seq=1024,
@@ -145,7 +165,8 @@ line.
 Launch counts are set to 0 just before each path and read just after:
 the oltp sessions and commits, the olap queries (Database.execute
 alone), Fig 8b's kernel row, the one path of the f32 grouped_agg
-entry, in serve each timed prefill step and each engine wave, in paged
+entry, in serve and moe each timed prefill step and each engine wave, in
+paged
 each tick of each engine run, in shards the 4-shard oltp waves and the
 4-shard queries, and in train each trainer run, Fig 9 and glm4's grad
 step, in scale every grouped wave, in contention each traced join and
@@ -162,6 +183,7 @@ paths named in its "paths"), the card's name and power limit
     python3 chip_smoke.py --phases env,build,shards   # the n-shard fabric
     python3 chip_smoke.py --phases env,build,train    # training
     python3 chip_smoke.py --phases env,build,paged    # paged serving
+    python3 chip_smoke.py --phases env,build,moe      # MoE and MLA models
     python3 chip_smoke.py --phases env,build,scale,contention   # under load
 """
 from __future__ import annotations
@@ -182,7 +204,7 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 peak
 BF16_FLOP_PER_S = 989e12           # H100 SXM dense bf16 tensor cores
 F32_FLOP_PER_S = 67e12             # H100 SXM float32 outside tensor cores
 PHASES = ("env", "build", "kernels", "oltp", "olap", "fig6", "serve",
-          "paged", "shards", "train", "scale", "contention")
+          "moe", "paged", "shards", "train", "scale", "contention")
 SERVE_ARCHS = {"glm4-9b": "flash_attention", "mamba2-370m": "ssd_scan"}
 ROW_TOL = 2 ** -6        # bf16, kernel vs plain: rms(diff) / rms(plain)
                          # per row (a query row of one head; an SSD output
@@ -222,6 +244,30 @@ SCALE_TXNS = 64          # fig_scale at the oltp store: transactions a
 SCALE_QUICK = (65_536, 16, 16)   # --quick: records, payload words, txns
 CONTENTION_VARIANTS = ("ghj", "rrj")
 JOIN_KERNELS = ("radix_partition_rank", "radix_partition_scatter")
+# phase moe: arch -> (layers, reduce_config?, what a prefill step launches)
+MOE_ARCHS = {
+    "llama4-maverick-400b-a17b": (2, False, {"flash_attention": 2,
+                                             "radix_partition_rank": 1}),
+    "deepseek-v2-236b": (5, False, {"flash_attention_mla": 5,
+                                    "radix_partition_rank": 4}),
+    "jamba-1.5-large-398b": (None, True, {"flash_attention": 2,
+                                          "ssd_scan": 2,
+                                          "radix_partition_rank": 2}),
+}
+MOE_CUTS = {
+    "llama4-maverick-400b-a17b":
+        "full width, 2 of 48 layers: one period (a dense and an MoE layer), "
+        "18.7 B parameters, 37 GB in bf16; four layers would pass the card",
+    "deepseek-v2-236b":
+        "full width, 5 of 60 layers: the dense first layer and four MoE "
+        "layers, 17.3 B parameters, 35 GB in bf16",
+    "jamba-1.5-large-398b":
+        "reduce_config only: one 8-layer period at full width holds four MoE "
+        "layers of 16 x 604 M = 9.66 B parameters each, 77 GB in bf16 before "
+        "the SSM, attention and embeddings, more than the card's 80 GB; a "
+        "chip's share of its experts needs the sharding policy (ROADMAP "
+        "item 8)",
+}
 PAGED_ARCH = "glm4-9b"
 PAGED_CONFIGS = {"all_local": dict(hot_frac=1.0),      # paged engine runs
                  "async": dict(hot_frac=0.25),         # (bench.serve.
@@ -274,27 +320,54 @@ def time_ms(fn, *, setup=None, iters=20, warmup=3):
     return statistics.median(out)
 
 
-def device_ms(fn, kernels, *, setup=None, iters=20) -> float:
-    """Mean device milliseconds per call of ``fn()`` spent in the named
-    kernels and in fills (``torch.profiler``): the kernel's own time,
-    without the host work of its wrapper.  ``setup()`` runs before each
-    call; its copies are not counted."""
+LEAD_OPS = 8             # throwaway device ops that open a profiled trace
+LEAD_GAP_S = 1e-3        # host seconds between them and the measured calls
+MEASURED = "chip_smoke.measured"   # the range around them (the profiler
+                                   # also lists it as a device event)
+
+
+def device_events(fn, *, setup=None, iters: int) -> list:
+    """The device events (kernels, copies, fills) of ``iters`` calls of
+    ``fn()`` under ``torch.profiler``, ``setup()`` before each.  A trace can
+    lose its first device records (on the H100 machines, up to three: every
+    launch is in the host's runtime records, its kernel not), so each trace
+    opens with LEAD_OPS throwaway fills, a sync and a LEAD_GAP_S pause, and
+    only device events that start after half that pause count (and not
+    the MEASURED range itself)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
     fn()
+    lead = torch.zeros(1, device="cuda")
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            if setup is not None:
-                setup()
-            fn()
+        for _ in range(LEAD_OPS):
+            lead.add_(1)
         torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and (e.name.startswith("Memset")
-                  or any(f"::{k}{c}" in e.name for k in kernels
-                         for c in "(<")))
+        time.sleep(LEAD_GAP_S)
+        with record_function(MEASURED):
+            for _ in range(iters):
+                if setup is not None:
+                    setup()
+                fn()
+            torch.cuda.synchronize()
+    events = prof.events()
+    t0 = next(e.time_range.start for e in events if e.name == MEASURED)
+    cut = t0 - LEAD_GAP_S * 1e6 / 2                    # microseconds
+    return [e for e in events
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.time_range.start >= cut and e.name != MEASURED]
+
+
+def device_ms(fn, kernels, *, setup=None, iters=20) -> float:
+    """Mean device milliseconds per call of ``fn()`` spent in the named
+    kernels and in fills (:func:`device_events`): the kernel's own time,
+    without the host work of its wrapper.  ``setup()`` runs before each
+    call; its copies are not counted."""
+    us = sum(e.time_range.elapsed_us()
+             for e in device_events(fn, setup=setup, iters=iters)
+             if e.name.startswith("Memset")
+             or any(f"::{k}{c}" in e.name for k in kernels for c in "(<"))
     if us == 0:
         raise AssertionError(f"the profiler saw none of {kernels}")
     return us / 1e3 / iters
@@ -321,20 +394,10 @@ def host_ms(fn, *, setup=None, iters=50, warmup=5) -> float:
 
 def device_ops(fn, *, iters=10) -> dict:
     """Device operations (kernels, copies, fills) per call of ``fn()`` by
-    name, from ``torch.profiler``."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
+    name (:func:`device_events`)."""
     names: dict = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            names[e.name] = names.get(e.name, 0) + 1
+    for e in device_events(fn, iters=iters):
+        names[e.name] = names.get(e.name, 0) + 1
     return {k: v / iters for k, v in names.items()}
 
 
@@ -955,6 +1018,20 @@ SSD_SWEEP = (       # (B, S, H, hd, N): tests/test_kernels.py:70-74, then
     (1, 130, 2, 16, 1024),
     (1, 150, 3, 20, 40),
 )
+MLA_SWEEP = (       # (B, S, T, H, KH, D, Dv, causal), bf16: the MLA entry
+    (1, 1, 1, 16, 16, 192, 128, True),  # (192, 128) at ragged S (one row,
+    (2, 127, 127, 16, 16, 192, 128, True),   # either side of a 128-row
+    (1, 129, 129, 8, 2, 192, 128, True),     # tile, many tiles), with GQA,
+    (1, 1000, 1000, 16, 16, 192, 128, True),  # non-causal ragged T, and
+    (1, 129, 300, 8, 8, 192, 128, False),    # widths padded into it; then
+    (1, 200, 200, 4, 4, 136, 72, True),      # unequal widths on the
+    (1, 130, 130, 4, 2, 128, 64, True),      # (128, 128) and (64, 64)
+    (1, 100, 100, 4, 4, 64, 32, True),       # bodies; last, K and V past
+    (1, 1000, 1000, 128, 128, 192, 128, True),  # half the L2, so blocks
+    (1, 2048, 2048, 64, 32, 128, 128, True),    # take query tiles fastest
+)
+MLA_PATH = (1, 8192, 128, 192, 128)     # deepseek prefill: B, S, H = KH,
+                                        # D (q.k), Dv
 FLASH_PATH = (1, 8192, 32, 2, 128)      # glm4 prefill: B, S, H, KH, D
 SSD_PATH = (8, 8192, 32, 64, 128)       # mamba2 prefill: B, S, H, hd, N
 
@@ -1099,6 +1176,110 @@ def time_flash(record: dict) -> dict:
     return t
 
 
+def _attn_flops(B, S, H, D, Dv) -> int:
+    """Operations of causal attention: 2 (D + Dv) H per unmasked (query,
+    key) pair, S (S + 1) / 2 pairs."""
+    return 2 * B * H * (D + Dv) * S * (S + 1) // 2
+
+
+def check_mla(stats: dict, record: dict) -> int:
+    """The flash kernel's MLA entry (bf16, q.k width up to 192, v up to
+    128): over MLA_SWEEP against ref.flash_attention within 2e-2 and each
+    row within ROW_TOL; the f32 body must refuse unequal widths; then at
+    deepseek's layer (MLA_PATH, causal), held the same way with a
+    dropped-tile control above ROW_TOL, timed beside its plain version and
+    scaled_dot_product_attention on the same q, k, v (timed only: the port
+    never calls it; it takes E_v != E on its non-math backends).  Bound:
+    the larger of the causal operations (:func:`_attn_flops`) at 989
+    TFLOP/s and q, k, v, o once at 3.35 TB/s."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from repro_torch.bench.serve import row_rel_err
+    from repro_torch.kernels import flash_attention as fa, ref
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(23)
+    cases = 0
+    for B, S, T, H, KH, D, Dv, causal in MLA_SWEEP:
+        q = _normal(g, (B, S, H, D), torch.bfloat16, dev)
+        k = _normal(g, (B, T, KH, D), torch.bfloat16, dev)
+        v = _normal(g, (B, T, KH, Dv), torch.bfloat16, dev)
+        got = fa.flash_attention(q, k, v, causal=causal).float()
+        want = ref.flash_attention(q, k, v, causal=causal).float()
+        row = row_rel_err(got, want)
+        where = f"B={B} S={S} T={T} H={H} KH={KH} D={D} Dv={Dv} " \
+                f"causal={causal}"
+        if got.shape != (B, S, H, Dv) or not torch.allclose(
+                got, want, atol=2e-2, rtol=2e-2) or row > ROW_TOL:
+            raise AssertionError(
+                f"flash MLA entry off: {where}: max "
+                f"{float((got - want).abs().max())}, row {row}")
+        stats["flash_mla"] = max(stats["flash_mla"],
+                                 float((got - want).abs().max()))
+        stats["flash_mla_row"] = max(stats["flash_mla_row"], row)
+        cases += 1
+    q32 = torch.zeros((1, 8, 2, 192), device=dev)
+    try:
+        fa.flash_attention(q32, q32, q32[..., :128])
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("flash_f32 took unequal widths")
+    B, S, H, D, Dv = MLA_PATH
+    q = _normal(g, (B, S, H, D), torch.bfloat16, dev)
+    k = _normal(g, (B, S, H, D), torch.bfloat16, dev)
+    v = _normal(g, (B, S, H, Dv), torch.bfloat16, dev)
+    got = fa.flash_attention(q, k, v).float()
+    want = ref.flash_attention(q, k, v).float()
+    err = float((got - want).abs().max())
+    row = row_rel_err(got, want)
+    close = torch.allclose(got, want, atol=2e-2, rtol=2e-2)
+    del got
+    control = row_rel_err(_attn_tile_dropped(q, k, v), want)
+    del want
+    if not close or not row <= ROW_TOL < control:
+        raise AssertionError(f"flash MLA entry at deepseek's layer: max "
+                             f"{err} (limit 2e-2), row error {row}, control "
+                             f"{control}, limit {ROW_TOL}")
+    stats["flash_mla"] = max(stats["flash_mla"], err)
+    stats["flash_mla_row"] = max(stats["flash_mla_row"], row)
+    torch.cuda.empty_cache()
+    flops = _attn_flops(B, S, H, D, Dv)
+    nbytes = 2 * (q.numel() + k.numel() + 2 * v.numel())
+    t = {"ms": time_ms(lambda: fa.flash_attention(q, k, v), iters=10),
+         "device_ms": device_ms(lambda: fa.flash_attention(q, k, v),
+                                fa.KERNELS["mla"], iters=5),
+         "plain_ms": time_ms(lambda: ref.flash_attention(q, k, v), iters=2,
+                             warmup=1),
+         "bound_ms": max(bound_ms(nbytes), flops / BF16_FLOP_PER_S * 1e3),
+         "bound_by": ("operations" if flops / BF16_FLOP_PER_S
+                      > nbytes / HBM_BYTES_PER_S else "bytes"),
+         "flops": flops, "bytes": nbytes, "path_max_abs_err": err,
+         "path_row_err": row, "path_row_err_control": control,
+         "sweep_cases": cases,
+         "shape": {"B": B, "S": S, "H": H, "KH": H, "D": D, "Dv": Dv,
+                   "dtype": "bf16", "causal": True}}
+    torch.cuda.empty_cache()
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    backends = [SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+                SDPBackend.CUDNN_ATTENTION]
+    try:
+        with sdpa_kernel(backends):
+            t["library_ms"] = time_ms(
+                lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                       is_causal=True),
+                iters=10)
+    except RuntimeError as e:       # a yardstick only: no fused backend
+        t["library_ms"] = None      # takes these widths
+        t["library_error"] = str(e)[:300]
+    t["tflop_per_s"] = flops / t["ms"] / 1e9
+    t["bound_share"] = t["bound_ms"] / t["ms"]
+    record["flash_attention_mla"].update(t)
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    return t
+
+
 def time_f32_entries() -> dict:
     """The f32 entries of flash_attention (``flash_f32``, an FMA body) and
     ssd_scan (``ssd_kernel``, the recurrence) at the shapes of the f32
@@ -1238,9 +1419,10 @@ def phase_kernels(quick: bool, record: dict):
                            "flash_attention", "ssd_scan"])
     err = {"rank": 0, "scatter": 0, "cas": 0, "grouped_agg": 0.0,
            "flash_f32": 0.0, "flash_bf16": 0.0, "flash_bf16_row": 0.0,
-           "ssd": 0.0}
+           "flash_mla": 0.0, "flash_mla_row": 0.0, "ssd": 0.0}
     t0 = time.perf_counter()
     nf = check_flash(err)
+    mla = check_mla(err, record)
     ns = check_ssd(err)
     nr = check_radix(quick, err)
     nc = check_cas(quick, err)
@@ -1251,10 +1433,12 @@ def phase_kernels(quick: bool, record: dict):
     record["cas_lock"]["max_abs_err"] = err["cas"]
     record["grouped_agg"]["max_abs_err"] = err["grouped_agg"]
     record["grouped_sum_u32"]["max_abs_err"] = 0
+    record["flash_attention_mla"]["max_abs_err"] = err["flash_mla"]
     record["flash_attention"]["max_abs_err"] = max(err["flash_f32"],
                                                    err["flash_bf16"])
     record["ssd_scan"]["max_abs_err"] = err["ssd"]
     timing = {"flash_attention": time_flash(record),
+              "flash_attention_mla": mla,
               "ssd_scan": time_ssd(record),
               "f32_entries": time_f32_entries()}
     time_kernels(record)
@@ -1263,7 +1447,8 @@ def phase_kernels(quick: bool, record: dict):
         for k in OLTP_KERNELS})
     timing.update(time_grouped(quick, record))
     timing.update(time_radix_join(quick))
-    emit("kernels_checked", flash_cases=nf, ssd_cases=ns, radix_cases=nr,
+    emit("kernels_checked", flash_cases=nf,
+         flash_mla_cases=mla["sweep_cases"], ssd_cases=ns, radix_cases=nr,
          cas_cases=nc, grouped_agg_cases=ng, radix_join_A=join_a,
          max_abs_err=err, seconds=time.perf_counter() - t0, gpu=smi(),
          timing=timing)
@@ -1751,7 +1936,7 @@ def _attn_tile_dropped(q, k, v, *, causal: bool = True):
     kk = k.float().repeat_interleave(G, dim=2)
     vv = v.float().repeat_interleave(G, dim=2)
     kpos = torch.arange(k.shape[1], device=q.device)
-    out = torch.empty_like(q)
+    out = q.new_empty((B, S, H, v.shape[-1]))
     for s0 in range(0, S, 1024):
         qc = q[:, s0:s0 + 1024].float()
         qpos = torch.arange(s0, s0 + qc.shape[1], device=q.device)[:, None]
@@ -1777,11 +1962,42 @@ def _ssd_state_dropped(xh, bv, cv, dt, a, state0=None):
     return torch.cat([y1, y2], dim=1), st
 
 
+def _moe_expert_dropped(cfg, mcfg, p, x):
+    """moe._moe_reference with one expert left out (the first choice of
+    the first token, so it has work), as a dispatch that lost an expert's
+    rows would compute."""
+    import torch
+    from repro_torch.models import moe
+    B, S, D = x.shape
+    xt = x.reshape(-1, D)
+    vals, idx, _ = moe._gates(mcfg, xt, p["router"])
+    drop = int(idx[0, 0])
+    out = torch.zeros_like(xt)
+    for e in range(mcfg.num_experts):
+        if e == drop:
+            continue
+        w = torch.where(idx == e, vals, 0.0).sum(-1)
+        y = moe._expert_ffn(xt, p["wi"][e].to(x.dtype),
+                            p["wo"][e].to(x.dtype))
+        out = out + y * w[:, None].to(x.dtype)
+    return out.reshape(B, S, D)
+
+
 @contextlib.contextmanager
 def faulty_plain(kernel: str):
     """Within the block, ``ops.<kernel>`` with impl="plain" runs the faulty
-    control above; the kernel path is left alone."""
+    control above; the kernel path is left alone.  ``"moe"``: the MoE
+    reference loop (the packed experts' plain version) drops an expert."""
     from repro_torch.kernels import ops
+    if kernel == "moe":
+        from repro_torch.models import moe
+        orig = moe._moe_reference
+        moe._moe_reference = _moe_expert_dropped
+        try:
+            yield
+        finally:
+            moe._moe_reference = orig
+        return
     orig = getattr(ops, kernel)
     fault = {"flash_attention": _attn_tile_dropped,
              "ssd_scan": _ssd_state_dropped}[kernel]
@@ -1898,6 +2114,126 @@ def phase_serve(quick: bool, record: dict):
         for w in eng["waves"]:
             _count(("cas_lock",), w["launches"], record,
                    f"serve {arch} engine wave")
+        del pre, eng, plain
+
+
+def time_dispatch_rank(T: int, k: int, E: int) -> dict:
+    """The rank at an MoE dispatch's shape: A = T k distinct-per-token
+    expert ids (seed 24) into E buckets of cap T, held bit-exact to its
+    plain version and timed beside it.  Bound: the ids read once and the
+    slot (int32), keep and overflow (bool) and counts written once, at
+    3.35 TB/s.  No single PyTorch call computes a stable rank."""
+    import torch
+    from repro_torch.kernels import radix_partition as rp, ref
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(24)
+    dest = torch.rand((T, E), generator=g, device=dev).argsort(
+        -1)[:, :k].sort(-1).values.reshape(-1).to(torch.int32).contiguous()
+    got, want = rp.rank(dest, E, T), ref.rank(dest, E, T)
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError(f"rank at the dispatch shape T={T} k={k} "
+                             f"E={E} differs from its plain version")
+    A = dest.numel()
+    nbytes = 4 * A + 4 * A + 2 * A + 4 * E
+    return {"A": A, "n": E, "cap": T,
+            "ms": time_ms(lambda: rp.rank(dest, E, T), iters=20),
+            "device_ms": device_ms(lambda: rp.rank(dest, E, T),
+                                   rp.KERNELS["rank"], iters=10),
+            "plain_ms": time_ms(lambda: ref.rank(dest, E, T), iters=5),
+            "bound_ms": bound_ms(nbytes), "bound_by": "bytes",
+            "library_ms": None, "max_abs_err": 0}
+
+
+def phase_moe(quick: bool, record: dict):
+    """MOE_ARCHS through src/repro_torch/bench/serve.py (--quick: S=1024).
+    Each timed prefill step must launch exactly its MOE_ARCHS kernels,
+    each engine wave cas_lock and nothing else; the kernel engine's tokens
+    must equal the plain engine's; the lock words end at 0; the layer
+    check (every kernel against its plain version, every MoE layer's
+    packed experts against the reference loop, on their own inputs at
+    every position) within ROW_TOL, and a faulty control of each kind on
+    the first group above it.  No f32 witness: these cuts' f32 weights
+    take about 70 GB.  The phase line is printed before a failure is
+    raised."""
+    import torch
+    from repro_torch.bench import serve
+    for arch, (layers, reduced, want) in MOE_ARCHS.items():
+        cfg = serve.config(arch, layers, reduced=reduced)
+        batch, seq = serve.PREFILL[arch]
+        seq = 1024 if quick else seq
+        t0 = time.perf_counter()
+        params = serve.weights(cfg, device="cuda")
+        torch.cuda.synchronize()
+        leaves = list(_leaves(params))
+        nbytes = sum(t.numel() * t.element_size() for t in leaves)
+        nparams = sum(t.numel() for t in leaves)
+        del leaves
+        pre = serve.prefill(cfg, params, batch=batch, seq=seq)
+        tokens = serve.prompt(cfg, batch, seq, params["embed"].device)
+        layers_ = serve.layer_check(cfg, params, tokens)
+        controls = {}
+        for kind in sorted(set(layers_["kinds"])):
+            with faulty_plain(kind):
+                got = serve.layer_check(cfg, params, tokens, groups=1)
+            controls[kind] = max(r for r, kd in zip(got["per_layer"],
+                                                    got["kinds"])
+                                 if kd == kind)
+        layers_["control"] = controls
+        del tokens
+        torch.cuda.empty_cache()
+        eng = serve.engine(cfg, params)
+        plain = serve.engine(cfg, params, impl="plain")
+        m = cfg.moe
+        rank = time_dispatch_rank(batch * seq, m.top_k, m.num_experts)
+        del params
+        torch.cuda.empty_cache()
+        failures = []
+        for launches in pre["launches"]:
+            got = {k: v for k, v in launches.items() if v}
+            if got != want:
+                failures.append(f"prefill launched {got}, not {want}")
+        if not pre["full"]["finite"]:
+            failures.append("prefill logits not finite")
+        if not pre["full"]["step_agrees"]:
+            failures.append("the prefill step's token is not the argmax of "
+                            "its logits")
+        n_moe = want["radix_partition_rank"]
+        n_reads = sum(want.values())
+        if len(layers_["per_layer"]) != n_reads \
+                or layers_["kinds"].count("moe") != n_moe:
+            failures.append(f"the layer check read {layers_['kinds']}")
+        if layers_["max"] > ROW_TOL:
+            failures.append(f"layer reading {layers_['worst_layer']} "
+                            f"({layers_['kinds'][layers_['worst_layer']]}) "
+                            f"differs from its plain version by "
+                            f"{layers_['max']} > {ROW_TOL}")
+        for kind, c in controls.items():
+            if not c > ROW_TOL:
+                failures.append(f"the layer check read {c} on a faulty "
+                                f"plain {kind}, not above {ROW_TOL}")
+        if any(v for w in plain["waves"] for v in w["launches"].values()):
+            failures.append("the plain engine launched a kernel")
+        if eng["outs"] != plain["outs"]:
+            failures.append("engine tokens differ from the plain engine's")
+        if not (eng["lock_words_zero"] and plain["lock_words_zero"]):
+            failures.append("the engine left slot locks held")
+        if len(eng["outs"]) != serve.REQUESTS:
+            failures.append(f"the engine finished {len(eng['outs'])} "
+                            "requests")
+        emit("moe", arch=arch, cut=MOE_CUTS[arch], layers=cfg.num_layers,
+             params=nparams, weights_bytes=nbytes, prefill=pre,
+             layer_check=layers_, layer_check_held_to=ROW_TOL,
+             engine={k: v for k, v in eng.items() if k != "outs"},
+             engine_plain_s=plain["seconds"],
+             tokens_equal=eng["outs"] == plain["outs"], dispatch_rank=rank,
+             failures=failures, seconds=time.perf_counter() - t0, gpu=smi())
+        if failures:
+            raise AssertionError(f"moe {arch}: " + "; ".join(failures))
+        for launches in pre["launches"]:
+            _count(tuple(want), launches, record, f"moe {arch} prefill")
+        for w in eng["waves"]:
+            _count(("cas_lock",), w["launches"], record,
+                   f"moe {arch} engine wave")
         del pre, eng, plain
 
 
@@ -2554,17 +2890,23 @@ def main(argv=None) -> int:
         "flash_attention": {
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:67"},
+        "flash_attention_mla": {
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:67"},
         "ssd_scan": {
             "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
             "replaces": "src/repro/kernels/ssd_scan.py:55"},
     }
-    paths = {"radix_partition_rank": "oltp, olap, scale, contention",
+    paths = {"radix_partition_rank": "oltp, olap, moe prefill (expert "
+                                     "packing), scale, contention",
              "radix_partition_scatter": "oltp, olap, scale, contention",
-             "cas_lock": "oltp, serve engine waves, paged ticks, scale, "
-                         "contention recorded wave",
+             "cas_lock": "oltp, serve and moe engine waves, paged ticks, "
+                         "scale, contention recorded wave",
              "grouped_agg": "fig8b kernel row", "grouped_sum_u32": "olap",
-             "flash_attention": "serve glm4-9b prefill",
-             "ssd_scan": "serve mamba2-370m prefill"}
+             "flash_attention": "serve glm4-9b prefill, moe llama4 and "
+                                "jamba prefill",
+             "flash_attention_mla": "moe deepseek-v2-236b prefill",
+             "ssd_scan": "serve mamba2-370m prefill, moe jamba prefill"}
     for name, r in record.items():
         r.update(route="cuda", launches=0, paths=paths[name])
     if "env" in phases:
@@ -2581,6 +2923,8 @@ def main(argv=None) -> int:
         phase_fig6(args.quick)
     if "serve" in phases:
         phase_serve(args.quick, record)
+    if "moe" in phases:
+        phase_moe(args.quick, record)
     if "paged" in phases:
         phase_paged(args.quick, record)
     if "shards" in phases:

@@ -1,9 +1,9 @@
 """Model serving on the card: a prefill step and the dense engine.
 
-The library behind ``chip_smoke.py`` phase ``serve``.  For one
-architecture at its full published config (``config(arch, layers)`` cuts
-the depth for a quick look), with bf16 weights drawn on the device from
-seed 0:
+The library behind ``chip_smoke.py`` phases ``serve`` and ``moe``.  For
+one architecture at its full published config (``config(arch, layers)``
+cuts the depth; ``reduced=True`` takes ``reduce_config``'s twin), with
+bf16 weights drawn on the device from seed 0:
 
 * :func:`prefill`: ``build_prefill_step`` on a (batch, seq) prompt of
   random tokens, one warm-up step, then ``iters`` timed steps (host clock
@@ -11,7 +11,8 @@ seed 0:
   kernel launch counts; the full-depth last-position logits of the kernel
   path against the plain path (``impl="plain"``); one profiled step.
 * :func:`layer_check`: every layer's kernel against its plain version on
-  that layer's own inputs in a kernel-path forward, at every position.
+  that layer's own inputs in a kernel-path forward, at every position,
+  and every MoE layer's packed experts against the reference loop.
 * :func:`f32_witness`: the full-depth logits of both paths with f32
   weights and activations, and of the plain path against itself with its
   embedding nudged.
@@ -34,14 +35,18 @@ import numpy as np
 import torch
 
 from repro_torch._bits import resolve_device
-from repro_torch.configs import get_config
-from repro_torch.kernels import flash_attention, ops, ssd_scan
-from repro_torch.models import api, lm
+from repro_torch.configs import get_config, reduce_config
+from repro_torch.kernels import flash_attention, ops, radix_partition, \
+    ssd_scan
+from repro_torch.models import api, lm, moe
 from repro_torch.serving import Request, ServeEngine
 from repro_torch.train.train_step import build_prefill_step
 
 # (batch, seq) of the prefill path per architecture
-PREFILL = {"glm4-9b": (1, 8192), "mamba2-370m": (8, 8192)}
+PREFILL = {"glm4-9b": (1, 8192), "mamba2-370m": (8, 8192),
+           "llama4-maverick-400b-a17b": (1, 8192),
+           "deepseek-v2-236b": (1, 8192),
+           "jamba-1.5-large-398b": (1, 8192)}
 SLOTS, MAX_SEQ, REQUESTS, MAX_NEW = 8, 1024, 16, 32
 # the paged engine: 16 requests resident over 8 slots, 16-token blocks; a
 # cold region of 128 blocks holds the requests' peak of 98 live blocks
@@ -55,8 +60,12 @@ NUDGE = 2.0 ** -20     # relative, about the kernel and plain paths' f32
                        # error, 9.5e-7)
 
 
-def config(arch: str, layers=None):
+def config(arch: str, layers=None, *, reduced: bool = False):
+    """The published config (``reduce_config``'s twin if ``reduced``), cut
+    to ``layers`` layers if given."""
     cfg = get_config(arch)
+    if reduced:
+        cfg = reduce_config(cfg)
     return cfg if layers is None else dataclasses.replace(cfg,
                                                           num_layers=layers)
 
@@ -79,7 +88,7 @@ def prompt(cfg, batch: int, seq: int, device) -> torch.Tensor:
 def last_logits(cfg, params, tokens, *, impl=None) -> torch.Tensor:
     """f32 logits of the last position (the prefill step's argmax input);
     the head runs on that position alone."""
-    x = lm.forward_hidden(cfg, params, tokens, impl=impl)
+    x, _ = lm.forward_hidden(cfg, params, tokens, impl=impl)
     return lm._head(cfg, params, x[:, -1:])[:, 0].float()
 
 
@@ -162,12 +171,15 @@ def prefill(cfg, params, *, batch: int, seq: int, iters: int = 3,
 def layer_check(cfg, params, tokens, *, groups=None) -> dict:
     """A forward over ``tokens`` on the kernel path in which every kernel
     call (``ops.flash_attention``, ``ops.ssd_scan``) is also run plain on
-    the same inputs: each layer's kernel, on that layer's own inputs, held
-    at every position by :func:`row_rel_err` (rows along the head width).
-    The forward carries the kernel's output on, so no layer's difference
-    carries into the next one's reading.  ``groups`` cuts the forward to
-    the first groups."""
-    readings = []
+    the same inputs, and every MoE layer's packed experts
+    (``moe._moe_packed``, which ranks on the kernel) also as the reference
+    loop (``moe._moe_reference``): each layer, on its own inputs, held at
+    every position by :func:`row_rel_err` (rows along the head or model
+    width).  The forward carries the kernel path's output on, so no
+    layer's difference carries into the next one's reading.  ``groups``
+    cuts the forward to the first groups.  ``per_layer`` lists the
+    readings in call order, ``kinds`` what each read."""
+    readings, kinds = [], []
 
     def both(name, fn):
         def call(*args, impl=None, **kw):
@@ -177,20 +189,32 @@ def layer_check(cfg, params, tokens, *, groups=None) -> dict:
                 readings.append(row_rel_err(out[0], plain[0]))
             else:
                 readings.append(row_rel_err(out, plain))
+            kinds.append(name)
             return out
         return call
+
+    packed = moe._moe_packed
+
+    def moe_both(cfg, mcfg, p, x, *, impl=None):
+        out = packed(cfg, mcfg, p, x, impl=impl)
+        readings.append(row_rel_err(out, moe._moe_reference(cfg, mcfg, p,
+                                                            x)))
+        kinds.append("moe")
+        return out
     if groups is not None:
         params = dict(params, groups=lm.tree_map(lambda t: t[:groups],
                                                  params["groups"]))
     saved = {n: getattr(ops, n) for n in KERNELS}
     for n, fn in saved.items():
         setattr(ops, n, both(n, fn))
+    moe._moe_packed = moe_both
     try:
         lm.forward_hidden(cfg, params, tokens)
     finally:
         for n, fn in saved.items():
             setattr(ops, n, fn)
-    return {"per_layer": readings, "max": max(readings),
+        moe._moe_packed = packed
+    return {"per_layer": readings, "kinds": kinds, "max": max(readings),
             "worst_layer": readings.index(max(readings))}
 
 
@@ -245,6 +269,8 @@ def profile(fn, top: int = 12) -> dict:
             return "flash_attention"
         if any(k in name for k in ssd_scan.KERNELS["ssd"]):
             return "ssd_scan"
+        if any(k in name for k in radix_partition.KERNELS["rank"]):
+            return "rank"
         if any(w in low for w in ("gemm", "xmma", "cutlass", "cublas",
                                   "nvjet")):
             return "matmul"

@@ -6,16 +6,22 @@
 // JAX model runs in its place (models/attention.py: grouped_attend).  The
 // function, not the TPU's block layout:
 //
-//   q (B, S, H, D), k/v (B, T, KH, D), H % KH == 0; head h reads kv head
-//   h / (H / KH).  s = q.k * D^-0.5 in f32; with `causal` a key at k_pos
+//   q (B, S, H, D), k (B, T, KH, D), v (B, T, KH, Dv), H % KH == 0; head h
+//   reads kv head h / (H / KH).  s = q.k * D^-0.5 in f32 (D is q's and k's
+//   width; Dv = D but in the MLA entry); with `causal` a key at k_pos
 //   is seen by a query at q_pos iff k_pos <= q_pos, both counted from 0.
 //   Online softmax with (m, l, acc) in f32, p cast to v's type before P.V,
-//   o = acc / max(l, 1e-30) in q's type.  Key tiles wholly above the
-//   diagonal are skipped.  Ragged S and T are masked here (the TPU kernel
-//   asserts block multiples; that is Pallas's limit, not the function's).
+//   o (B, S, H, Dv) = acc / max(l, 1e-30) in q's type.  Key tiles wholly
+//   above the diagonal are skipped.  Ragged S and T are masked here (the
+//   TPU kernel asserts block multiples; that is Pallas's limit, not the
+//   function's).
+//   The TPU kernel takes one width; the model it serves gives DeepSeek's
+//   MLA layers (q.k 192 = nope 128 + rope 64, v 128) to its chunked
+//   stand-in, which reads the output width from v.
 //
 // Bound: operations at long S (a causal glm4 layer at S = 8192: 4 S^2 D H / 2
-// = 550 GFLOP against 0.25 GB of q, k, v and o).
+// = 550 GFLOP against 0.25 GB of q, k, v and o; a deepseek MLA layer:
+// 2 S^2 (D + Dv) H / 2 = 2.75 TFLOP against 1.3 GB).
 //
 //   bf16 (flash_bf16): one block of three warpgroups per (128-row query
 //     tile, head, batch).  Warpgroup 0 is the producer: one thread issues
@@ -33,8 +39,19 @@
 //     O += P.V is a register-A wgmma with V read MN-major through the
 //     descriptor's transpose bit, so nothing transposes V.  O (64 f32 a
 //     thread), m and l stay in registers to the end.  Tensor maps carry
-//     the true D, so TMA zero-fills columns D..DP-1 and rows past S or T;
-//     DP is 64 or 128.  Query tiles run longest first (the causal tail).
+//     the true widths, so TMA zero-fills columns D..DQ-1 of Q and K,
+//     Dv..DV-1 of V, and rows past S or T.  (DQ, DV), the padded widths,
+//     is (64, 64), (128, 128) or, the MLA entry, (192, 128): a 192-wide
+//     row is three 64-column boxes, S = Q.K^T takes 12 k-steps in place of
+//     8, and Q and two ring stages of K and V take 48 + 2 (48 + 32) = 208
+//     KB of shared memory (160 KB at (128, 128)); the S and O registers
+//     are those of (128, 128).  Query tiles run longest first (the causal
+//     tail).  Blocks take heads fastest when one batch row's K and V fit
+//     half the 50 MB L2 (glm4: 8.4 MB), so every head's longest tile
+//     starts first; else query tiles fastest, so the blocks in flight
+//     share one or two heads' K and V in L2 (MLA's 128 heads hold 671 MB:
+//     heads fastest re-read each head's K and V from HBM for every query
+//     tile, 21 GB a layer).
 //     Each consumer runs a tile's S, softmax and P.V in order, waiting on
 //     each product; the two consumers' phases interleave on the SM.
 //   f32 (flash_f32): FMA on the CUDA cores, no TF32, so it agrees with an
@@ -87,16 +104,19 @@ constexpr int kBfThreads = 3 * kWg;
 constexpr int kHalf = kTile * 128; // bytes of 128 rows x 64 bf16 columns:
                                    // one TMA box, one 128-byte swizzle span
 constexpr int kProducerRegs = 40, kConsumerRegs = 232;
+constexpr long long kL2Bytes = 50ll << 20;   // H100's L2
 // 40 * 128 + 232 * 256 = 168 * 384: the registers at launch, redistributed
 
-template <int DP>
+template <int DQ, int DV>
 struct BfLayout {
-  static constexpr int halves = DP / 64;
-  static constexpr int tile = halves * kHalf;  // a Q, K or V tile
+  static constexpr int qk_halves = DQ / 64;
+  static constexpr int v_halves = DV / 64;
+  static constexpr int qk_tile = qk_halves * kHalf;  // a Q or K tile
+  static constexpr int v_tile = v_halves * kHalf;    // a V tile
   static constexpr int q_off = 0;
-  static constexpr int k_off = q_off + tile;
-  static constexpr int v_off = k_off + kStages * tile;
-  static constexpr int bar_off = v_off + kStages * tile;
+  static constexpr int k_off = q_off + qk_tile;
+  static constexpr int v_off = k_off + kStages * qk_tile;
+  static constexpr int bar_off = v_off + kStages * v_tile;
   // q_full, then k_full, v_full, k_empty, v_empty: kStages each
   static constexpr int bars = 1 + 4 * kStages;
   // + 1024: the swizzle needs 1024-byte aligned tiles
@@ -402,21 +422,21 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
 }
 
 // S = Q.K^T for 64 query rows at qa and a 128-key tile at kt, issued as
-// one group: one wgmma a 16 columns of DP, both operands K-major.  The
+// one group: one wgmma a 16 columns of DQ, both operands K-major.  The
 // first k-step writes sc without reading it, so sc holds nothing live
 // before the product and its registers serve other values in between.
-template <int DP>
+template <int DQ>
 __device__ __forceinline__ void issue_scores(float (&sc)[64], uint32_t qa,
                                              uint32_t kt) {
   // Each k-step's descriptors are the base's plus a constant.  The empty
   // asm hides qa's constancy, so that the compiler derives them here and
-  // does not keep eight loop-invariant ones in registers.
+  // does not keep DQ / 16 loop-invariant ones in registers.
   asm volatile("" : "+r"(qa));
   const uint64_t dq = sw128_desc(qa, 16, 1024), dk = sw128_desc(kt, 16, 1024);
   wg_fence();
   wgmma_ss_n128_init(sc, dq, dk);
 #pragma unroll
-  for (int kk = 1; kk < DP / 16; ++kk) {
+  for (int kk = 1; kk < DQ / 16; ++kk) {
     const uint32_t off = ((kk / 4) * kHalf + (kk % 4) * 32) >> 4;
     wgmma_ss_n128(sc, dq + off, dk + off);
   }
@@ -447,7 +467,7 @@ __device__ __forceinline__ void issue_pv(float (&acc)[N], uint32_t (&pa)[32],
 // The K/V ring in shared memory: stages of K and of V tiles, and after the
 // Q barrier, kStages each of full-K, full-V, empty-K and empty-V barriers.
 struct Ring {
-  uint32_t k, v, bars, tile;
+  uint32_t k, v, bars, k_tile, v_tile;
   __device__ uint32_t k_full(int s) const { return bars + 8u * (1 + s); }
   __device__ uint32_t v_full(int s) const {
     return bars + 8u * (1 + kStages + s);
@@ -463,16 +483,16 @@ struct Ring {
 // One consumer step on tile j: S_j = Q.K_j^T, its masks (on the diagonal
 // tile and the ragged last one only) and the online softmax, O rescaled,
 // P_j packed, O += P_j.V_j.
-template <int DP>
+template <int DQ, int DV>
 __device__ __forceinline__ void tile_step(
     int j, const Ring& ring, uint32_t qa, float (&sc)[64],
-    uint32_t (&pa)[32], float (&acc)[DP / 2], float (&m)[2], float (&l)[2],
+    uint32_t (&pa)[32], float (&acc)[DV / 2], float (&m)[2], float (&l)[2],
     int row0, int col0, int first_row, int T, int causal,
     float scale_log2) {
   const int s = j % kStages;
   const uint32_t parity = (j / kStages) & 1;
   mbar_wait(ring.k_full(s), parity);
-  issue_scores<DP>(sc, qa, ring.k + s * ring.tile);
+  issue_scores<DQ>(sc, qa, ring.k + s * ring.k_tile);
   wg_wait<0>();
   pin(sc);
   mbar_arrive(ring.k_empty(s));
@@ -484,7 +504,7 @@ __device__ __forceinline__ void tile_step(
   rescale(acc, corr);
   pack_p(sc, pa);
   mbar_wait(ring.v_full(s), parity);
-  issue_pv(acc, pa, ring.v + s * ring.tile);
+  issue_pv(acc, pa, ring.v + s * ring.v_tile);
   wg_wait<0>();
   pin(acc);
   pin(pa);
@@ -496,23 +516,26 @@ __device__ __forceinline__ void tile_step(
 // register 4j + 2i + e is row r + 8i, column 8j + 2 (t % 4) + e.  Its pairs
 // 4kk + {0, 1, 2, 3} (columns 16kk .. 16kk + 15) are, cast to bf16, the
 // register A operand of the k-step kk of the next product.
-template <int DP>
+template <int DQ, int DV>
 __global__ void __launch_bounds__(kBfThreads, 1)
 flash_bf16(const __grid_constant__ CUtensorMap tq,
            const __grid_constant__ CUtensorMap tk,
            const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o,
-           int S, int T, int H, int KH, int D, int causal, float scale_log2) {
-  using L = BfLayout<DP>;
+           int S, int T, int H, int KH, int Dv, int causal,
+           float scale_log2, int tiles_fastest) {
+  using L = BfLayout<DQ, DV>;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
   const uint32_t sq = base + L::q_off, sk = base + L::k_off,
                  sv = base + L::v_off, bars = base + L::bar_off;
   const uint32_t q_full = bars;
-  const Ring ring{sk, sv, bars, L::tile};
+  const Ring ring{sk, sv, bars, L::qk_tile, L::v_tile};
 
-  // heads vary fastest, so every head's longest query tile starts first
-  const int h = blockIdx.x, b = blockIdx.z;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTile;
+  // longest query tile first, in each head (tiles_fastest) or across them
+  const int h = tiles_fastest ? blockIdx.y : blockIdx.x, b = blockIdx.z;
+  const int n_qt = tiles_fastest ? gridDim.x : gridDim.y;
+  const int q0 = (n_qt - 1 - (tiles_fastest ? blockIdx.x : blockIdx.y)) *
+                 kTile;
   const int kh = h / (H / KH);
   const int kv_end = causal ? min(T, q0 + kTile) : T;
   const int n_kt = (kv_end + kTile - 1) / kTile;
@@ -533,21 +556,21 @@ flash_bf16(const __grid_constant__ CUtensorMap tq,
     // ---- producer: one thread keeps the ring full ----
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(kProducerRegs));
     if (threadIdx.x == 0) {
-      mbar_expect_tx(q_full, L::tile);
-      for (int hf = 0; hf < L::halves; ++hf)
+      mbar_expect_tx(q_full, L::qk_tile);
+      for (int hf = 0; hf < L::qk_halves; ++hf)
         tma_load(sq + hf * kHalf, &tq, q_full, 64 * hf, h, q0, b);
       for (int j = 0; j < n_kt; ++j) {
         const int s = j % kStages;
         const uint32_t free_parity = ((j / kStages) & 1) ^ 1;
         mbar_wait(ring.k_empty(s), free_parity);
-        mbar_expect_tx(ring.k_full(s), L::tile);
-        for (int hf = 0; hf < L::halves; ++hf)
-          tma_load(sk + s * L::tile + hf * kHalf, &tk, ring.k_full(s),
+        mbar_expect_tx(ring.k_full(s), L::qk_tile);
+        for (int hf = 0; hf < L::qk_halves; ++hf)
+          tma_load(sk + s * L::qk_tile + hf * kHalf, &tk, ring.k_full(s),
                    64 * hf, kh, j * kTile, b);
         mbar_wait(ring.v_empty(s), free_parity);
-        mbar_expect_tx(ring.v_full(s), L::tile);
-        for (int hf = 0; hf < L::halves; ++hf)
-          tma_load(sv + s * L::tile + hf * kHalf, &tv, ring.v_full(s),
+        mbar_expect_tx(ring.v_full(s), L::v_tile);
+        for (int hf = 0; hf < L::v_halves; ++hf)
+          tma_load(sv + s * L::v_tile + hf * kHalf, &tv, ring.v_full(s),
                    64 * hf, kh, j * kTile, b);
       }
     }
@@ -564,36 +587,36 @@ flash_bf16(const __grid_constant__ CUtensorMap tq,
 
     float sc[64];                 // scores, then p: 64 x 128 over the group
     uint32_t pa[32];              // p in bf16: the next product's A operand
-    float acc[DP / 2];            // output, 64 x DP
+    float acc[DV / 2];            // output, 64 x DV
 #pragma unroll
-    for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+    for (int i = 0; i < DV / 2; ++i) acc[i] = 0.f;
     float m[2] = {-INFINITY, -INFINITY};   // running max, log2 units
     float l[2] = {0.f, 0.f};               // this thread's part of the sum
 
     // tile j lies in stage j % kStages, in its phase (j / kStages) & 1
     mbar_wait(q_full, 0);
     for (int j = 0; j < n_kt; ++j)
-      tile_step<DP>(j, ring, qa, sc, pa, acc, m, l, row0, col0, first_row, T,
-                    causal, scale_log2);
+      tile_step<DQ, DV>(j, ring, qa, sc, pa, acc, m, l, row0, col0,
+                        first_row, T, causal, scale_log2);
 
-    // o = acc / max(l, 1e-30), rows past S and columns past D not written
+    // o = acc / max(l, 1e-30), rows past S and columns past Dv not written
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       l[i] += __shfl_xor_sync(kFull, l[i], 1);
       l[i] += __shfl_xor_sync(kFull, l[i], 2);
       l[i] = fmaxf(l[i], 1e-30f);
     }
-    const long long ld = (long long)H * D;
-    bf16* ob = o + (long long)b * S * ld + (long long)h * D;
+    const long long ld = (long long)H * Dv;
+    bf16* ob = o + (long long)b * S * ld + (long long)h * Dv;
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int row = row0 + 8 * i;
       if (row < S) {
         bf16* orow = ob + row * ld;
 #pragma unroll
-        for (int jj = 0; jj < DP / 8; ++jj) {
+        for (int jj = 0; jj < DV / 8; ++jj) {
           const int col = 8 * jj + col0;
-          if (col < D)
+          if (col < Dv)
             *reinterpret_cast<__nv_bfloat162*>(orow + col) =
                 __floats2bfloat162_rn(acc[4 * jj + 2 * i] / l[i],
                                       acc[4 * jj + 2 * i + 1] / l[i]);
@@ -760,30 +783,33 @@ int tensor_map(CUtensorMap* map, const void* ptr, int B, int rows, int heads,
   return r == CUDA_SUCCESS ? 0 : kMapError + (int)r;
 }
 
-template <int DP>
+template <int DQ, int DV>
 int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
-                int S, int T, int H, int KH, int D, int causal,
+                int S, int T, int H, int KH, int D, int Dv, int causal,
                 cudaStream_t st) {
   CUtensorMap mq, mk, mv;
   int e = tensor_map(&mq, q, B, S, H, D);
   if (e == 0) e = tensor_map(&mk, k, B, T, KH, D);
-  if (e == 0) e = tensor_map(&mv, v, B, T, KH, D);
+  if (e == 0) e = tensor_map(&mv, v, B, T, KH, Dv);
   if (e != 0) return e;
-  const size_t smem = BfLayout<DP>::bytes;
+  const size_t smem = BfLayout<DQ, DV>::bytes;
   static bool smem_allowed[64] = {};     // once per card and width
   int dev = 0;
   cudaError_t ce = cudaGetDevice(&dev);
   if (ce != cudaSuccess) return (int)ce;
   if (dev >= 64 || !smem_allowed[dev]) {
-    ce = allow_smem(flash_bf16<DP>, smem);
+    ce = allow_smem(flash_bf16<DQ, DV>, smem);
     if (ce != cudaSuccess) return (int)ce;
     if (dev < 64) smem_allowed[dev] = true;
   }
   const float scale_log2 = (float)(1.4426950408889634 / sqrt((double)D));
-  const dim3 grid(H, (S + kTile - 1) / kTile, B);
-  flash_bf16<DP><<<grid, kBfThreads, smem, st>>>(mq, mk, mv, (bf16*)o, S, T,
-                                                  H, KH, D, causal,
-                                                  scale_log2);
+  const int n_qt = (S + kTile - 1) / kTile;
+  const int tiles_fastest =
+      2ll * KH * T * (D + Dv) > kL2Bytes / 2 ? 1 : 0;
+  const dim3 grid = tiles_fastest ? dim3(n_qt, H, B) : dim3(H, n_qt, B);
+  flash_bf16<DQ, DV><<<grid, kBfThreads, smem, st>>>(
+      mq, mk, mv, (bf16*)o, S, T, H, KH, Dv, causal, scale_log2,
+      tiles_fastest);
   return (int)cudaGetLastError();
 }
 
@@ -806,19 +832,29 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
 
 extern "C" {
 
-// q (B, S, H, D), k/v (B, T, KH, D), o (B, S, H, D), all contiguous, 16-byte
-// aligned, f32 (is_bf16 = 0) or bf16 (is_bf16 = 1).  D a multiple of 8 up
-// to 128, H % KH == 0, S, T >= 1: the wrapper checks.  Returns 0, a CUDA
-// error, or 10000 + the CUresult of a refused tensor-map encoding.
+// q (B, S, H, D), k (B, T, KH, D), v (B, T, KH, Dv), o (B, S, H, Dv), all
+// contiguous, 16-byte aligned, f32 (is_bf16 = 0) or bf16 (is_bf16 = 1).
+// D and Dv multiples of 8; bf16: D up to 192 and Dv up to 128 (above 128,
+// D takes the MLA entry (192, 128)); f32: Dv == D up to 128.  H % KH == 0,
+// S, T >= 1: the wrapper checks.  Returns 0, a CUDA error, or 10000 + the
+// CUresult of a refused tensor-map encoding.
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                        int B, int S, int T, int H, int KH, int D,
+                        int B, int S, int T, int H, int KH, int D, int Dv,
                         int causal, int is_bf16, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (is_bf16) {
-    if (D <= 64)
-      return launch_bf16<64>(q, k, v, o, B, S, T, H, KH, D, causal, st);
-    return launch_bf16<128>(q, k, v, o, B, S, T, H, KH, D, causal, st);
+    if (D <= 64 && Dv <= 64)
+      return launch_bf16<64, 64>(q, k, v, o, B, S, T, H, KH, D, Dv, causal,
+                                 st);
+    if (D <= 128 && Dv <= 128)
+      return launch_bf16<128, 128>(q, k, v, o, B, S, T, H, KH, D, Dv, causal,
+                                   st);
+    if (D <= 192 && Dv <= 128)
+      return launch_bf16<192, 128>(q, k, v, o, B, S, T, H, KH, D, Dv, causal,
+                                   st);
+    return (int)cudaErrorInvalidValue;
   }
+  if (Dv != D) return (int)cudaErrorInvalidValue;
   if (D <= 32)
     return launch_f32<32>(q, k, v, o, B, S, T, H, KH, D, causal, st);
   if (D <= 64)

@@ -7,8 +7,14 @@ full-sequence case (every prefill) here.  CUDA tensors only; the plain
 version is :func:`repro_torch.kernels.ref.flash_attention` and
 :mod:`repro_torch.kernels.ops` picks.
 
+The bf16 body is built for the padded (q.k, v) widths (64, 64), (128, 128)
+and (192, 128); the last is the MLA entry (DeepSeek-V2's q.k 192 = nope
+128 + rope 64, v 128), which the JAX package gives to its chunked
+stand-in.  The f32 body takes one width.
+
 Bound: operations at long sequences (see the source).  ``launches`` counts
-the calls that launched the kernel.
+the calls that launched each entry: ``flash`` the bf16 bodies of widths
+up to 128 and the f32 body, ``mla`` the (192, 128) body.
 """
 from __future__ import annotations
 
@@ -20,11 +26,13 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.radix_partition import _raise_on
 
-launches = {"flash": 0}
+launches = {"flash": 0, "mla": 0}
 # the device kernels each entry point launches, as the profiler names them
-KERNELS = {"flash": ("flash_bf16", "flash_f32")}
+KERNELS = {"flash": ("flash_bf16", "flash_f32"), "mla": ("flash_bf16",)}
 DTYPES = (torch.float32, torch.bfloat16)
 MAX_HEAD_DIM = 128
+MAX_QK_DIM = 192       # bf16 q.k width with v at most MAX_HEAD_DIM: the MLA
+                       # entry
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _lib = None
@@ -35,15 +43,32 @@ def _load():
     global _lib
     if _lib is None:
         lib = build.load("flash_attention")
-        lib.flash_attention_fwd.argtypes = [_P, _P, _P, _P] + [_I] * 8 + [_P]
+        lib.flash_attention_fwd.argtypes = [_P, _P, _P, _P] + [_I] * 9 + [_P]
         lib.flash_attention_fwd.restype = _I
         _lib = lib
     return _lib
 
 
 def takes_head_dim(d: int) -> bool:
-    """Head widths the kernel takes: multiples of 8 up to 128."""
-    return d % 8 == 0 and 0 < d <= MAX_HEAD_DIM
+    """Head widths the kernel takes for q, k and v alike, in either dtype:
+    multiples of 8 up to 128."""
+    return takes_widths(d, d, torch.float32)
+
+
+def takes_widths(d_qk: int, d_v: int, dtype) -> bool:
+    """(q.k width, v width) pairs the kernel takes: multiples of 8; in
+    bf16 q.k up to 192 and v up to 128, in f32 one width up to 128."""
+    if not (d_qk % 8 == 0 and d_v % 8 == 0 and d_qk > 0 and d_v > 0):
+        return False
+    if dtype == torch.bfloat16:
+        return d_qk <= MAX_QK_DIM and d_v <= MAX_HEAD_DIM
+    return d_qk == d_v <= MAX_HEAD_DIM
+
+
+def entry(d_qk: int) -> str:
+    """The ``launches`` key of the body a q.k width runs: ``mla`` above
+    128."""
+    return "mla" if d_qk > MAX_HEAD_DIM else "flash"
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -56,9 +81,10 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
-    """q (B, S, H, D), k/v (B, T, KH, D), one dtype (f32 or bf16), H % KH
-    == 0, D a multiple of 8 up to 128.  Returns (B, S, H, D) in q's dtype;
-    head h reads kv head h // (H // KH)."""
+    """q (B, S, H, D), k (B, T, KH, D), v (B, T, KH, Dv), one dtype (f32
+    or bf16), H % KH == 0, (D, Dv) a pair :func:`takes_widths` accepts.
+    Returns (B, S, H, Dv) in q's dtype; head h reads kv head h // (H //
+    KH)."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_cuda:
             raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
@@ -69,25 +95,27 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             raise ValueError(f"{name} must be 4-D on {q.device}, got "
                              f"{tuple(t.shape)} on {t.device}")
     B, S, H, D = q.shape
-    T, KH = k.shape[1], k.shape[2]
-    if k.shape != (B, T, KH, D) or v.shape != k.shape:
+    T, KH, Dv = k.shape[1], k.shape[2], v.shape[3]
+    if k.shape != (B, T, KH, D) or v.shape != (B, T, KH, Dv):
         raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} do not "
                          f"match q {tuple(q.shape)}")
     if KH < 1 or H % KH:
         raise ValueError(f"H={H} is not a multiple of KH={KH}")
-    if not takes_head_dim(D):
-        raise ValueError(f"head dim {D} is not a multiple of 8 up to "
-                         f"{MAX_HEAD_DIM}")
+    if not takes_widths(D, Dv, q.dtype):
+        raise ValueError(f"head widths (q.k {D}, v {Dv}) in {q.dtype}: the "
+                         "kernel takes multiples of 8, in bf16 q.k up to "
+                         f"{MAX_QK_DIM} and v up to {MAX_HEAD_DIM}, in f32 "
+                         f"one width up to {MAX_HEAD_DIM}")
     if min(B, S, T) < 1 or max(B, H, -(-S // 128)) > 65535:
         raise ValueError(f"B={B}, S={S}, T={T}, H={H} out of the kernel's "
                          "range")
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
-    out = torch.empty_like(q)
+    out = q.new_empty((B, S, H, Dv))
     with _lock, torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         _raise_on(_load().flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S,
-            T, H, KH, D, int(bool(causal)), int(q.dtype == torch.bfloat16),
-            stream), "flash_attention launch")
-        launches["flash"] += 1
+            T, H, KH, D, Dv, int(bool(causal)),
+            int(q.dtype == torch.bfloat16), stream), "flash_attention launch")
+        launches[entry(D)] += 1
     return out

@@ -49,6 +49,7 @@ def launch_counts() -> dict:
             "grouped_agg": _ga.launches["f32"],
             "grouped_sum_u32": _ga.launches["u32"],
             "flash_attention": _fa.launches["flash"],
+            "flash_attention_mla": _fa.launches["mla"],
             "ssd_scan": _ssd.launches["ssd"]}
 
 
@@ -56,7 +57,7 @@ def reset_launch_counts():
     _rp.launches.update(rank=0, scatter=0)
     _cas.launches.update(cas=0)
     _ga.launches.update(f32=0, u32=0)
-    _fa.launches.update(flash=0)
+    _fa.launches.update(flash=0, mla=0)
     _ssd.launches.update(ssd=0)
 
 
@@ -207,8 +208,9 @@ class SSDScanFn(torch.autograd.Function):
 def flash_attention(q, k, v, *, causal: bool = True, impl=None,
                     backward=None):
     """Blockwise GQA attention (the Pallas ``flash_attention``'s
-    function): q (B, S, H, D), k/v (B, T, KH, D) -> (B, S, H, D) in q's
-    dtype, head h reading kv head h // (H // KH).  ``backward(q, k, v,
+    function): q (B, S, H, D), k (B, T, KH, D), v (B, T, KH, Dv) -> (B,
+    S, H, Dv) in q's dtype, head h reading kv head h // (H // KH); Dv =
+    D but in MLA (the kernel's (192, 128) entry).  ``backward(q, k, v,
     causal)``: the plain function the model trains through.  Under
     autograd the kernel's output takes its gradient (a kernel call that
     autograd must differentiate raises without it), and the plain path

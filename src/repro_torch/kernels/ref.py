@@ -199,9 +199,10 @@ _SSD_CHUNK = 64        # steps a block of the plain SSD
 
 def flash_attention(q, k, v, *, causal: bool = True):
     """Plain twin of ``flash_attention.flash_attention`` (the JAX
-    ``ref.flash_attention``): full softmax in f32 over every key, masked
-    scores at -1e30, out in q's dtype.  q (B, S, H, D), k/v (B, T, KH, D),
-    head h reads kv head h // (H // KH).  It takes 1024 query rows at a
+    ``ref.flash_attention``): full softmax in f32 over every key, scores
+    scaled by q's width D^-0.5 and masked at -1e30, out in q's dtype.  q
+    (B, S, H, D), k (B, T, KH, D), v (B, T, KH, Dv) -> (B, S, H, Dv); head
+    h reads kv head h // (H // KH).  It takes 1024 query rows at a
     time, so the scores of a long prompt never fill memory at once; rows
     are independent, so that changes nothing."""
     B, S, H, D = q.shape
@@ -210,7 +211,7 @@ def flash_attention(q, k, v, *, causal: bool = True):
     kk = k.to(torch.float32).repeat_interleave(G, dim=2)
     vv = v.to(torch.float32).repeat_interleave(G, dim=2)
     kpos = torch.arange(T, device=q.device)
-    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    out = q.new_empty((B, S, H, v.shape[-1]))
     for s0 in range(0, S, _ATTN_ROWS):
         qc = q[:, s0:s0 + _ATTN_ROWS].to(torch.float32)
         sc = torch.einsum("bshd,bthd->bhst", qc, kk) * D ** -0.5

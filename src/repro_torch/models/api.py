@@ -1,6 +1,8 @@
 """Family-dispatching model API (a port of ``repro.models.api``).  The
-decoder-only LM (``lm``) serves every family but ``encdec``, whose model
-(``models/encdec.py``) is not ported yet."""
+decoder-only LM (``lm``) serves the dense, MoE (llama4, deepseek with
+MLA), SSM and hybrid (jamba) families; the VLM's cross-attention raises
+in ``lm``, and ``encdec``, whose model (``models/encdec.py``) is not
+ported yet, raises here."""
 from __future__ import annotations
 
 import torch

@@ -1,22 +1,24 @@
-"""Grouped-query attention, full sequence and decode (the GQA half of
-``repro.models.attention``).
+"""Attention: GQA and DeepSeek-V2's MLA, full sequence and decode (a port
+of ``repro.models.attention``).
 
 Full-sequence causal attention (every prefill and every training
 forward) runs the hand-written flash kernel through
 :func:`repro_torch.kernels.ops.flash_attention`: the JAX model names that
 swap in its docstring but runs a chunked stand-in, and trains through it.
 So the kernel's gradient is the chunked path's (:func:`chunked_attend`),
-recomputed in the backward.  Every other case (decode against a cache
-with ``kv_len``, explicit positions, T != S) keeps the chunked plain
-path.  MLA and
-cross-attention are not ported yet (ROADMAP queue 1 item 6).
+recomputed in the backward.  MLA's prefill decompresses K and V per head
+(q.k width 192, v width 128) and takes the kernel's MLA entry.  Every
+other case (decode against a cache with ``kv_len``, explicit positions,
+T != S) keeps the chunked plain path; MLA decode is JAX's absorbed form,
+attention in the compressed latent space, in plain torch.
+Cross-attention is not ported yet (ROADMAP queue 1 item 6).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.models.common import apply_rope, rope_angles
+from repro_torch.models.common import apply_rope, rmsnorm, rope_angles
 
 NEG_INF = -1e30
 
@@ -40,7 +42,7 @@ def grouped_attend(q, k, v, *, causal: bool, q_pos=None, kv_len=None,
     q: (B, S, K, G, hd) -- K kv-head groups x G queries per group;
     k, v: (B, T, K, hd); q_pos: int (S,) absolute query positions (None =
     0..S-1); kv_len: valid KV prefix length (decode), None = all valid.
-    Returns (B, S, K, G, hd_v).
+    v may be narrower than q and k (MLA).  Returns (B, S, K, G, hd_v).
 
     The causal full-sequence case (no kv_len, default positions, T == S)
     goes to the flash kernel, with heads flattened so that head k*G + g
@@ -54,18 +56,19 @@ def grouped_attend(q, k, v, *, causal: bool, q_pos=None, kv_len=None,
         out = ops.flash_attention(q.reshape(B, S, K * G, hd), k, v,
                                   causal=True, impl=impl,
                                   backward=_flat_chunked_attend)
-        return out.reshape(B, S, K, G, hd)
+        return out.reshape(B, S, K, G, v.shape[-1])
     return chunked_attend(q, k, v, causal=causal, q_pos=q_pos,
                           kv_len=kv_len, chunk=chunk)
 
 
 def _flat_chunked_attend(q, k, v, causal):
-    """:func:`chunked_attend` on the kernel's layout: q (B, S, H, hd)."""
+    """:func:`chunked_attend` on the kernel's layout: q (B, S, H, hd), out
+    (B, S, H, hd_v)."""
     B, S, H, hd = q.shape
     K = k.shape[2]
     out = chunked_attend(q.reshape(B, S, K, H // K, hd), k, v,
                          causal=causal)
-    return out.reshape(B, S, H, hd)
+    return out.reshape(B, S, H, v.shape[-1])
 
 
 def chunked_attend(q, k, v, *, causal: bool, q_pos=None, kv_len=None,
@@ -168,4 +171,101 @@ def apply_gqa_decode(cfg, p, x, cache, pos):
                          chunk=1)
     y = torch.einsum("bshk,hkd->bsd", ctx.reshape(B, 1, h, hd),
                      p["wo"].to(x.dtype))
+    return y, cache
+
+
+# ---------------------------------------------------------------- MLA -----
+
+def build_mla(cfg, mk):
+    m, d, h = cfg.mla, cfg.d_model, cfg.num_heads
+    qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+    return {"wq_a": mk((d, m.q_lora_rank)),
+            "q_norm": mk((m.q_lora_rank,), "zeros"),
+            "wq_b": mk((m.q_lora_rank, h, qk)),
+            "wkv_a": mk((d, m.kv_lora_rank + m.qk_rope_head_dim)),
+            "kv_norm": mk((m.kv_lora_rank,), "zeros"),
+            "wkv_b": mk((m.kv_lora_rank, h,
+                         m.qk_nope_head_dim + m.v_head_dim)),
+            "wo": mk((h, m.v_head_dim, d))}
+
+
+def _mla_qkv(cfg, p, x, positions):
+    """(q_nope (B, S, h, nope), q_rope (B, S, h, rope) rotated, latent (B,
+    S, kv_lora) normed, k_rope (B, S, rope) rotated, one for all heads)."""
+    m = cfg.mla
+    ql = rmsnorm(torch.einsum("bsd,dr->bsr", x, p["wq_a"].to(x.dtype)),
+                 p["q_norm"], cfg.norm_eps)
+    q = torch.einsum("bsr,rhk->bshk", ql, p["wq_b"].to(x.dtype))
+    q_nope, q_rope = q[..., :m.qk_nope_head_dim], q[..., m.qk_nope_head_dim:]
+    kv_a = torch.einsum("bsd,dr->bsr", x, p["wkv_a"].to(x.dtype))
+    latent = rmsnorm(kv_a[..., :m.kv_lora_rank], p["kv_norm"], cfg.norm_eps)
+    k_rope = kv_a[..., m.kv_lora_rank:][:, :, None, :]
+    cos, sin = rope_angles(positions, m.qk_rope_head_dim, cfg.rope_theta)
+    return (q_nope, apply_rope(q_rope, cos, sin), latent,
+            apply_rope(k_rope, cos, sin)[:, :, 0, :])
+
+
+def apply_mla(cfg, p, x, *, impl=None):
+    """MLA over the full sequence at positions 0..S-1 (train and prefill):
+    K and V decompressed from the latent for every head, the shared rope
+    key broadcast to all, then causal attention with q.k width nope + rope
+    and v width v_head_dim (the flash kernel's MLA entry)."""
+    m = cfg.mla
+    B, S, _ = x.shape
+    h = cfg.num_heads
+    pos = torch.arange(S, dtype=torch.int32, device=x.device)
+    q_nope, q_rope, latent, k_rope = _mla_qkv(cfg, p, x, pos)
+    kv = torch.einsum("bsr,rhk->bshk", latent, p["wkv_b"].to(x.dtype))
+    k_nope, v = kv[..., :m.qk_nope_head_dim], kv[..., m.qk_nope_head_dim:]
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+        B, S, h, m.qk_rope_head_dim)], dim=-1)
+    ctx = grouped_attend(q[:, :, :, None, :], k, v, causal=True, impl=impl)
+    return torch.einsum("bshk,hkd->bsd", ctx[:, :, :, 0],
+                        p["wo"].to(x.dtype))
+
+
+def mla_cache_shape(cfg, batch: int, seq: int, dtype=torch.bfloat16):
+    m = cfg.mla
+    return {"latent": ((batch, seq, m.kv_lora_rank), dtype),
+            "k_rope": ((batch, seq, m.qk_rope_head_dim), dtype)}
+
+
+def init_mla_cache(cfg, batch: int, seq: int, dtype=torch.bfloat16,
+                   device=None):
+    return {k: torch.zeros(shp, dtype=dt, device=device)
+            for k, (shp, dt) in mla_cache_shape(cfg, batch, seq,
+                                                dtype).items()}
+
+
+def apply_mla_decode(cfg, p, x, cache, pos):
+    """Absorbed MLA decode: the cache holds the latent and the rope key
+    (576 values a token and layer at deepseek's widths), and attention
+    runs in the latent space (q_nope absorbed into wkv_b's key half, the
+    context expanded by its value half).  The new entries are written in
+    place at ``min(pos, T - 1)``, as :func:`apply_gqa_decode` does."""
+    m = cfg.mla
+    scale = (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
+    q_nope, q_rope, latent_new, k_rope_new = _mla_qkv(cfg, p, x,
+                                                      pos.reshape(1))
+    T = cache["latent"].shape[1]
+    at = pos.reshape(1).clamp(max=T - 1).to(torch.int64)
+    cache["latent"].index_copy_(1, at, latent_new.to(cache["latent"].dtype))
+    cache["k_rope"].index_copy_(1, at, k_rope_new.to(cache["k_rope"].dtype))
+    lat = cache["latent"].to(x.dtype)                      # (B, T, r)
+    krp = cache["k_rope"].to(x.dtype)                      # (B, T, rope)
+    wkv_b = p["wkv_b"].to(x.dtype)
+    w_k = wkv_b[..., :m.qk_nope_head_dim]                  # (r, h, nope)
+    w_v = wkv_b[..., m.qk_nope_head_dim:]                  # (r, h, v)
+    q_abs = torch.einsum("bshk,rhk->bshr", q_nope, w_k)
+    f32 = torch.float32
+    s = (torch.einsum("bshr,btr->bhst", q_abs.to(f32), lat.to(f32))
+         + torch.einsum("bshk,btk->bhst", q_rope.to(f32), krp.to(f32))
+         ) * scale
+    valid = torch.arange(T, device=x.device)[None, None, None, :] <= pos
+    s = torch.where(valid, s, NEG_INF)
+    prob = torch.softmax(s, dim=-1).to(x.dtype)
+    ctx_lat = torch.einsum("bhst,btr->bshr", prob, lat)
+    ctx = torch.einsum("bshr,rhk->bshk", ctx_lat, w_v)
+    y = torch.einsum("bshk,hkd->bsd", ctx, p["wo"].to(x.dtype))
     return y, cache

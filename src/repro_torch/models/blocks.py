@@ -6,20 +6,21 @@ stacked over G as in the JAX package; the port runs the groups in a Python
 loop instead of a ``lax.scan``.  The JAX ``RS_OUTPUTS`` sharding toggle has
 no meaning on one card and is not copied.
 
-The port runs the sublayer kinds ``attn`` (GQA), ``ssm`` and ``mlp``.
-MoE, MLA and cross-attention raise ``NotImplementedError`` naming the
-ROADMAP item that brings them.
+The port runs the sublayer kinds ``attn`` (GQA, or MLA where the config
+has one), ``ssm``, ``mlp`` and ``moe``: the dense, MoE, SSM and hybrid
+families.  A full-sequence sublayer returns (x, aux), aux the MoE
+router's load-balancing loss (0.0 for the other kinds), as JAX's does.
+Cross-attention raises ``NotImplementedError`` naming the ROADMAP item
+that brings it.
 """
 from __future__ import annotations
 
 from repro_torch.models import attention as A
+from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
 from repro_torch.models.common import apply_mlp, build_mlp, rmsnorm
 
 _LATER = {
-    "moe": "MoE layers (models/moe.py, RRJ dispatch over the port's router) "
-           "come with ROADMAP queue 1 item 6",
-    "mla": "MLA attention (deepseek) comes with ROADMAP queue 1 item 6",
     "cross": "cross-attention (vlm, encdec) comes with ROADMAP queue 1 "
              "item 6",
 }
@@ -78,14 +79,14 @@ def group_pattern(cfg):
 def build_sublayer(cfg, mk, kind: str):
     p = {"norm": mk((cfg.d_model,), "zeros")}
     if kind == "attn":
-        if cfg.mla:
-            raise not_ported("mla")
-        p.update(A.build_gqa(cfg, mk))
+        p.update(A.build_mla(cfg, mk) if cfg.mla else A.build_gqa(cfg, mk))
     elif kind == "ssm":
         p.update(S.build_ssm(cfg, mk))
     elif kind == "mlp":
         p.update(build_mlp(cfg, mk))
-    elif kind in ("moe", "cross"):
+    elif kind == "moe":
+        p.update(M.build_moe(cfg, cfg.moe, mk))
+    elif kind == "cross":
         raise not_ported(kind)
     else:
         raise ValueError(kind)
@@ -107,27 +108,32 @@ def _sublayers(gp):
 
 
 def apply_sublayer(cfg, p, kind, x, *, impl=None):
-    """Full-sequence sublayer with pre-norm and residual."""
+    """Full-sequence sublayer with pre-norm and residual: (x, aux)."""
     h = rmsnorm(x, p["norm"], cfg.norm_eps)
+    aux = 0.0
     if kind == "attn":
-        if cfg.mla:
-            raise not_ported("mla")
-        y = A.apply_gqa(cfg, p, h, impl=impl)
+        y = (A.apply_mla(cfg, p, h, impl=impl) if cfg.mla
+             else A.apply_gqa(cfg, p, h, impl=impl))
     elif kind == "ssm":
         y = S.apply_ssm(cfg, p, h, impl=impl)
     elif kind == "mlp":
         y = apply_mlp(cfg, p, h)
-    elif kind in ("moe", "cross"):
+    elif kind == "moe":
+        y, aux = M.apply_moe(cfg, cfg.moe, p, h, impl=impl)
+    elif kind == "cross":
         raise not_ported(kind)
     else:
         raise ValueError(kind)
-    return x + y
+    return x + y, aux
 
 
 def apply_group(cfg, gp, x, *, impl=None):
+    """The group's sublayers in JAX's order: (x, summed aux)."""
+    aux = 0.0
     for bname, sname, kind in _sublayers(gp):
-        x = apply_sublayer(cfg, gp[bname][sname], kind, x, impl=impl)
-    return x
+        x, a = apply_sublayer(cfg, gp[bname][sname], kind, x, impl=impl)
+        aux = aux + a
+    return x, aux
 
 
 # ------------------------------------------------------------- decode -----
@@ -136,7 +142,7 @@ def sublayer_cache_shape(cfg, kind: str, batch: int, seq: int, kve: int):
     """{leaf: (shape, dtype)} of one sublayer's decode state, or None."""
     if kind == "attn":
         if cfg.mla:
-            raise not_ported("mla")
+            return A.mla_cache_shape(cfg, batch, seq)
         return A.gqa_cache_shape(cfg, batch, seq, kve)
     if kind == "cross":
         raise not_ported("cross")
@@ -159,17 +165,21 @@ def group_cache_shape(cfg, pattern, batch: int, seq: int, kve: int):
 
 
 def apply_sublayer_decode(cfg, p, kind, x, cache, pos):
-    """One-token sublayer; its cache is updated in place."""
+    """One-token sublayer; its cache is updated in place.  MoE runs the
+    reference loop (JAX's one-device decode)."""
     h = rmsnorm(x, p["norm"], cfg.norm_eps)
     if kind == "attn":
         if cfg.mla:
-            raise not_ported("mla")
-        y, cache = A.apply_gqa_decode(cfg, p, h, cache, pos)
+            y, cache = A.apply_mla_decode(cfg, p, h, cache, pos)
+        else:
+            y, cache = A.apply_gqa_decode(cfg, p, h, cache, pos)
     elif kind == "ssm":
         y, cache = S.apply_ssm_decode(cfg, p, h, cache)
     elif kind == "mlp":
         y = apply_mlp(cfg, p, h)
-    elif kind in ("moe", "cross"):
+    elif kind == "moe":
+        y, _ = M.apply_moe(cfg, cfg.moe, p, h, decode=True)
+    elif kind == "cross":
         raise not_ported(kind)
     else:
         raise ValueError(kind)

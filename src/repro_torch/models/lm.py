@@ -1,12 +1,16 @@
-"""Decoder-only causal LM, families ``dense`` and ``ssm`` (a port of
-``repro.models.lm``).
+"""Decoder-only causal LM, families ``dense``, ``moe``, ``ssm`` and
+``hybrid`` (a port of ``repro.models.lm``; the VLM's cross-attention is
+not ported yet).
 
 Parameters keep the JAX tree: ``embed``, ``final_norm``, ``lm_head``
-(untied only) and ``groups``, whose leaves are stacked over the G layer
-groups.  The body loops over groups where JAX scans them.  Activations
-are ``ACT_DTYPE`` (bf16), read at call time so a test can set f32.
-``loss_fn`` is the training loss (the mean token cross-entropy, or its
-sequence-chunked form when ``CE_CHUNK`` is set); with autograd on, each
+(untied only), ``pre`` (deepseek's irregular dense first layer) and
+``groups``, whose leaves are stacked over the G layer groups.  The body
+loops over groups where JAX scans them.  Activations are ``ACT_DTYPE``
+(bf16), read at call time so a test can set f32.  ``forward`` returns
+the logits and the MoE router's load-balancing loss summed over layers
+(0.0 with no MoE layer); ``loss_fn`` is the training loss (the mean
+token cross-entropy, or its sequence-chunked form when ``CE_CHUNK`` is
+set, plus ``router_aux_coef`` times that aux); with autograd on, each
 group of the body is recomputed in the backward (JAX's remat, its
 ``jax.checkpoint`` of the scan body).  The decode functions run under
 ``torch.inference_mode()``.
@@ -41,8 +45,11 @@ def build(cfg, mk):
     p = {"embed": mk((v, d), 0.02), "final_norm": mk((d,), "zeros")}
     if not cfg.tie_embeddings:
         p["lm_head"] = mk((d, v))
-    if cfg.modality_dim or pre:
-        raise B.not_ported("cross" if cfg.modality_dim else "moe")
+    if cfg.modality_dim:
+        raise B.not_ported("cross")
+    if pre:  # deepseek-v2: irregular dense first layer (d_ff = cfg.d_ff)
+        p["pre"] = {"s0_attn": B.build_sublayer(cfg, mk, "attn"),
+                    "s1_mlp": B.build_sublayer(cfg, mk, "mlp")}
     p["groups"] = B.build_group(cfg, StackedMk(mk, G), pattern)
     return p
 
@@ -109,26 +116,35 @@ CE_CHUNK = 0
 
 
 def forward_hidden(cfg, params, tokens, *, impl=None):
-    """tokens: (B, S) int -> final hidden (B, S, D), before the head.
-    ``impl`` picks the kernels' dispatch (None: the kernels on the card).
-    With autograd on, each group's activations are recomputed in the
-    backward instead of kept (JAX's default remat)."""
+    """tokens: (B, S) int -> (final hidden (B, S, D) before the head, aux
+    f32).  ``impl`` picks the kernels' dispatch (None: the kernels on the
+    card).  With autograd on, each group's activations are recomputed in
+    the backward instead of kept (JAX's default remat; JAX does not remat
+    the ``pre`` layer either)."""
     x = _embed(params, tokens)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if "pre" in params:
+        x, _ = B.apply_sublayer(cfg, params["pre"]["s0_attn"], "attn", x,
+                                impl=impl)
+        x, _ = B.apply_sublayer(cfg, params["pre"]["s1_mlp"], "mlp", x,
+                                impl=impl)
     ckpt = torch.is_grad_enabled()
     for gp in group_views(params["groups"], num_groups(params)):
         if ckpt:
-            x = checkpoint(B.apply_group, cfg, gp, x, impl=impl,
-                           use_reentrant=False)
+            x, a = checkpoint(B.apply_group, cfg, gp, x, impl=impl,
+                              use_reentrant=False)
         else:
-            x = B.apply_group(cfg, gp, x, impl=impl)
-    return x
+            x, a = B.apply_group(cfg, gp, x, impl=impl)
+        aux = aux + a
+    return x, aux
 
 
 def forward(cfg, params, tokens, *, impl=None):
-    """tokens: (B, S) int -> (logits (B, S, V), aux).  aux is the MoE
-    router loss in JAX; with no MoE ported it is 0.0."""
-    return _head(cfg, params, forward_hidden(cfg, params, tokens,
-                                             impl=impl)), 0.0
+    """tokens: (B, S) int -> (logits (B, S, V), aux): aux the MoE
+    router's load-balancing loss summed over layers, an f32 scalar (0.0
+    with no MoE layer)."""
+    x, aux = forward_hidden(cfg, params, tokens, impl=impl)
+    return _head(cfg, params, x), aux
 
 
 def _chunked_ce(cfg, params, x, labels, chunk: int):
@@ -156,25 +172,29 @@ def _chunked_ce(cfg, params, x, labels, chunk: int):
     return tot / torch.clamp_min(cnt, 1.0)
 
 
-def loss_fn(cfg, params, batch, *, impl=None):
+def loss_fn(cfg, params, batch, *, aux_coef=None, impl=None):
     """Mean token cross-entropy of ``batch["tokens"]`` against
-    ``batch["labels"]`` (labels < 0 ignored).  JAX adds the MoE router
-    loss times its coefficient; with no MoE ported that term is 0."""
+    ``batch["labels"]`` (labels < 0 ignored) plus ``aux_coef`` (default
+    the config's ``router_aux_coef``, 0 with no MoE) times the router's
+    load-balancing loss."""
     if CE_CHUNK:
-        x = forward_hidden(cfg, params, batch["tokens"], impl=impl)
-        return _chunked_ce(cfg, params, x, batch["labels"], CE_CHUNK)
-    logits, _ = forward(cfg, params, batch["tokens"], impl=impl)
-    return cross_entropy(logits, batch["labels"])
+        x, aux = forward_hidden(cfg, params, batch["tokens"], impl=impl)
+        loss = _chunked_ce(cfg, params, x, batch["labels"], CE_CHUNK)
+    else:
+        logits, aux = forward(cfg, params, batch["tokens"], impl=impl)
+        loss = cross_entropy(logits, batch["labels"])
+    coef = (cfg.moe.router_aux_coef if (cfg.moe and aux_coef is None)
+            else (aux_coef or 0.0))
+    return loss + coef * aux
 
 
 # --------------------------------------------------------------- decode ---
 
 def decode_cache_shape(cfg, batch: int, seq: int):
     """{"caches": {block: {sublayer: {leaf: (shape, dtype)}}}, "pos": ((),
-    int32)}: caches stacked over groups, raw KV heads."""
+    int32)}: caches stacked over groups, raw KV heads; with a ``pre``
+    layer also {"pre": {leaf: (shape, dtype)}}, not stacked."""
     pattern, G, pre = B.group_pattern(cfg)
-    if pre:
-        raise B.not_ported("moe")
     kve = max(cfg.num_kv_heads, 1)
     per_group = B.group_cache_shape(cfg, pattern, batch, seq, kve)
 
@@ -182,7 +202,10 @@ def decode_cache_shape(cfg, batch: int, seq: int):
         return ((G,) + tuple(leaf[0]), leaf[1])
     caches = {b: {s: {k: stack(v) for k, v in c.items()}
                   for s, c in bv.items()} for b, bv in per_group.items()}
-    return {"caches": caches, "pos": ((), torch.int32)}
+    out = {"caches": caches, "pos": ((), torch.int32)}
+    if pre:
+        out["pre"] = B.sublayer_cache_shape(cfg, "attn", batch, seq, kve)
+    return out
 
 
 @torch.inference_mode()
@@ -194,19 +217,30 @@ def init_decode_state(cfg, params, batch: int, seq: int):
                       for k, (shp, dt) in c.items()}
                   for s, c in bv.items()}
               for b, bv in shapes["caches"].items()}
-    return {"caches": caches,
-            "pos": torch.zeros((), dtype=torch.int32, device=dev)}
+    out = {"caches": caches,
+           "pos": torch.zeros((), dtype=torch.int32, device=dev)}
+    if "pre" in shapes:
+        out["pre"] = {k: torch.zeros(shp, dtype=dt, device=dev)
+                      for k, (shp, dt) in shapes["pre"].items()}
+    return out
 
 
 @torch.inference_mode()
 def decode_step(cfg, params, state, tokens):
     """tokens: (B, 1) int -> (logits (B, 1, V), state with pos + 1).  The
     state's caches are updated in place.  No kernel of the port runs in a
-    decode step: attention against the cache is the plain chunked path."""
+    decode step: attention against the cache is the plain chunked path
+    (MLA's absorbed form), MoE the reference loop."""
     pos = state["pos"]
     x = _embed(params, tokens)
+    new_state = {}
+    if "pre" in params:
+        p = params["pre"]
+        x, new_state["pre"] = B.apply_sublayer_decode(
+            cfg, p["s0_attn"], "attn", x, state["pre"], pos)
+        x, _ = B.apply_sublayer_decode(cfg, p["s1_mlp"], "mlp", x, None, pos)
     for g in range(num_groups(params)):
         x = B.apply_group_decode(cfg, tree_index(params["groups"], g), x,
                                  tree_index(state["caches"], g), pos)
-    return _head(cfg, params, x), {"caches": state["caches"],
-                                   "pos": pos + 1}
+    new_state.update(caches=state["caches"], pos=pos + 1)
+    return _head(cfg, params, x), new_state

@@ -5,7 +5,8 @@ against JAX's ``repro.kernels.ref.flash_attention``.
 key tiles of 128 rows for query tiles of 128 rows, keeps the running max in
 log2 units and takes ``exp2`` with ``D^-0.5 log2(e)`` folded in, rounds p
 to bf16 against the running max before P.V, rescales O by ``corr`` on
-every tile, and reads D zero-padded to DP (64 or 128).  :func:`emulate`
+every tile, and reads D zero-padded to DP (64 or 128; the MLA entry
+pads q and k to 192 and v to 128).  :func:`emulate`
 repeats that arithmetic; the kernel itself runs on the card only.  The
 emulation is held against JAX's reference on the same numpy inputs:
 
@@ -15,7 +16,9 @@ emulation is held against JAX's reference on the same numpy inputs:
   of the difference over the row's rms, ``chip_smoke.ROW_TOL``): the
   prediction that 128-key tiles keep the kernel's bf16 rows inside the
   limit the card holds it to;
-* a control with one key tile dropped reads above both limits.
+* a control with one key tile dropped reads above both limits;
+* the MLA entry's widths (q.k 192, v 128; and 136 / 72, padded into it)
+  hold the same two limits.
 """
 import functools
 import importlib.util
@@ -46,22 +49,25 @@ ROW_TOL = _row_tol()
 
 
 def emulate(q, k, v, *, causal=True, bf16=False, drop_tile=None):
-    """flash_bf16's arithmetic on (B, S, H, D) q and (B, T, KH, D) k, v
-    (f32 tensors holding the inputs' values).  ``bf16`` rounds p before
-    P.V and the output at the end; ``drop_tile`` skips one key tile."""
+    """flash_bf16's arithmetic on (B, S, H, D) q, (B, T, KH, D) k and (B,
+    T, KH, Dv) v (f32 tensors holding the inputs' values).  ``bf16``
+    rounds p before P.V and the output at the end; ``drop_tile`` skips
+    one key tile."""
     B, S, H, D = q.shape
-    T, KH = k.shape[1], k.shape[2]
-    DP = 64 if D <= 64 else 128
+    T, KH, Dv = k.shape[1], k.shape[2], v.shape[3]
+    DP, DV = ((64, 64) if max(D, Dv) <= 64 else (128, 128)
+              if max(D, Dv) <= 128 else (192, 128))
     pad = (0, DP - D)
     qh = torch.nn.functional.pad(q, pad).transpose(1, 2)       # B H S DP
     kh = torch.nn.functional.pad(k, pad).repeat_interleave(H // KH, 2)
-    vh = torch.nn.functional.pad(v, pad).repeat_interleave(H // KH, 2)
+    vh = torch.nn.functional.pad(v, (0, DV - Dv)).repeat_interleave(
+        H // KH, 2)
     kh, vh = kh.transpose(1, 2), vh.transpose(1, 2)             # B H T DP
     scale_log2 = torch.tensor(math.log2(math.e) / math.sqrt(D),
                               dtype=torch.float32)
     m = torch.full((B, H, S), -math.inf)
     l = torch.zeros((B, H, S))
-    acc = torch.zeros((B, H, S, DP))
+    acc = torch.zeros((B, H, S, DV))
     qpos = torch.arange(S)[:, None]
     for j in range(-(-T // TILE)):
         if j == drop_tile:
@@ -82,17 +88,18 @@ def emulate(q, k, v, *, causal=True, bf16=False, drop_tile=None):
             p = p.to(torch.bfloat16).float()
         acc = acc * corr[..., None] + p @ vh[:, :, k0:k0 + TILE]
         m = m_new
-    o = (acc / l.clamp_min(1e-30)[..., None])[..., :D].transpose(1, 2)
+    o = (acc / l.clamp_min(1e-30)[..., None])[..., :Dv].transpose(1, 2)
     return o.to(torch.bfloat16).float() if bf16 else o
 
 
 @functools.lru_cache(maxsize=None)
-def _case(S, T, H, KH, D, causal, bf16):
+def _case(S, T, H, KH, D, causal, bf16, Dv=None):
     """Inputs from numpy (seeded by the shape; bf16 values when ``bf16``)
-    as f32 tensors, and JAX's reference output on them."""
+    as f32 tensors, and JAX's reference output on them; v is Dv wide
+    (default D)."""
     rng = np.random.default_rng(S * D if bf16 else S + D)
     arrs = [rng.standard_normal(s).astype(np.float32)
-            for s in ((1, S, H, D), (1, T, KH, D), (1, T, KH, D))]
+            for s in ((1, S, H, D), (1, T, KH, D), (1, T, KH, Dv or D))]
     dt = jnp.bfloat16 if bf16 else jnp.float32
     if bf16:       # round once so both sides get the same bf16 values
         arrs = [np.asarray(jnp.asarray(a, dt), np.float32) for a in arrs]
@@ -137,3 +144,32 @@ def test_a_dropped_tile_reads_above_both_limits(S, T, H, KH, D, causal):
     arrs, want = _case(S, T, H, KH, D, causal, True)
     got = emulate(*arrs, causal=causal, bf16=True, drop_tile=drop)
     assert row_rel_err(got, want) > ROW_TOL
+
+
+# (S, T, H, KH, D, Dv, causal): the MLA entry across tiles, ragged, and
+# non-causal with ragged T; a pair padded into it
+MLA_CASES = [(256, 256, 2, 2, 192, 128, True), (1000, 1000, 2, 1, 192, 128,
+                                                True),
+             (300, 420, 2, 2, 192, 128, False), (500, 500, 2, 2, 136, 72,
+                                                 True)]
+MLA_IDS = [f"S{s}-T{t}-H{h}-KH{kh}-D{d}-Dv{dv}-{'causal' if c else 'full'}"
+           for s, t, h, kh, d, dv, c in MLA_CASES]
+
+
+@pytest.mark.parametrize("S,T,H,KH,D,Dv,causal", MLA_CASES, ids=MLA_IDS)
+def test_mla_tile_arithmetic_matches_jax(S, T, H, KH, D, Dv, causal):
+    """f32 within 2e-5; bf16 rows within ROW_TOL; a dropped tile above
+    both."""
+    arrs, want = _case(S, T, H, KH, D, causal, False, Dv)
+    got = emulate(*arrs, causal=causal)
+    assert got.shape == (1, S, H, Dv)
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+    drop = -(-T // TILE) // 2
+    assert (emulate(*arrs, causal=causal, drop_tile=drop)
+            - want).abs().max() > 2e-5
+    arrs, want = _case(S, T, H, KH, D, causal, True, Dv)
+    got = emulate(*arrs, causal=causal, bf16=True)
+    assert torch.isfinite(got).all()
+    assert row_rel_err(got, want) <= ROW_TOL
+    assert row_rel_err(emulate(*arrs, causal=causal, bf16=True,
+                               drop_tile=drop), want) > ROW_TOL

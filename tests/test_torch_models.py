@@ -17,7 +17,9 @@ reduced glm4-9b (dense GQA) and mamba2-370m (SSM).
   tokens, in bf16 within 5e-2 (JAX holds 3e-2, but there prefill and
   decode share the chunked attention; in the port prefill takes the flash
   path, whose probabilities round elsewhere);
-* the families the slice lacks raise ``NotImplementedError``.
+* the families the port lacks (the VLM's cross-attention, whisper's
+  encoder-decoder) raise ``NotImplementedError``; the MoE, MLA and hybrid
+  families have their own file (tests/test_torch_moe.py).
 """
 import jax
 import jax.numpy as jnp
@@ -33,8 +35,10 @@ from repro_torch.models import api, lm
 from repro_torch.models.convert import params_from_numpy
 
 ARCHS = ["glm4-9b", "mamba2-370m"]
-PORTED = {"glm4-9b", "mamba2-370m", "starcoder2-15b", "granite-20b",
-          "granite-34b"}
+DENSE = {"glm4-9b", "mamba2-370m", "starcoder2-15b", "granite-20b",
+         "granite-34b"}
+PORTED = DENSE | {"llama4-maverick-400b-a17b", "deepseek-v2-236b",
+                  "jamba-1.5-large-398b"}
 
 
 @pytest.fixture(scope="module", params=ARCHS)
@@ -164,7 +168,7 @@ def test_prefill_decode_equivalence(arch):
                                atol=5e-2, rtol=5e-2)
 
 
-@pytest.mark.parametrize("arch", sorted(PORTED - set(ARCHS)))
+@pytest.mark.parametrize("arch", sorted(DENSE - set(ARCHS)))
 def test_other_dense_configs_run(arch):
     """The dense families with a GELU MLP (starcoder2, granite) and MQA
     run forward and decode."""
