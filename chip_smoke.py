@@ -24,7 +24,11 @@ exits non-zero:
            and, in bf16, y within 2e-2 and the f32 state within 2e-3, over
            SSD_SWEEP and at mamba2's layer; the MLA entry of flash in bf16
            over MLA_SWEEP and at deepseek's layer (q.k 192, v 128), with a
-           dropped-tile control there), radix_partition also at the
+           dropped-tile control there; its non-causal calls over
+           CROSS_SWEEP, the VLM's cross layer, whisper's encoder and cross
+           layers with T = 1601 and 1500 keys, ragged S and T on both bf16
+           bodies and f32, each path shape with a dropped-tile control and
+           timed beside non-causal SDPA), radix_partition also at the
            joins' A = 128 000 000 and its rank alone at 2^24 requests into
            8 and 64 buckets, then each timed at the
            main paths' shapes (per call between CUDA events, and its device
@@ -86,6 +90,20 @@ exits non-zero:
            dropped key tile, a dropped expert, a lost state); the rank at
            the dispatch's shape timed; a 16-request engine whose tokens
            must equal a plain engine's, lock words 0; peak memory
+  xattn    cross-attention and the encoder-decoder (bench/serve.py):
+           llama-3.2-vision-90b at full width cut to 10 of 100 layers (8
+           self-attention and 2 cross layers over 1601 image tokens of
+           width 1280; B 1, S 8192) and whisper-base at its full config (6
+           encoder layers over 16 x 1500 frames of 80 mel features, 6
+           decoder layers at S 448), bf16 weights drawn on the card from
+           seed 0.  Each timed prefill step (median of 3 after a warm-up)
+           must launch exactly XATTN_ARCHS' kernels (flash_attention once
+           a causal layer, its non-causal calls once a cross or encoder
+           layer); every layer's kernel against its plain version on its
+           own inputs within ROW_TOL, with a dropped-tile control of each
+           kind above it; 32 greedy decode steps from
+           init_decode_state(modality=), finite and launching nothing;
+           whisper's f32 full-depth witness (phase serve's rule)
   paged    paged serving (src/repro_torch/bench/serve.py paged_engine):
            glm4-9b at its full config with bf16 weights drawn on the
            card; ServeEngine(paged=True, slots=8, max_seq=1024,
@@ -156,16 +174,17 @@ exits non-zero:
            targets, 0 violations) and one 4096-session checkout wave
            through a ScheduleRecorder, race-checked (0 violations)
 
-The kernels' f32 entries (flash_f32, ssd_kernel), which no timed path
-runs, are timed in phase kernels at the f32 witnesses' shapes, and their
-launches are counted where serve's f32 witness and train's f32 gradient
-check run them (a comparison's launches, on no path): one f32_entries
-line.
+The kernels' f32 entries (flash_f32, causal and non-causal apart, and
+ssd_kernel), which no timed path runs, are timed in phase kernels at the
+f32 witnesses' shapes, and their launches are counted where serve's and
+xattn's f32 witnesses and train's f32 gradient check run them (a
+comparison's launches, on no path): one f32_entries line.
 
 Launch counts are set to 0 just before each path and read just after:
 the oltp sessions and commits, the olap queries (Database.execute
 alone), Fig 8b's kernel row, the one path of the f32 grouped_agg
 entry, in serve and moe each timed prefill step and each engine wave, in
+xattn each timed prefill step and the decode steps, in
 paged
 each tick of each engine run, in shards the 4-shard oltp waves and the
 4-shard queries, and in train each trainer run, Fig 9 and glm4's grad
@@ -184,6 +203,7 @@ paths named in its "paths"), the card's name and power limit
     python3 chip_smoke.py --phases env,build,train    # training
     python3 chip_smoke.py --phases env,build,paged    # paged serving
     python3 chip_smoke.py --phases env,build,moe      # MoE and MLA models
+    python3 chip_smoke.py --phases env,build,xattn    # VLM and whisper
     python3 chip_smoke.py --phases env,build,scale,contention   # under load
 """
 from __future__ import annotations
@@ -204,7 +224,7 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 peak
 BF16_FLOP_PER_S = 989e12           # H100 SXM dense bf16 tensor cores
 F32_FLOP_PER_S = 67e12             # H100 SXM float32 outside tensor cores
 PHASES = ("env", "build", "kernels", "oltp", "olap", "fig6", "serve",
-          "moe", "paged", "shards", "train", "scale", "contention")
+          "moe", "xattn", "paged", "shards", "train", "scale", "contention")
 SERVE_ARCHS = {"glm4-9b": "flash_attention", "mamba2-370m": "ssd_scan"}
 ROW_TOL = 2 ** -6        # bf16, kernel vs plain: rms(diff) / rms(plain)
                          # per row (a query row of one head; an SSD output
@@ -268,6 +288,25 @@ MOE_CUTS = {
         "chip's share of its experts needs the sharding policy (ROADMAP "
         "item 8)",
 }
+# phase xattn: arch -> (layers, what a prefill step launches)
+XATTN_ARCHS = {
+    "llama-3.2-vision-90b": (10, {"flash_attention": 8,
+                                  "flash_attention_noncausal": 2}),
+    "whisper-base": (None, {"flash_attention": 6,
+                            "flash_attention_noncausal": 12}),
+}
+XATTN_CUTS = {
+    "llama-3.2-vision-90b":
+        "full width, 10 of 100 layers: two periods of 4 self-attention "
+        "layers and a cross layer; the 100 layers' 90 B parameters take "
+        "181 GB in bf16; 1601 image tokens of width 1280 (one tile); B 1 x "
+        "S 8192 text tokens",
+    "whisper-base":
+        "none: the full config (6 encoder and 6 decoder layers); B 16 "
+        "utterances of 30 s (1500 frames of 80 mel features), decoder S 448 "
+        "(Whisper's text context, arXiv:2212.04356)",
+}
+DECODE_STEPS = 32                # phase xattn: greedy decode steps a model
 PAGED_ARCH = "glm4-9b"
 PAGED_CONFIGS = {"all_local": dict(hot_frac=1.0),      # paged engine runs
                  "async": dict(hot_frac=0.25),         # (bench.serve.
@@ -276,9 +315,10 @@ PAGED_CONFIGS = {"all_local": dict(hot_frac=1.0),      # paged engine runs
 PAGED_PLAIN = "async"            # the configuration also run on the plain
                                  # path (impl="plain")
 CHECK_TARGETS = 27               # fabric-check: the JAX package's targets
-F32 = {"flash_f32": {}, "ssd_kernel": {}}   # the kernels' f32 entries:
-                         # timed in phase kernels, launches counted where
-                         # the f32 witnesses and gradient checks run them
+# the kernels' f32 entries (flash_f32's causal and non-causal calls
+# apart): timed in phase kernels, launches counted where the f32 witnesses
+# and gradient checks run them
+F32 = {"flash_f32": {}, "flash_f32_noncausal": {}, "ssd_kernel": {}}
 _OUT = []                        # a file every emitted line also goes to
 
 
@@ -1030,6 +1070,23 @@ MLA_SWEEP = (       # (B, S, T, H, KH, D, Dv, causal), bf16: the MLA entry
     (1, 1000, 1000, 128, 128, 192, 128, True),  # half the L2, so blocks
     (1, 2048, 2048, 64, 32, 128, 128, True),    # take query tiles fastest
 )
+CROSS_PATHS = {     # the non-causal path shapes, timed: (B, S, T, H, KH,
+    "vlm_cross": (1, 8192, 1601, 64, 8, 128),        # D), bf16
+    "whisper_encoder": (16, 1500, 1500, 8, 8, 64),
+    "whisper_cross": (16, 448, 1500, 8, 8, 64),
+}
+CROSS_SWEEP = tuple(   # (B, S, T, H, KH, D, dtype), non-causal: the path
+    (*p, "bf16") for p in CROSS_PATHS.values()      # shapes, then ragged S
+) + tuple((1, S, T, 8, 2, D, "bf16")       # and T either side of the
+          for D in (64, 128)               # 128-row tiles on both bf16
+          for S in (1, 127, 129, 300)      # bodies, T < S and T > S, and
+          for T in (1, 127, 129, 300)      # the f32 body at D 64 and 128
+          if S != T) + (
+    (2, 300, 129, 8, 2, 64, "f32"),
+    (1, 129, 300, 4, 4, 128, "f32"),
+    (1, 127, 1, 8, 8, 64, "f32"),
+    (2, 1, 300, 4, 2, 128, "f32"),
+)
 MLA_PATH = (1, 8192, 128, 192, 128)     # deepseek prefill: B, S, H = KH,
                                         # D (q.k), Dv
 FLASH_PATH = (1, 8192, 32, 2, 128)      # glm4 prefill: B, S, H, KH, D
@@ -1280,6 +1337,126 @@ def check_mla(stats: dict, record: dict) -> int:
     return t
 
 
+def check_cross(stats: dict, record: dict) -> dict:
+    """flash_attention's non-causal calls: over CROSS_SWEEP against
+    ref.flash_attention (bf16 within 2e-2 and each row within ROW_TOL,
+    f32 within 2e-5); at the three path shapes (CROSS_PATHS) also a
+    dropped-tile control above ROW_TOL, and each timed beside its plain
+    version and non-causal scaled_dot_product_attention (timed only: the
+    port never calls it); f32 also timed at whisper's encoder shape (its
+    f32 witness), beside f32 SDPA.  Bound: the larger of the operations,
+    4 B S T D H (every key of T read), at 989 TFLOP/s (67 in f32) and q,
+    k, v, o once at 3.35 TB/s."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.bench.serve import row_rel_err
+    from repro_torch.kernels import flash_attention as fa, ref
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(25)
+    dtypes = {"bf16": (torch.bfloat16, 2e-2), "f32": (torch.float32, 2e-5)}
+    cases = 0
+    for B, S, T, H, KH, D, dt in CROSS_SWEEP:
+        dtype, tol = dtypes[dt]
+        q = _normal(g, (B, S, H, D), dtype, dev)
+        k = _normal(g, (B, T, KH, D), dtype, dev)
+        v = _normal(g, (B, T, KH, D), dtype, dev)
+        got = fa.flash_attention(q, k, v, causal=False).float()
+        want = ref.flash_attention(q, k, v, causal=False).float()
+        err = float((got - want).abs().max())
+        row = row_rel_err(got, want) if dt == "bf16" else 0.0
+        where = f"B={B} S={S} T={T} H={H} KH={KH} D={D} {dt}"
+        if not torch.allclose(got, want, atol=tol, rtol=tol) \
+                or row > ROW_TOL:
+            raise AssertionError(f"flash non-causal off: {where}: max "
+                                 f"{err} (limit {tol}), row {row}")
+        key = f"flash_noncausal_{dt}"
+        stats[key] = max(stats[key], err)
+        stats["flash_noncausal_row"] = max(stats["flash_noncausal_row"],
+                                           row)
+        cases += 1
+        del got, want, q, k, v
+    torch.cuda.empty_cache()
+    timing = {}
+    for name, (B, S, T, H, KH, D) in CROSS_PATHS.items():
+        q = _normal(g, (B, S, H, D), torch.bfloat16, dev)
+        k = _normal(g, (B, T, KH, D), torch.bfloat16, dev)
+        v = _normal(g, (B, T, KH, D), torch.bfloat16, dev)
+        got = fa.flash_attention(q, k, v, causal=False).float()
+        want = ref.flash_attention(q, k, v, causal=False).float()
+        err = float((got - want).abs().max())
+        row = row_rel_err(got, want)
+        del got
+        control = row_rel_err(_attn_tile_dropped(q, k, v, causal=False),
+                              want)
+        del want
+        if not row <= ROW_TOL < control:
+            raise AssertionError(f"flash non-causal at {name}: row error "
+                                 f"{row}, control {control}, limit "
+                                 f"{ROW_TOL}")
+        flops = 4 * B * S * T * D * H
+        nbytes = 2 * (2 * q.numel() + 2 * k.numel())
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        t = {"ms": time_ms(lambda: fa.flash_attention(q, k, v,
+                                                      causal=False),
+                           iters=10),
+             "device_ms": device_ms(lambda: fa.flash_attention(
+                 q, k, v, causal=False), fa.KERNELS["flash_noncausal"],
+                 iters=5),
+             "plain_ms": time_ms(lambda: ref.flash_attention(
+                 q, k, v, causal=False), iters=3, warmup=1),
+             "bound_ms": max(bound_ms(nbytes),
+                             flops / BF16_FLOP_PER_S * 1e3),
+             "bound_by": ("operations" if flops / BF16_FLOP_PER_S
+                          > nbytes / HBM_BYTES_PER_S else "bytes"),
+             "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                 qt, kt, vt, is_causal=False, enable_gqa=H != KH),
+                 iters=10),
+             "flops": flops, "bytes": nbytes, "path_max_abs_err": err,
+             "path_row_err": row, "path_row_err_control": control,
+             "shape": {"B": B, "S": S, "T": T, "H": H, "KH": KH, "D": D,
+                       "dtype": "bf16", "causal": False}}
+        t["tflop_per_s"] = flops / t["ms"] / 1e9
+        t["bound_share"] = t["bound_ms"] / t["ms"]
+        timing[name] = t
+        del q, k, v, qt, kt, vt
+        torch.cuda.empty_cache()
+    main = timing["vlm_cross"]
+    record["flash_attention_noncausal"].update(
+        {k: main[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
+                              "bound_by", "library_ms", "shape")},
+        max_abs_err=max(stats["flash_noncausal_bf16"],
+                        stats["flash_noncausal_f32"]))
+    B, S, T, H, KH, D = CROSS_PATHS["whisper_encoder"]
+    q = _normal(g, (B, S, H, D), torch.float32, dev)
+    k = _normal(g, (B, T, KH, D), torch.float32, dev)
+    v = _normal(g, (B, T, KH, D), torch.float32, dev)
+    err = float((fa.flash_attention(q, k, v, causal=False)
+                 - ref.flash_attention(q, k, v, causal=False)).abs().max())
+    if not err <= 2e-5:
+        raise AssertionError(f"flash_f32 non-causal off at whisper's "
+                             f"encoder shape: max {err}")
+    flops = 4 * B * S * T * D * H
+    nbytes = 4 * (2 * q.numel() + 2 * k.numel())
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    F32["flash_f32_noncausal"].update(
+        ms=time_ms(lambda: fa.flash_attention(q, k, v, causal=False),
+                   iters=5),
+        plain_ms=time_ms(lambda: ref.flash_attention(q, k, v, causal=False),
+                         iters=3, warmup=1),
+        bound_ms=max(bound_ms(nbytes), flops / F32_FLOP_PER_S * 1e3),
+        bound_by=("operations" if flops / F32_FLOP_PER_S
+                  > nbytes / HBM_BYTES_PER_S else "bytes"),
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=False), iters=5),
+        max_abs_err=err, flops=flops, bytes=nbytes,
+        shape={"B": B, "S": S, "T": T, "H": H, "KH": KH, "D": D,
+               "dtype": "f32", "causal": False})
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    timing["sweep_cases"] = cases
+    return timing
+
+
 def time_f32_entries() -> dict:
     """The f32 entries of flash_attention (``flash_f32``, an FMA body) and
     ssd_scan (``ssd_kernel``, the recurrence) at the shapes of the f32
@@ -1419,10 +1596,13 @@ def phase_kernels(quick: bool, record: dict):
                            "flash_attention", "ssd_scan"])
     err = {"rank": 0, "scatter": 0, "cas": 0, "grouped_agg": 0.0,
            "flash_f32": 0.0, "flash_bf16": 0.0, "flash_bf16_row": 0.0,
-           "flash_mla": 0.0, "flash_mla_row": 0.0, "ssd": 0.0}
+           "flash_mla": 0.0, "flash_mla_row": 0.0,
+           "flash_noncausal_bf16": 0.0, "flash_noncausal_f32": 0.0,
+           "flash_noncausal_row": 0.0, "ssd": 0.0}
     t0 = time.perf_counter()
     nf = check_flash(err)
     mla = check_mla(err, record)
+    cross = check_cross(err, record)
     ns = check_ssd(err)
     nr = check_radix(quick, err)
     nc = check_cas(quick, err)
@@ -1439,6 +1619,7 @@ def phase_kernels(quick: bool, record: dict):
     record["ssd_scan"]["max_abs_err"] = err["ssd"]
     timing = {"flash_attention": time_flash(record),
               "flash_attention_mla": mla,
+              "flash_attention_noncausal": cross,
               "ssd_scan": time_ssd(record),
               "f32_entries": time_f32_entries()}
     time_kernels(record)
@@ -1448,7 +1629,9 @@ def phase_kernels(quick: bool, record: dict):
     timing.update(time_grouped(quick, record))
     timing.update(time_radix_join(quick))
     emit("kernels_checked", flash_cases=nf,
-         flash_mla_cases=mla["sweep_cases"], ssd_cases=ns, radix_cases=nr,
+         flash_mla_cases=mla["sweep_cases"],
+         flash_noncausal_cases=cross["sweep_cases"], ssd_cases=ns,
+         radix_cases=nr,
          cas_cases=nc, grouped_agg_cases=ng, radix_join_A=join_a,
          max_abs_err=err, seconds=time.perf_counter() - t0, gpu=smi(),
          timing=timing)
@@ -1926,22 +2109,24 @@ def phase_shards(quick: bool, record: dict):
 # check must land above its limit, or the check could not see that fault.
 
 def _attn_tile_dropped(q, k, v, *, causal: bool = True):
-    """ref.flash_attention (causal) with the 64-key tile [S/2, S/2 + 64)
-    hidden from every query after it, as a kernel that skipped one tile
-    would compute."""
+    """ref.flash_attention with the 64-key tile [T/2, T/2 + 64) hidden,
+    causal: from every query after it; non-causal: from every query; as a
+    kernel that skipped one tile would compute."""
     import torch
     B, S, H, D = q.shape
+    T = k.shape[1]
     G = H // k.shape[2]
-    lo = S // 2 // 64 * 64
+    lo = T // 2 // 64 * 64
     kk = k.float().repeat_interleave(G, dim=2)
     vv = v.float().repeat_interleave(G, dim=2)
-    kpos = torch.arange(k.shape[1], device=q.device)
+    kpos = torch.arange(T, device=q.device)
+    tile = (kpos >= lo) & (kpos < lo + 64)
     out = q.new_empty((B, S, H, v.shape[-1]))
     for s0 in range(0, S, 1024):
         qc = q[:, s0:s0 + 1024].float()
         qpos = torch.arange(s0, s0 + qc.shape[1], device=q.device)[:, None]
-        keep = (kpos <= qpos) & ~((kpos >= lo) & (kpos < lo + 64)
-                                  & (qpos >= lo + 64))
+        keep = ((kpos <= qpos) & ~(tile & (qpos >= lo + 64)) if causal
+                else ~tile)
         sc = torch.einsum("bshd,bthd->bhst", qc, kk) * D ** -0.5
         p = torch.softmax(sc.masked_fill(~keep, -1e30), dim=-1)
         out[:, s0:s0 + 1024] = torch.einsum("bhst,bthd->bshd", p,
@@ -2235,6 +2420,119 @@ def phase_moe(quick: bool, record: dict):
             _count(("cas_lock",), w["launches"], record,
                    f"moe {arch} engine wave")
         del pre, eng, plain
+
+
+def phase_xattn(quick: bool, record: dict):
+    """XATTN_ARCHS through src/repro_torch/bench/serve.py (--quick: the
+    VLM at S=1024): bf16 weights drawn on the card from seed 0, modality
+    features from seed 4.  Each timed prefill step must launch exactly its
+    XATTN_ARCHS kernels: flash_attention once a causal self-attention
+    layer, its non-causal calls once a cross layer and once a whisper
+    encoder layer.  The layer check (every self, cross and encoder
+    layer's kernel against its plain version on its own inputs, at every
+    position) within ROW_TOL, and a faulty control (a dropped key tile)
+    on the first group above it for each kind.  Then DECODE_STEPS greedy
+    decode steps from init_decode_state(modality=): finite logits, no
+    kernel launched (decode runs the plain chunked attention, the cross
+    layers over the memory's caches).  For whisper also the f32
+    full-depth witness, held within F32_LOGIT_TOL wherever the plain
+    path's embedding nudge stays within it (phase serve's rule); the
+    VLM's cut takes 43 GB of f32 weights and has none.  The phase line is
+    printed before a failure is raised."""
+    import torch
+    from repro_torch.bench import serve
+    from repro_torch.kernels import ops
+    for arch, (layers, want) in XATTN_ARCHS.items():
+        cfg = serve.config(arch, layers)
+        batch, seq = serve.PREFILL[arch]
+        if quick and cfg.family == "vlm":
+            seq = 1024
+        t0 = time.perf_counter()
+        params = serve.weights(cfg, device="cuda")
+        torch.cuda.synchronize()
+        leaves = list(_leaves(params))
+        nbytes = sum(t.numel() * t.element_size() for t in leaves)
+        nparams = sum(t.numel() for t in leaves)
+        del leaves
+        pre = serve.prefill(cfg, params, batch=batch, seq=seq)
+        dev = params["embed"].device
+        tokens = serve.prompt(cfg, batch, seq, dev)
+        mod = serve.modality(cfg, batch, dev)
+        layers_ = serve.layer_check(cfg, params, tokens, modality=mod)
+        with faulty_plain("flash_attention"):
+            got = serve.layer_check(cfg, params, tokens, modality=mod,
+                                    groups=1)
+        layers_["control"] = {
+            kind: max(r for r, kd in zip(got["per_layer"], got["kinds"])
+                      if kd == kind) for kind in sorted(set(got["kinds"]))}
+        del tokens, mod, got
+        torch.cuda.empty_cache()
+        dec = serve.decode(cfg, params, batch=batch, steps=DECODE_STEPS)
+        del params
+        torch.cuda.empty_cache()
+        f32 = None
+        if cfg.family == "encdec":
+            before = ops.launch_counts()
+            f32 = serve.f32_witness(cfg, batch=batch, seq=seq,
+                                    device="cuda")
+            _count_f32("flash_f32", "flash_attention", before)
+            _count_f32("flash_f32_noncausal", "flash_attention_noncausal",
+                       before)
+            f32["held"] = f32["nudged"]["max_abs_diff"] <= F32_LOGIT_TOL
+            torch.cuda.empty_cache()
+        failures = []
+        for launches in pre["launches"]:
+            got = {k: v for k, v in launches.items() if v}
+            if got != want:
+                failures.append(f"prefill launched {got}, not {want}")
+        if not pre["full"]["finite"]:
+            failures.append("prefill logits not finite")
+        if not pre["full"]["step_agrees"]:
+            failures.append("the prefill step's token is not the argmax of "
+                            "its logits")
+        kinds = {"flash_attention": want["flash_attention"],
+                 "flash_noncausal": want["flash_attention_noncausal"]}
+        if {k: layers_["kinds"].count(k) for k in kinds} != kinds \
+                or len(layers_["kinds"]) != sum(kinds.values()):
+            failures.append(f"the layer check read {layers_['kinds']}")
+        if layers_["max"] > ROW_TOL:
+            failures.append(f"layer reading {layers_['worst_layer']} "
+                            f"({layers_['kinds'][layers_['worst_layer']]}) "
+                            f"differs from its plain version by "
+                            f"{layers_['max']} > {ROW_TOL}")
+        if set(layers_["control"]) != set(kinds):
+            failures.append(f"the control read {layers_['control']}")
+        for kind, c in layers_["control"].items():
+            if not c > ROW_TOL:
+                failures.append(f"the layer check read {c} on a faulty "
+                                f"plain {kind}, not above {ROW_TOL}")
+        if not dec["finite"]:
+            failures.append("decode logits not finite")
+        if any(dec["launches"].values()):
+            failures.append(f"decode launched {dec['launches']}")
+        if f32 is not None:
+            if not f32["kernel"]["finite"]:
+                failures.append("f32 logits not finite")
+            if f32["held"] and (f32["kernel"]["max_abs_diff"]
+                                > F32_LOGIT_TOL
+                                or f32["kernel"]["argmax_agree"] < 1):
+                failures.append(
+                    f"f32 full-depth logits differ from the plain path by "
+                    f"{f32['kernel']['max_abs_diff']} (limit "
+                    f"{F32_LOGIT_TOL}), argmax agreement "
+                    f"{f32['kernel']['argmax_agree']}")
+        emit("xattn", arch=arch, cut=XATTN_CUTS[arch], layers=cfg.num_layers,
+             encoder_layers=cfg.encoder_layers or None, params=nparams,
+             weights_bytes=nbytes, prefill=pre, layer_check=layers_,
+             layer_check_held_to=ROW_TOL,
+             decode={k: v for k, v in dec.items() if k != "tokens"},
+             f32_full=f32, f32_held_to=F32_LOGIT_TOL, failures=failures,
+             seconds=time.perf_counter() - t0, gpu=smi())
+        if failures:
+            raise AssertionError(f"xattn {arch}: " + "; ".join(failures))
+        for launches in pre["launches"]:
+            _count(tuple(want), launches, record, f"xattn {arch} prefill")
+        del pre, dec
 
 
 def _layer_check(cfg, params, tokens, kernel: str) -> dict:
@@ -2890,6 +3188,9 @@ def main(argv=None) -> int:
         "flash_attention": {
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:67"},
+        "flash_attention_noncausal": {
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:67"},
         "flash_attention_mla": {
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:67"},
@@ -2904,7 +3205,12 @@ def main(argv=None) -> int:
                          "scale, contention recorded wave",
              "grouped_agg": "fig8b kernel row", "grouped_sum_u32": "olap",
              "flash_attention": "serve glm4-9b prefill, moe llama4 and "
-                                "jamba prefill",
+                                "jamba prefill, xattn llama-3.2-vision and "
+                                "whisper-base prefill (self-attention)",
+             "flash_attention_noncausal": "xattn llama-3.2-vision prefill "
+                                          "(cross layers), whisper-base "
+                                          "prefill (encoder and cross "
+                                          "layers)",
              "flash_attention_mla": "moe deepseek-v2-236b prefill",
              "ssd_scan": "serve mamba2-370m prefill, moe jamba prefill"}
     for name, r in record.items():
@@ -2925,6 +3231,8 @@ def main(argv=None) -> int:
         phase_serve(args.quick, record)
     if "moe" in phases:
         phase_moe(args.quick, record)
+    if "xattn" in phases:
+        phase_xattn(args.quick, record)
     if "paged" in phases:
         phase_paged(args.quick, record)
     if "shards" in phases:

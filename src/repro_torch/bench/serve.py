@@ -6,16 +6,22 @@ cuts the depth; ``reduced=True`` takes ``reduce_config``'s twin), with
 bf16 weights drawn on the device from seed 0:
 
 * :func:`prefill`: ``build_prefill_step`` on a (batch, seq) prompt of
-  random tokens, one warm-up step, then ``iters`` timed steps (host clock
-  around a synchronized step), each between a reset and a read of the
-  kernel launch counts; the full-depth last-position logits of the kernel
-  path against the plain path (``impl="plain"``); one profiled step.
+  random tokens (with :func:`modality` features where the model takes
+  them: the VLM's image, whisper's audio frames), one warm-up step, then
+  ``iters`` timed steps (host clock around a synchronized step), each
+  between a reset and a read of the kernel launch counts; the full-depth
+  last-position logits of the kernel path against the plain path
+  (``impl="plain"``); one profiled step.
 * :func:`layer_check`: every layer's kernel against its plain version on
-  that layer's own inputs in a kernel-path forward, at every position,
-  and every MoE layer's packed experts against the reference loop.
+  that layer's own inputs in a kernel-path forward, at every position
+  (self-attention, cross-attention and whisper's encoder layers), and
+  every MoE layer's packed experts against the reference loop.
 * :func:`f32_witness`: the full-depth logits of both paths with f32
   weights and activations, and of the plain path against itself with its
   embedding nudged.
+* :func:`decode`: greedy decode steps from ``init_decode_state(modality=)``
+  (the cross caches filled from the features), timed, with their
+  launches.
 * :func:`engine`: ``ServeEngine(slots, max_seq)`` runs ``requests``
   requests (prompts of 16-64 tokens from a numpy seed, ``max_new`` new
   tokens each) in waves of ``slots``; launches are counted per wave.
@@ -46,7 +52,9 @@ from repro_torch.train.train_step import build_prefill_step
 PREFILL = {"glm4-9b": (1, 8192), "mamba2-370m": (8, 8192),
            "llama4-maverick-400b-a17b": (1, 8192),
            "deepseek-v2-236b": (1, 8192),
-           "jamba-1.5-large-398b": (1, 8192)}
+           "jamba-1.5-large-398b": (1, 8192),
+           "llama-3.2-vision-90b": (1, 8192),
+           "whisper-base": (16, 448)}     # 16 utterances, 448 text tokens
 SLOTS, MAX_SEQ, REQUESTS, MAX_NEW = 8, 1024, 16, 32
 # the paged engine: 16 requests resident over 8 slots, 16-token blocks; a
 # cold region of 128 blocks holds the requests' peak of 98 live blocks
@@ -84,11 +92,24 @@ def prompt(cfg, batch: int, seq: int, device) -> torch.Tensor:
                          device=device)
 
 
+def modality(cfg, batch: int, device):
+    """(batch, num_modality_tokens, modality_dim) f32 standard normal
+    features from seed 4 (the stub front end's input), or None for a model
+    that takes none."""
+    if not cfg.modality_dim:
+        return None
+    g = torch.Generator(device).manual_seed(4)
+    return torch.randn((batch, cfg.num_modality_tokens, cfg.modality_dim),
+                       generator=g, device=device)
+
+
 @torch.inference_mode()
-def last_logits(cfg, params, tokens, *, impl=None) -> torch.Tensor:
+def last_logits(cfg, params, tokens, *, modality=None,
+                impl=None) -> torch.Tensor:
     """f32 logits of the last position (the prefill step's argmax input);
     the head runs on that position alone."""
-    x, _ = lm.forward_hidden(cfg, params, tokens, impl=impl)
+    x, _ = api.module(cfg).forward_hidden(cfg, params, tokens,
+                                          modality=modality, impl=impl)
     return lm._head(cfg, params, x[:, -1:])[:, 0].float()
 
 
@@ -141,8 +162,9 @@ def prefill(cfg, params, *, batch: int, seq: int, iters: int = 3,
     path's; profile one step (``profiled``, the card only)."""
     dev = params["embed"].device
     tokens = prompt(cfg, batch, seq, dev)
+    mod = modality(cfg, batch, dev)
     step = build_prefill_step(cfg)
-    batch_in = {"tokens": tokens}
+    batch_in = {"tokens": tokens, "modality": mod}
     step(params, batch_in)                                   # warm-up
     times, launches = [], []
     _reset_peak(dev)
@@ -156,9 +178,9 @@ def prefill(cfg, params, *, batch: int, seq: int, iters: int = 3,
     out = {"batch": batch, "seq": seq, "times_s": times, "median_s": med,
            "tokens_per_s": batch * seq / med, "peak_bytes": peak,
            "launches": launches}
-    k = last_logits(cfg, params, tokens)
+    k = last_logits(cfg, params, tokens, modality=mod)
     out["full"] = dict(compare(k, last_logits(cfg, params, tokens,
-                                              impl="plain")),
+                                              modality=mod, impl="plain")),
                        step_agrees=bool(torch.equal(nxt[:, 0],
                                                     k.argmax(-1))))
     if profiled:
@@ -168,17 +190,20 @@ def prefill(cfg, params, *, batch: int, seq: int, iters: int = 3,
 
 
 @torch.inference_mode()
-def layer_check(cfg, params, tokens, *, groups=None) -> dict:
-    """A forward over ``tokens`` on the kernel path in which every kernel
-    call (``ops.flash_attention``, ``ops.ssd_scan``) is also run plain on
-    the same inputs, and every MoE layer's packed experts
-    (``moe._moe_packed``, which ranks on the kernel) also as the reference
-    loop (``moe._moe_reference``): each layer, on its own inputs, held at
-    every position by :func:`row_rel_err` (rows along the head or model
-    width).  The forward carries the kernel path's output on, so no
-    layer's difference carries into the next one's reading.  ``groups``
-    cuts the forward to the first groups.  ``per_layer`` lists the
-    readings in call order, ``kinds`` what each read."""
+def layer_check(cfg, params, tokens, *, modality=None, groups=None) -> dict:
+    """A forward over ``tokens`` (and ``modality``) on the kernel path in
+    which every kernel call (``ops.flash_attention``, ``ops.ssd_scan``) is
+    also run plain on the same inputs, and every MoE layer's packed
+    experts (``moe._moe_packed``, which ranks on the kernel) also as the
+    reference loop (``moe._moe_reference``): each layer, on its own
+    inputs, held at every position by :func:`row_rel_err` (rows along the
+    head or model width).  The forward carries the kernel path's output
+    on, so no layer's difference carries into the next one's reading.
+    ``groups`` cuts the forward to the first groups (of the encoder too).
+    ``per_layer`` lists the readings in call order, ``kinds`` what each
+    read: ``flash_attention`` a causal call, ``flash_noncausal`` a
+    non-causal one (cross-attention, whisper's encoder), ``ssd_scan``,
+    ``moe``."""
     readings, kinds = [], []
 
     def both(name, fn):
@@ -189,7 +214,8 @@ def layer_check(cfg, params, tokens, *, groups=None) -> dict:
                 readings.append(row_rel_err(out[0], plain[0]))
             else:
                 readings.append(row_rel_err(out, plain))
-            kinds.append(name)
+            kinds.append("flash_noncausal" if name == "flash_attention"
+                         and not kw.get("causal", True) else name)
             return out
         return call
 
@@ -202,14 +228,16 @@ def layer_check(cfg, params, tokens, *, groups=None) -> dict:
         kinds.append("moe")
         return out
     if groups is not None:
-        params = dict(params, groups=lm.tree_map(lambda t: t[:groups],
-                                                 params["groups"]))
+        params = dict(params, **{
+            k: lm.tree_map(lambda t: t[:groups], params[k])
+            for k in ("groups", "enc_groups") if k in params})
     saved = {n: getattr(ops, n) for n in KERNELS}
     for n, fn in saved.items():
         setattr(ops, n, both(n, fn))
     moe._moe_packed = moe_both
     try:
-        lm.forward_hidden(cfg, params, tokens)
+        api.module(cfg).forward_hidden(cfg, params, tokens,
+                                       modality=modality)
     finally:
         for n, fn in saved.items():
             setattr(ops, n, fn)
@@ -232,18 +260,47 @@ def f32_witness(cfg, *, batch: int, seq: int, device=None) -> dict:
         params = weights(cfg, device=device, dtype=torch.float32)
         dev = params["embed"].device
         tokens = prompt(cfg, batch, seq, dev)
-        pl = last_logits(cfg, params, tokens, impl="plain")
-        out = {"kernel": compare(last_logits(cfg, params, tokens), pl)}
+        mod = modality(cfg, batch, dev)
+        pl = last_logits(cfg, params, tokens, modality=mod, impl="plain")
+        out = {"kernel": compare(last_logits(cfg, params, tokens,
+                                             modality=mod), pl)}
         emb = params["embed"]
         noise = torch.randn(emb.shape, generator=torch.Generator(dev)
                             .manual_seed(3), device=dev)
         params["embed"] = emb * (1.0 + NUDGE * noise)
         del emb, noise
         out["nudged"] = compare(last_logits(cfg, params, tokens,
-                                            impl="plain"), pl)
+                                            modality=mod, impl="plain"), pl)
     finally:
         lm.ACT_DTYPE = saved
     return out
+
+
+@torch.inference_mode()
+def decode(cfg, params, *, batch: int, steps: int = MAX_NEW) -> dict:
+    """``steps`` greedy decode steps (``api.decode_step``, each token the
+    argmax of the last) from ``init_decode_state(modality=)`` on a state
+    of ``steps`` positions, the first token drawn as the prompt's.  The
+    state's set-up (whisper's encoder and every cross cache) is timed
+    apart; the steps' launches are counted between a reset and a read,
+    and each step's logits must be finite."""
+    dev = params["embed"].device
+    mod = modality(cfg, batch, dev)
+    state, init_s = _sync_s(lambda: api.init_decode_state(
+        cfg, params, batch, steps, modality=mod), dev)
+    tok = prompt(cfg, batch, 1, dev)
+    ops.reset_launch_counts()
+    step_s, finite = [], True
+    for _ in range(steps):
+        (logits, state), s = _sync_s(
+            lambda: api.decode_step(cfg, params, state, tok), dev)
+        finite = finite and bool(torch.isfinite(logits).all())
+        tok = logits.argmax(-1)
+        step_s.append(s)
+    return {"batch": batch, "steps": steps, "init_s": init_s,
+            "step_ms": {"median": statistics.median(step_s) * 1e3,
+                        "max": max(step_s) * 1e3},
+            "finite": finite, "launches": ops.launch_counts()}
 
 
 def profile(fn, top: int = 12) -> dict:

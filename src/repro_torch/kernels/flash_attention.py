@@ -2,8 +2,10 @@
 
 Replaces the Pallas ``repro.kernels.flash_attention.flash_attention``
 (``src/repro/kernels/flash_attention.py:67``) and the chunked stand-in the
-JAX model runs in its place: the port's ``grouped_attend`` sends the causal
-full-sequence case (every prefill) here.  CUDA tensors only; the plain
+JAX model runs in its place: the port's ``grouped_attend`` sends every
+full-sequence call here: causal self-attention (every prefill), and
+non-causal attention with any key count T (whisper's encoder, the VLM's
+and whisper's cross-attention).  CUDA tensors only; the plain
 version is :func:`repro_torch.kernels.ref.flash_attention` and
 :mod:`repro_torch.kernels.ops` picks.
 
@@ -13,8 +15,10 @@ and (192, 128); the last is the MLA entry (DeepSeek-V2's q.k 192 = nope
 stand-in.  The f32 body takes one width.
 
 Bound: operations at long sequences (see the source).  ``launches`` counts
-the calls that launched each entry: ``flash`` the bf16 bodies of widths
-up to 128 and the f32 body, ``mla`` the (192, 128) body.
+the calls that launched each entry: ``flash`` the causal calls of the bf16
+bodies of widths up to 128 and of the f32 body, ``flash_noncausal`` their
+non-causal calls (the same bodies, every key of T read), ``mla`` the
+(192, 128) body.
 """
 from __future__ import annotations
 
@@ -26,9 +30,11 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.radix_partition import _raise_on
 
-launches = {"flash": 0, "mla": 0}
+launches = {"flash": 0, "flash_noncausal": 0, "mla": 0}
 # the device kernels each entry point launches, as the profiler names them
-KERNELS = {"flash": ("flash_bf16", "flash_f32"), "mla": ("flash_bf16",)}
+KERNELS = {"flash": ("flash_bf16", "flash_f32"),
+           "flash_noncausal": ("flash_bf16", "flash_f32"),
+           "mla": ("flash_bf16",)}
 DTYPES = (torch.float32, torch.bfloat16)
 MAX_HEAD_DIM = 128
 MAX_QK_DIM = 192       # bf16 q.k width with v at most MAX_HEAD_DIM: the MLA
@@ -65,10 +71,12 @@ def takes_widths(d_qk: int, d_v: int, dtype) -> bool:
     return d_qk == d_v <= MAX_HEAD_DIM
 
 
-def entry(d_qk: int) -> str:
-    """The ``launches`` key of the body a q.k width runs: ``mla`` above
-    128."""
-    return "mla" if d_qk > MAX_HEAD_DIM else "flash"
+def entry(d_qk: int, causal: bool = True) -> str:
+    """The ``launches`` key of a call: ``mla`` for a q.k width above 128,
+    else ``flash`` or ``flash_noncausal``."""
+    if d_qk > MAX_HEAD_DIM:
+        return "mla"
+    return "flash" if causal else "flash_noncausal"
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -117,5 +125,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S,
             T, H, KH, D, Dv, int(bool(causal)),
             int(q.dtype == torch.bfloat16), stream), "flash_attention launch")
-        launches[entry(D)] += 1
+        launches[entry(D, causal)] += 1
     return out

@@ -49,6 +49,7 @@ def launch_counts() -> dict:
             "grouped_agg": _ga.launches["f32"],
             "grouped_sum_u32": _ga.launches["u32"],
             "flash_attention": _fa.launches["flash"],
+            "flash_attention_noncausal": _fa.launches["flash_noncausal"],
             "flash_attention_mla": _fa.launches["mla"],
             "ssd_scan": _ssd.launches["ssd"]}
 
@@ -57,7 +58,7 @@ def reset_launch_counts():
     _rp.launches.update(rank=0, scatter=0)
     _cas.launches.update(cas=0)
     _ga.launches.update(f32=0, u32=0)
-    _fa.launches.update(flash=0, mla=0)
+    _fa.launches.update(flash=0, flash_noncausal=0, mla=0)
     _ssd.launches.update(ssd=0)
 
 

@@ -1,17 +1,20 @@
-"""Attention: GQA and DeepSeek-V2's MLA, full sequence and decode (a port
-of ``repro.models.attention``).
+"""Attention: GQA, cross-attention and DeepSeek-V2's MLA, full sequence
+and decode (a port of ``repro.models.attention``).
 
-Full-sequence causal attention (every prefill and every training
-forward) runs the hand-written flash kernel through
-:func:`repro_torch.kernels.ops.flash_attention`: the JAX model names that
-swap in its docstring but runs a chunked stand-in, and trains through it.
-So the kernel's gradient is the chunked path's (:func:`chunked_attend`),
-recomputed in the backward.  MLA's prefill decompresses K and V per head
-(q.k width 192, v width 128) and takes the kernel's MLA entry.  Every
-other case (decode against a cache with ``kv_len``, explicit positions,
-T != S) keeps the chunked plain path; MLA decode is JAX's absorbed form,
-attention in the compressed latent space, in plain torch.
-Cross-attention is not ported yet (ROADMAP queue 1 item 6).
+Every full-sequence attention (every prefill and every training forward)
+runs the hand-written flash kernel through
+:func:`repro_torch.kernels.ops.flash_attention`: causal self-attention,
+and non-causal attention over any number T of keys (whisper's encoder,
+the VLM's and whisper's cross-attention, whose K and V come from the
+modality memory).  The JAX model names that swap in its docstring but runs
+a chunked stand-in, and trains through it.  So the kernel's gradient is
+the chunked path's (:func:`chunked_attend`), recomputed in the backward.
+MLA's prefill decompresses K and V per head (q.k width 192, v width 128)
+and takes the kernel's MLA entry.  Every other case (decode against a
+cache with ``kv_len``, cross-attention decode against the memory's cache,
+explicit positions, causal T != S) keeps the chunked plain path; MLA
+decode is JAX's absorbed form, attention in the compressed latent space,
+in plain torch.
 """
 from __future__ import annotations
 
@@ -44,17 +47,17 @@ def grouped_attend(q, k, v, *, causal: bool, q_pos=None, kv_len=None,
     0..S-1); kv_len: valid KV prefix length (decode), None = all valid.
     v may be narrower than q and k (MLA).  Returns (B, S, K, G, hd_v).
 
-    The causal full-sequence case (no kv_len, default positions, T == S)
-    goes to the flash kernel, with heads flattened so that head k*G + g
-    reads kv head k; the kernel's wrapper raises on a shape it does not
-    take.  Its gradient is that of :func:`chunked_attend`, the function
-    the JAX package trains through.  Every other case runs
-    :func:`chunked_attend`."""
+    Every full-sequence call (no kv_len, default positions) goes to the
+    flash kernel, non-causal with any T, causal with T == S, with heads
+    flattened so that head k*G + g reads kv head k; the kernel's wrapper
+    raises on a shape it does not take.  Its gradient is that of
+    :func:`chunked_attend`, the function the JAX package trains through.
+    Every other case runs :func:`chunked_attend`."""
     B, S, K, G, hd = q.shape
     T = k.shape[1]
-    if causal and kv_len is None and q_pos is None and T == S:
+    if kv_len is None and q_pos is None and (T == S or not causal):
         out = ops.flash_attention(q.reshape(B, S, K * G, hd), k, v,
-                                  causal=True, impl=impl,
+                                  causal=causal, impl=impl,
                                   backward=_flat_chunked_attend)
         return out.reshape(B, S, K, G, v.shape[-1])
     return chunked_attend(q, k, v, causal=causal, q_pos=q_pos,
@@ -110,23 +113,30 @@ def chunked_attend(q, k, v, *, causal: bool, q_pos=None, kv_len=None,
                       for i in range(0, S, chunk)], dim=1)
 
 
-def apply_gqa(cfg, p, x, *, impl=None):
-    """Full-sequence causal self-attention at positions 0..S-1.  x: (B, S,
-    D).  The JAX function's ``positions``, ``causal=False`` and ``kv_x``
-    serve the encoder-decoder and cross-attention, not ported yet."""
+def apply_gqa(cfg, p, x, *, positions=None, causal=True, kv_x=None,
+              impl=None):
+    """Full-sequence self- or cross-attention.  x: (B, S, D); kv_x: (B, T,
+    D), the memory cross-attention takes K and V from (no rope, never
+    causal), or None for self-attention over x (rope when
+    ``cfg.rope_theta > 0``, causal as asked).  ``positions``: the queries'
+    (and self-attention keys') positions, 0..S-1 if None; given, they go
+    to the chunked path as JAX's ``q_pos``."""
     B, S, D = x.shape
     h, hd = cfg.num_heads, cfg.hd
     kve = kv_heads_eff(cfg)
     G = h // kve
+    src = x if kv_x is None else kv_x
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
-    k = torch.einsum("btd,dhk->bthk", x, p["wk"].to(x.dtype))
-    v = torch.einsum("btd,dhk->bthk", x, p["wv"].to(x.dtype))
-    if cfg.rope_theta > 0:
-        pos = torch.arange(S, dtype=torch.int32, device=x.device)
+    k = torch.einsum("btd,dhk->bthk", src, p["wk"].to(x.dtype))
+    v = torch.einsum("btd,dhk->bthk", src, p["wv"].to(x.dtype))
+    if kv_x is None and cfg.rope_theta > 0:
+        pos = positions if positions is not None else torch.arange(
+            S, dtype=torch.int32, device=x.device)
         cos, sin = rope_angles(pos, hd, cfg.rope_theta)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
-    ctx = grouped_attend(q.reshape(B, S, kve, G, hd), k, v, causal=True,
+    ctx = grouped_attend(q.reshape(B, S, kve, G, hd), k, v,
+                         causal=causal and kv_x is None, q_pos=positions,
                          impl=impl)
     return torch.einsum("bshk,hkd->bsd", ctx.reshape(B, S, h, hd),
                         p["wo"].to(x.dtype))
@@ -146,28 +156,34 @@ def init_gqa_cache(cfg, batch: int, seq: int, dtype=torch.bfloat16,
             "v": torch.zeros(shp, dtype=dtype, device=device)}
 
 
-def apply_gqa_decode(cfg, p, x, cache, pos):
+def apply_gqa_decode(cfg, p, x, cache, pos, *, cross: bool = False):
     """One-token decode.  x: (B, 1, D); cache k/v: (B, T, KVe, hd); pos: a
-    0-d int tensor.  The new key and value are written into the cache in
-    place at ``min(pos, T - 1)`` (where JAX's ``dynamic_update_slice``
-    clamps the start), and the cache is returned."""
+    0-d int tensor.  Self-attention writes the new key and value into the
+    cache in place at ``min(pos, T - 1)`` (where JAX's
+    ``dynamic_update_slice`` clamps the start) and attends to its first
+    pos + 1 entries.  Cross-attention (``cross``): the cache is the
+    memory's K and V, filled once (``lm._precompute_cross``); no rope, no
+    update, every one of its T rows attended.  The cache is returned."""
     B = x.shape[0]
     h, hd = cfg.num_heads, cfg.hd
     T, kve = cache["k"].shape[1], cache["k"].shape[2]
     G = h // kve
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
-    knew = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(x.dtype))
-    vnew = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(x.dtype))
-    if cfg.rope_theta > 0:
-        cos, sin = rope_angles(pos.reshape(1), hd, cfg.rope_theta)
-        q = apply_rope(q, cos, sin)
-        knew = apply_rope(knew, cos, sin)
-    at = pos.reshape(1).clamp(max=T - 1).to(torch.int64)
-    cache["k"].index_copy_(1, at, knew.to(cache["k"].dtype))
-    cache["v"].index_copy_(1, at, vnew.to(cache["v"].dtype))
+    kv_len = None
+    if not cross:
+        knew = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(x.dtype))
+        vnew = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(x.dtype))
+        if cfg.rope_theta > 0:
+            cos, sin = rope_angles(pos.reshape(1), hd, cfg.rope_theta)
+            q = apply_rope(q, cos, sin)
+            knew = apply_rope(knew, cos, sin)
+        at = pos.reshape(1).clamp(max=T - 1).to(torch.int64)
+        cache["k"].index_copy_(1, at, knew.to(cache["k"].dtype))
+        cache["v"].index_copy_(1, at, vnew.to(cache["v"].dtype))
+        kv_len = pos + 1
     ctx = grouped_attend(q.reshape(B, 1, kve, G, hd),
                          cache["k"].to(x.dtype), cache["v"].to(x.dtype),
-                         causal=False, q_pos=pos.reshape(1), kv_len=pos + 1,
+                         causal=False, q_pos=pos.reshape(1), kv_len=kv_len,
                          chunk=1)
     y = torch.einsum("bshk,hkd->bsd", ctx.reshape(B, 1, h, hd),
                      p["wo"].to(x.dtype))

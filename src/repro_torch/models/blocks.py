@@ -6,12 +6,11 @@ stacked over G as in the JAX package; the port runs the groups in a Python
 loop instead of a ``lax.scan``.  The JAX ``RS_OUTPUTS`` sharding toggle has
 no meaning on one card and is not copied.
 
-The port runs the sublayer kinds ``attn`` (GQA, or MLA where the config
-has one), ``ssm``, ``mlp`` and ``moe``: the dense, MoE, SSM and hybrid
-families.  A full-sequence sublayer returns (x, aux), aux the MoE
-router's load-balancing loss (0.0 for the other kinds), as JAX's does.
-Cross-attention raises ``NotImplementedError`` naming the ROADMAP item
-that brings it.
+The port runs every sublayer kind: ``attn`` (GQA, or MLA where the
+config has one), ``cross`` (GQA whose K and V come from the modality
+memory ``mem``), ``ssm``, ``mlp`` and ``moe``: every family.  A
+full-sequence sublayer returns (x, aux), aux the MoE router's
+load-balancing loss (0.0 for the other kinds), as JAX's does.
 """
 from __future__ import annotations
 
@@ -20,19 +19,10 @@ from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
 from repro_torch.models.common import apply_mlp, build_mlp, rmsnorm
 
-_LATER = {
-    "cross": "cross-attention (vlm, encdec) comes with ROADMAP queue 1 "
-             "item 6",
-}
-
-
-def not_ported(what: str):
-    return NotImplementedError(f"not ported yet: {_LATER[what]}")
-
-
 def group_pattern(cfg):
     """Returns (pattern, G, has_pre_layer). pattern: list of block tuples.
-    Plain data for every family, ported or not."""
+    ``encdec`` gives the decoder's pattern (``encdec`` builds the
+    encoder's)."""
     fam = cfg.family
     if fam in ("dense", "vlm") or (fam == "moe" and cfg.moe is None):
         pat = [("attn", "mlp")]
@@ -80,14 +70,14 @@ def build_sublayer(cfg, mk, kind: str):
     p = {"norm": mk((cfg.d_model,), "zeros")}
     if kind == "attn":
         p.update(A.build_mla(cfg, mk) if cfg.mla else A.build_gqa(cfg, mk))
+    elif kind == "cross":
+        p.update(A.build_gqa(cfg, mk))
     elif kind == "ssm":
         p.update(S.build_ssm(cfg, mk))
     elif kind == "mlp":
         p.update(build_mlp(cfg, mk))
     elif kind == "moe":
         p.update(M.build_moe(cfg, cfg.moe, mk))
-    elif kind == "cross":
-        raise not_ported(kind)
     else:
         raise ValueError(kind)
     return p
@@ -107,31 +97,36 @@ def _sublayers(gp):
             yield bname, sname, sname.split("_", 1)[1]
 
 
-def apply_sublayer(cfg, p, kind, x, *, impl=None):
-    """Full-sequence sublayer with pre-norm and residual: (x, aux)."""
+def apply_sublayer(cfg, p, kind, x, *, mem=None, causal=True, impl=None):
+    """Full-sequence sublayer with pre-norm and residual: (x, aux).
+    ``causal`` is self-attention's (False in whisper's encoder); ``cross``
+    takes K and V from ``mem`` as it is (the norm is x's alone), or, with
+    ``mem`` None, attends over x itself, non-causal with rope, as JAX's
+    does."""
     h = rmsnorm(x, p["norm"], cfg.norm_eps)
     aux = 0.0
     if kind == "attn":
         y = (A.apply_mla(cfg, p, h, impl=impl) if cfg.mla
-             else A.apply_gqa(cfg, p, h, impl=impl))
+             else A.apply_gqa(cfg, p, h, causal=causal, impl=impl))
+    elif kind == "cross":
+        y = A.apply_gqa(cfg, p, h, kv_x=mem, causal=False, impl=impl)
     elif kind == "ssm":
         y = S.apply_ssm(cfg, p, h, impl=impl)
     elif kind == "mlp":
         y = apply_mlp(cfg, p, h)
     elif kind == "moe":
         y, aux = M.apply_moe(cfg, cfg.moe, p, h, impl=impl)
-    elif kind == "cross":
-        raise not_ported(kind)
     else:
         raise ValueError(kind)
     return x + y, aux
 
 
-def apply_group(cfg, gp, x, *, impl=None):
+def apply_group(cfg, gp, x, *, mem=None, causal=True, impl=None):
     """The group's sublayers in JAX's order: (x, summed aux)."""
     aux = 0.0
     for bname, sname, kind in _sublayers(gp):
-        x, a = apply_sublayer(cfg, gp[bname][sname], kind, x, impl=impl)
+        x, a = apply_sublayer(cfg, gp[bname][sname], kind, x, mem=mem,
+                              causal=causal, impl=impl)
         aux = aux + a
     return x, aux
 
@@ -145,7 +140,8 @@ def sublayer_cache_shape(cfg, kind: str, batch: int, seq: int, kve: int):
             return A.mla_cache_shape(cfg, batch, seq)
         return A.gqa_cache_shape(cfg, batch, seq, kve)
     if kind == "cross":
-        raise not_ported("cross")
+        m = max(cfg.num_modality_tokens, 1)
+        return A.gqa_cache_shape(cfg, batch, m, kve)
     if kind == "ssm":
         return S.ssm_state_shape(cfg, batch)
     return None
@@ -165,22 +161,22 @@ def group_cache_shape(cfg, pattern, batch: int, seq: int, kve: int):
 
 
 def apply_sublayer_decode(cfg, p, kind, x, cache, pos):
-    """One-token sublayer; its cache is updated in place.  MoE runs the
-    reference loop (JAX's one-device decode)."""
+    """One-token sublayer; its cache is updated in place (a cross cache is
+    only read).  MoE runs the reference loop (JAX's one-device decode)."""
     h = rmsnorm(x, p["norm"], cfg.norm_eps)
     if kind == "attn":
         if cfg.mla:
             y, cache = A.apply_mla_decode(cfg, p, h, cache, pos)
         else:
             y, cache = A.apply_gqa_decode(cfg, p, h, cache, pos)
+    elif kind == "cross":
+        y, cache = A.apply_gqa_decode(cfg, p, h, cache, pos, cross=True)
     elif kind == "ssm":
         y, cache = S.apply_ssm_decode(cfg, p, h, cache)
     elif kind == "mlp":
         y = apply_mlp(cfg, p, h)
     elif kind == "moe":
         y, _ = M.apply_moe(cfg, cfg.moe, p, h, decode=True)
-    elif kind == "cross":
-        raise not_ported(kind)
     else:
         raise ValueError(kind)
     return x + y, cache

@@ -2,12 +2,14 @@
 
 ``params_from_numpy(cfg, tree)`` takes the JAX package's parameter pytree
 as nested dicts of numpy arrays (``jax.tree.map(np.asarray, params)``),
-stacked over groups as ``repro.models.lm.build`` makes them
-(``groups/b0_attn_mlp/s0_attn/wq`` of shape (G, d, h, hd); MoE experts
-``groups/b1_attn_moe/s1_moe/wi`` of shape (G, E, d, 2F); deepseek's
-unstacked ``pre`` layer), and returns the port's parameters: the same
-tree of tensors.  It checks every name and shape against
-:func:`repro_torch.models.lm.param_shapes`.  This is how the tests run
+stacked over groups as ``repro.models.lm.build`` and
+``repro.models.encdec.build`` make them (``groups/b0_attn_mlp/s0_attn/wq``
+of shape (G, d, h, hd); MoE experts ``groups/b1_attn_moe/s1_moe/wi`` of
+shape (G, E, d, 2F); deepseek's unstacked ``pre`` layer; a VLM's
+``mod_proj``; whisper's ``mod_proj``, ``enc_pos``, ``enc_groups`` and
+``enc_norm``), and returns the port's parameters: the same tree of
+tensors.  It checks every name and shape against
+:func:`repro_torch.models.api.param_shapes`.  This is how the tests run
 both packages on the same weights.
 """
 from __future__ import annotations

@@ -1,10 +1,13 @@
-"""Decoder-only causal LM, families ``dense``, ``moe``, ``ssm`` and
-``hybrid`` (a port of ``repro.models.lm``; the VLM's cross-attention is
-not ported yet).
+"""Decoder-only causal LM, families ``dense``, ``moe``, ``ssm``,
+``hybrid`` and ``vlm`` (a port of ``repro.models.lm``).
 
 Parameters keep the JAX tree: ``embed``, ``final_norm``, ``lm_head``
-(untied only), ``pre`` (deepseek's irregular dense first layer) and
-``groups``, whose leaves are stacked over the G layer groups.  The body
+(untied only), ``mod_proj`` (the VLM's projection of the modality
+features to the model width), ``pre`` (deepseek's irregular dense first
+layer) and ``groups``, whose leaves are stacked over the G layer groups.
+A VLM's ``modality`` (B, M, modality_dim) is cast to ``ACT_DTYPE`` and
+projected into the memory its cross layers attend to; without it, its
+cross layers attend over the text itself, as JAX's do.  The body
 loops over groups where JAX scans them.  Activations are ``ACT_DTYPE``
 (bf16), read at call time so a test can set f32.  ``forward`` returns
 the logits and the MoE router's load-balancing loss summed over layers
@@ -46,7 +49,7 @@ def build(cfg, mk):
     if not cfg.tie_embeddings:
         p["lm_head"] = mk((d, v))
     if cfg.modality_dim:
-        raise B.not_ported("cross")
+        p["mod_proj"] = mk((cfg.modality_dim, d))
     if pre:  # deepseek-v2: irregular dense first layer (d_ff = cfg.d_ff)
         p["pre"] = {"s0_attn": B.build_sublayer(cfg, mk, "attn"),
                     "s1_mlp": B.build_sublayer(cfg, mk, "mlp")}
@@ -54,17 +57,18 @@ def build(cfg, mk):
     return p
 
 
-def init_params(cfg, generator=None, dtype=torch.float32, device=None):
+def init_params(cfg, generator=None, dtype=torch.float32, device=None, *,
+                build_fn=None):
     """Random parameters drawn on ``device`` (the card unless the caller
     asks for the CPU) from ``generator`` (a ``torch.Generator`` on that
-    device; seed 0 if None)."""
+    device; seed 0 if None); ``build_fn`` another family's ``build``."""
     device = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
     if generator.device.type != device.type:
         raise ValueError(f"generator on {generator.device}, parameters on "
                          f"{device}")
-    return build(cfg, Mk(generator, dtype))
+    return (build_fn or build)(cfg, Mk(generator, dtype))
 
 
 def param_shapes(cfg):
@@ -115,35 +119,54 @@ def group_views(groups, G: int) -> list:
 CE_CHUNK = 0
 
 
-def forward_hidden(cfg, params, tokens, *, impl=None):
-    """tokens: (B, S) int -> (final hidden (B, S, D) before the head, aux
-    f32).  ``impl`` picks the kernels' dispatch (None: the kernels on the
-    card).  With autograd on, each group's activations are recomputed in
-    the backward instead of kept (JAX's default remat; JAX does not remat
-    the ``pre`` layer either)."""
-    x = _embed(params, tokens)
+def project_modality(params, modality):
+    """(B, M, modality_dim) features -> (B, M, D) memory in ``ACT_DTYPE``:
+    cast first, then projected, as JAX does."""
+    return torch.einsum("bmd,de->bme", modality.to(ACT_DTYPE),
+                        params["mod_proj"].to(ACT_DTYPE))
+
+
+def run_groups(cfg, groups, x, *, mem=None, causal=True, impl=None):
+    """x through every group of a stacked ``groups`` tree: (x, summed aux
+    f32).  With autograd on, each group's activations are recomputed in
+    the backward instead of kept (JAX's remat of its scan body)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    ckpt = torch.is_grad_enabled()
+    for gp in group_views(groups, num_groups({"groups": groups})):
+        if ckpt:
+            x, a = checkpoint(B.apply_group, cfg, gp, x, mem=mem,
+                              causal=causal, impl=impl, use_reentrant=False)
+        else:
+            x, a = B.apply_group(cfg, gp, x, mem=mem, causal=causal,
+                                 impl=impl)
+        aux = aux + a
+    return x, aux
+
+
+def forward_hidden(cfg, params, tokens, *, modality=None, impl=None):
+    """tokens: (B, S) int -> (final hidden (B, S, D) before the head, aux
+    f32).  ``modality``: a VLM's (B, M, modality_dim) features.  ``impl``
+    picks the kernels' dispatch (None: the kernels on the card).  With
+    autograd on, each group is recomputed in the backward (JAX does not
+    remat the ``pre`` layer either)."""
+    x = _embed(params, tokens)
+    mem = None
+    if cfg.modality_dim and modality is not None:
+        mem = project_modality(params, modality)
     if "pre" in params:
         x, _ = B.apply_sublayer(cfg, params["pre"]["s0_attn"], "attn", x,
                                 impl=impl)
         x, _ = B.apply_sublayer(cfg, params["pre"]["s1_mlp"], "mlp", x,
                                 impl=impl)
-    ckpt = torch.is_grad_enabled()
-    for gp in group_views(params["groups"], num_groups(params)):
-        if ckpt:
-            x, a = checkpoint(B.apply_group, cfg, gp, x, impl=impl,
-                              use_reentrant=False)
-        else:
-            x, a = B.apply_group(cfg, gp, x, impl=impl)
-        aux = aux + a
-    return x, aux
+    return run_groups(cfg, params["groups"], x, mem=mem, impl=impl)
 
 
-def forward(cfg, params, tokens, *, impl=None):
+def forward(cfg, params, tokens, *, modality=None, impl=None):
     """tokens: (B, S) int -> (logits (B, S, V), aux): aux the MoE
     router's load-balancing loss summed over layers, an f32 scalar (0.0
     with no MoE layer)."""
-    x, aux = forward_hidden(cfg, params, tokens, impl=impl)
+    x, aux = forward_hidden(cfg, params, tokens, modality=modality,
+                            impl=impl)
     return _head(cfg, params, x), aux
 
 
@@ -176,12 +199,15 @@ def loss_fn(cfg, params, batch, *, aux_coef=None, impl=None):
     """Mean token cross-entropy of ``batch["tokens"]`` against
     ``batch["labels"]`` (labels < 0 ignored) plus ``aux_coef`` (default
     the config's ``router_aux_coef``, 0 with no MoE) times the router's
-    load-balancing loss."""
+    load-balancing loss; a VLM's features come as ``batch["modality"]``."""
+    mod = batch.get("modality")
     if CE_CHUNK:
-        x, aux = forward_hidden(cfg, params, batch["tokens"], impl=impl)
+        x, aux = forward_hidden(cfg, params, batch["tokens"], modality=mod,
+                                impl=impl)
         loss = _chunked_ce(cfg, params, x, batch["labels"], CE_CHUNK)
     else:
-        logits, aux = forward(cfg, params, batch["tokens"], impl=impl)
+        logits, aux = forward(cfg, params, batch["tokens"], modality=mod,
+                              impl=impl)
         loss = cross_entropy(logits, batch["labels"])
     coef = (cfg.moe.router_aux_coef if (cfg.moe and aux_coef is None)
             else (aux_coef or 0.0))
@@ -208,21 +234,48 @@ def decode_cache_shape(cfg, batch: int, seq: int):
     return out
 
 
+def zero_state(shapes, dev) -> dict:
+    """Zeros of a ``decode_cache_shape`` tree on ``dev``."""
+    def zeros(tree):
+        if isinstance(tree, dict):
+            return {k: zeros(v) for k, v in tree.items()}
+        shp, dt = tree
+        return torch.zeros(shp, dtype=dt, device=dev)
+    return zeros(shapes)
+
+
+def _precompute_cross(cfg, params, mem, caches):
+    """Fill the cross-attention caches from the memory ``mem`` (B, M, D):
+    each cross sublayer's K and V of ``rmsnorm(mem, its norm)`` (JAX's
+    decode normalizes the memory where its prefill does not), in
+    ``ACT_DTYPE``, stacked over groups.  The cross entries of ``caches``
+    are replaced, as JAX's merge replaces them."""
+    G = num_groups(params)
+    views = group_views(params["groups"], G)
+    for bname, sname, kind in B._sublayers(views[0]):
+        if kind != "cross":
+            continue
+        ks, vs = [], []
+        for gp in views:
+            p = gp[bname][sname]
+            h = rmsnorm(mem, p["norm"], cfg.norm_eps)
+            ks.append(torch.einsum("btd,dhk->bthk", h, p["wk"].to(mem.dtype)))
+            vs.append(torch.einsum("btd,dhk->bthk", h, p["wv"].to(mem.dtype)))
+        caches[bname][sname] = {"k": torch.stack(ks).to(ACT_DTYPE),
+                                "v": torch.stack(vs).to(ACT_DTYPE)}
+    return caches
+
+
 @torch.inference_mode()
-def init_decode_state(cfg, params, batch: int, seq: int):
-    """Zeroed decode state on the parameters' device."""
-    dev = params["embed"].device
-    shapes = decode_cache_shape(cfg, batch, seq)
-    caches = {b: {s: {k: torch.zeros(shp, dtype=dt, device=dev)
-                      for k, (shp, dt) in c.items()}
-                  for s, c in bv.items()}
-              for b, bv in shapes["caches"].items()}
-    out = {"caches": caches,
-           "pos": torch.zeros((), dtype=torch.int32, device=dev)}
-    if "pre" in shapes:
-        out["pre"] = {k: torch.zeros(shp, dtype=dt, device=dev)
-                      for k, (shp, dt) in shapes["pre"].items()}
-    return out
+def init_decode_state(cfg, params, batch: int, seq: int, *, modality=None):
+    """Decode state on the parameters' device: zeros, and with a VLM's
+    ``modality`` the cross caches filled from it."""
+    state = zero_state(decode_cache_shape(cfg, batch, seq),
+                       params["embed"].device)
+    if cfg.modality_dim and modality is not None:
+        _precompute_cross(cfg, params, project_modality(params, modality),
+                          state["caches"])
+    return state
 
 
 @torch.inference_mode()

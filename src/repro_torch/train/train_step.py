@@ -93,11 +93,13 @@ def build_grad_step(cfg, *, max_grad_norm: float = 1.0,
 
 def build_prefill_step(cfg):
     """step(params, batch) -> next tokens (B, 1): the argmax of the last
-    position's logits of a full-sequence forward over batch["tokens"]."""
+    position's logits of a full-sequence forward over batch["tokens"]
+    (with batch["modality"], where the model takes one)."""
 
     @torch.inference_mode()
     def step(params, batch):
-        logits, _ = api.forward(cfg, params, batch["tokens"])
+        logits, _ = api.forward(cfg, params, batch["tokens"],
+                                modality=batch.get("modality"))
         return logits[:, -1:].argmax(dim=-1)
 
     return step

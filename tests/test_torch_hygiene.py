@@ -65,7 +65,7 @@ def test_port_files_found():
             "bench/train.py", "tree.py", "fabric/sim.py", "fabric/check.py",
             "bench/workloads.py", "bench/fig10_contention.py",
             "bench/fig_scale.py", "fabric/tier.py", "serving/paging.py",
-            "bench/fig_serve.py", "models/moe.py"} <= names
+            "bench/fig_serve.py", "models/moe.py", "models/encdec.py"} <= names
     assert ROOT / "chip_smoke.py" in PORT_FILES
     assert len(list((ROOT / "src" / "repro_torch" / "kernels" / "csrc")
                     .glob("*.cu"))) == 5

@@ -17,9 +17,12 @@ reduced glm4-9b (dense GQA) and mamba2-370m (SSM).
   tokens, in bf16 within 5e-2 (JAX holds 3e-2, but there prefill and
   decode share the chunked attention; in the port prefill takes the flash
   path, whose probabilities round elsewhere);
-* the families the port lacks (the VLM's cross-attention, whisper's
-  encoder-decoder) raise ``NotImplementedError``; the MoE, MLA and hybrid
-  families have their own file (tests/test_torch_moe.py).
+* every other family runs forward and decode: the other dense configs,
+  and the VLM and whisper with a modality batch (their parity with JAX is
+  in tests/test_torch_vlm.py and tests/test_torch_encdec.py; the MoE, MLA
+  and hybrid families' in tests/test_torch_moe.py);
+* ``params_from_numpy`` checks names and shapes, on the dense tree and on
+  whisper's.
 """
 import jax
 import jax.numpy as jnp
@@ -37,8 +40,9 @@ from repro_torch.models.convert import params_from_numpy
 ARCHS = ["glm4-9b", "mamba2-370m"]
 DENSE = {"glm4-9b", "mamba2-370m", "starcoder2-15b", "granite-20b",
          "granite-34b"}
-PORTED = DENSE | {"llama4-maverick-400b-a17b", "deepseek-v2-236b",
-                  "jamba-1.5-large-398b"}
+MODALITY = ["llama-3.2-vision-90b", "whisper-base"]
+PORTED = DENSE | set(MODALITY) | {"llama4-maverick-400b-a17b",
+                                  "deepseek-v2-236b", "jamba-1.5-large-398b"}
 
 
 @pytest.fixture(scope="module", params=ARCHS)
@@ -168,39 +172,52 @@ def test_prefill_decode_equivalence(arch):
                                atol=5e-2, rtol=5e-2)
 
 
-@pytest.mark.parametrize("arch", sorted(DENSE - set(ARCHS)))
+@pytest.mark.parametrize("arch", sorted(DENSE - set(ARCHS)) + MODALITY)
 def test_other_dense_configs_run(arch):
     """The dense families with a GELU MLP (starcoder2, granite) and MQA
-    run forward and decode."""
+    run forward and decode; the VLM and whisper with a modality batch,
+    their decode from ``init_decode_state(modality=)``."""
+    assert set(ARCH_IDS) <= PORTED
     cfg = reduce_config(get_config(arch))
     params = api.init_params(cfg, device="cpu")
     toks = torch.randint(0, cfg.vocab_size, (2, 16))
-    logits, _ = api.forward(cfg, params, toks)
+    kw = {}
+    if cfg.modality_dim:
+        kw["modality"] = torch.randn(2, cfg.num_modality_tokens,
+                                     cfg.modality_dim)
+    logits, _ = api.forward(cfg, params, toks, **kw)
     assert logits.shape == (2, 16, cfg.vocab_size)
     assert bool(torch.isfinite(logits.float()).all())
-    state = api.init_decode_state(cfg, params, 2, 8)
+    state = api.init_decode_state(cfg, params, 2, 8, **kw)
     logits, state = api.decode_step(cfg, params, state, toks[:, :1])
     assert bool(torch.isfinite(logits.float()).all())
 
 
-@pytest.mark.parametrize("arch", sorted(set(ARCH_IDS) - PORTED))
-def test_families_not_ported_raise(arch):
+def _check_tree(arch, short, gone):
+    """A leaf of the wrong shape (``short``) or a tree missing a key
+    (``gone``) is refused by name; the right tree carries across."""
     cfg = reduce_config(get_config(arch))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        api.init_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        api.param_shapes(cfg)
-
-
-def test_params_from_numpy_checks_the_tree():
-    cfg = reduce_config(get_config("glm4-9b"))
     tree = jax.tree.map(np.asarray, japi.init_params(
-        jred(jget("glm4-9b")), jax.random.PRNGKey(0)))
-    bad = dict(tree, embed=tree["embed"][:, :8])
-    with pytest.raises(ValueError, match="embed"):
+        jred(jget(arch)), jax.random.PRNGKey(0)))
+    bad = dict(tree, **{short: tree[short][:, :8]})
+    with pytest.raises(ValueError, match=short):
         params_from_numpy(cfg, bad, device="cpu")
     with pytest.raises(ValueError, match="keys"):
         params_from_numpy(cfg, {k: v for k, v in tree.items()
-                                if k != "lm_head"}, device="cpu")
+                                if k != gone}, device="cpu")
     p = params_from_numpy(cfg, tree, dtype=torch.bfloat16, device="cpu")
+    assert api.param_shapes(cfg) == lm.tree_map(lambda t: tuple(t.shape), p)
+    return p
+
+
+def test_params_from_numpy_checks_the_tree():
+    p = _check_tree("glm4-9b", "embed", "lm_head")
     assert p["groups"]["b0_attn_mlp"]["s0_attn"]["wq"].dtype == torch.bfloat16
+
+
+def test_params_from_numpy_checks_the_whisper_tree():
+    """Whisper's encoder leaves: ``enc_pos`` cut to fewer frames,
+    ``enc_norm`` left out."""
+    p = _check_tree("whisper-base", "enc_pos", "enc_norm")
+    assert p["enc_groups"]["b0_attn_mlp"]["s0_attn"]["wq"].dtype \
+        == torch.bfloat16
