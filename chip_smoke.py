@@ -9,7 +9,8 @@ exits non-zero:
   build    nvcc builds every kernel source in src/repro_torch/kernels/csrc
            for sm_90a, one process per source, all at once; the flash
            library's SASS must hold HGMMA and UTMALDG (the bf16 body's
-           wgmma and TMA loads)
+           wgmma and TMA loads), and the SASS of flash_f32 and of
+           ssd_chunk_f32 HMMA (the f32 entries' mma.sync products)
   kernels  each hand-written kernel held against its plain PyTorch
            version over a sweep of shapes (bit-exact; the scatter with the
            rank's counts, at row widths of every body: narrow, medium,
@@ -21,8 +22,9 @@ exits non-zero:
            row's rms difference within ROW_TOL of its rms, at S up to 4096
            and at glm4's S = 8192, where a control with one key tile
            dropped must read above ROW_TOL; ssd_scan within 2e-3 in f32
-           and, in bf16, y within 2e-2 and the f32 state within 2e-3, over
-           SSD_SWEEP and at mamba2's layer; the MLA entry of flash in bf16
+           (every case, N = 40 and 1024 included) and, in bf16, y within
+           2e-2 and the f32 state within 2e-3, over SSD_SWEEP and at
+           mamba2's layer; the MLA entry of flash in bf16
            over MLA_SWEEP and at deepseek's layer (q.k 192, v 128), with a
            dropped-tile control there; its non-causal calls over
            CROSS_SWEEP, the VLM's cross layer, whisper's encoder and cross
@@ -134,7 +136,8 @@ exits non-zero:
            path), with times and peak memory
   train    the rank and the scatter at a parameter-server push's shapes
            (4 rows of 23.4 M and of 92 M lanes) against their plain
-           versions, timed; the trainer (src/repro_torch/bench/train.py)
+           versions, timed, and the scatter against index_copy_ in
+           PS_ROUNDS interleaved rounds; the trainer (src/repro_torch/bench/train.py)
            at mamba2-370m's full config, f32 masters from seed 0, AdamW, SyntheticLM
            batches of 8 x 2048, through Trainer.run in three sync modes:
            allreduce (6 steps), raw paramserver(staleness=0) (6 steps,
@@ -174,11 +177,16 @@ exits non-zero:
            targets, 0 violations) and one 4096-session checkout wave
            through a ScheduleRecorder, race-checked (0 violations)
 
-The kernels' f32 entries (flash_f32, causal and non-causal apart, and
-ssd_kernel), which no timed path runs, are timed in phase kernels at the
-f32 witnesses' shapes, and their launches are counted where serve's and
-xattn's f32 witnesses and train's f32 gradient check run them (a
-comparison's launches, on no path): one f32_entries line.
+The kernels' f32 entries, which no timed path runs, are timed in phase
+kernels at the f32 witnesses' shapes: flash_f32 (causal and non-causal
+apart; S by fmas on the CUDA cores, P.V by 3xTF32 products on mma.sync,
+bound by S's fmas at 67 TFLOP/s, the all-3xTF32 and all-FMA bounds beside
+it) and ssd_chunk_f32 (the
+chunked SSD on mma.sync with x, B and C split into bf16 parts, bound by
+its bytes, the split products at 989 TFLOP/s and the recurrence's FMA
+bound beside them).  Their launches are counted where serve's and xattn's
+f32 witnesses and train's f32 gradient check run them (a comparison's
+launches, on no path): one f32_entries line.
 
 Launch counts are set to 0 just before each path and read just after:
 the oltp sessions and commits, the olap queries (Database.execute
@@ -223,6 +231,7 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 peak
 BF16_FLOP_PER_S = 989e12           # H100 SXM dense bf16 tensor cores
 F32_FLOP_PER_S = 67e12             # H100 SXM float32 outside tensor cores
+TF32_FLOP_PER_S = 495e12           # H100 SXM dense TF32 tensor cores
 PHASES = ("env", "build", "kernels", "oltp", "olap", "fig6", "serve",
           "moe", "xattn", "paged", "shards", "train", "scale", "contention")
 SERVE_ARCHS = {"glm4-9b": "flash_attention", "mamba2-370m": "ssd_scan"}
@@ -253,6 +262,8 @@ TRAIN_MODES = (("allreduce", True, 6),          # (sync mode, compressed
                ("paramserver(staleness=0)", False, 6),   # push, steps)
                ("paramserver(staleness=4)", True, 8))
 PARITY_RTOL = 1e-4       # allreduce vs raw paramserver(staleness=0) losses
+PS_ROUNDS, PS_CALLS = 3, 50     # the PS push's scatter against index_copy_:
+                                 # rounds in turns, calls a round
 GRAD_TOL = 2 ** -8       # kernel vs plain path gradients, f32 masters and
                          # f32 activations: rms(diff) / rms(plain) per
                          # leaf, the worst leaf (on an H100: sound 2.4e-5
@@ -318,7 +329,7 @@ CHECK_TARGETS = 27               # fabric-check: the JAX package's targets
 # the kernels' f32 entries (flash_f32's causal and non-causal calls
 # apart): timed in phase kernels, launches counted where the f32 witnesses
 # and gradient checks run them
-F32 = {"flash_f32": {}, "flash_f32_noncausal": {}, "ssd_kernel": {}}
+F32 = {"flash_f32": {}, "flash_f32_noncausal": {}, "ssd_chunk_f32": {}}
 _OUT = []                        # a file every emitted line also goes to
 
 
@@ -481,13 +492,21 @@ def _nvcc():
     return build.nvcc()
 
 
-def sass_counts(name: str, ops=("HGMMA", "UTMALDG")) -> dict:
+def sass_counts(name: str, ops=("HGMMA", "UTMALDG"), fun=None) -> dict:
     """How often each instruction occurs in a built library's SASS
-    (``cuobjdump -sass``)."""
+    (``cuobjdump -sass``); with ``fun``, only in the device functions whose
+    (mangled) name holds it, every instance of a template, as cuobjdump
+    lists them under "Function : <name>"."""
     from repro_torch.kernels import build
     cuobjdump = str(Path(build.nvcc()).parent / "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", str(build.library_path(name))],
                           capture_output=True, text=True, check=True).stdout
+    if fun is not None:
+        parts = re.split(r"^\s*Function\s*:\s*(\S+)\s*$", sass, flags=re.M)
+        sass = "".join(body for fn, body in zip(parts[1::2], parts[2::2])
+                       if fun in fn)
+        if not sass:
+            raise AssertionError(f"no function {fun} in {name}'s SASS")
     return {op: len(re.findall(rf"\b{op}\b", sass)) for op in ops}
 
 
@@ -502,13 +521,22 @@ def phase_build():
                     if any(w in ln for w in ("registers", "spill",
                                              "setmaxnreg", "wgmma"))]
              for name, log in report.items()}
-    # the bf16 flash body is wgmma fed by TMA, or the build fails
+    # the bf16 flash body is wgmma fed by TMA, and the f32 entries run
+    # their products on the tensor cores (mma.sync: HMMA), or the build
+    # fails
     flash_sass = sass_counts("flash_attention")
+    f32_sass = {"flash_f32": sass_counts("flash_attention", ("HMMA",),
+                                         fun="flash_f32"),
+                "ssd_chunk_f32": sass_counts("ssd_scan", ("HMMA",),
+                                             fun="ssd_chunk_f32")}
     emit("build", seconds=secs, sources=list(report), ptxas=ptxas,
-         flash_sass=flash_sass, dir=str(build.BUILD_DIR.relative_to(ROOT)))
+         flash_sass=flash_sass, f32_sass=f32_sass,
+         dir=str(build.BUILD_DIR.relative_to(ROOT)))
     if not all(flash_sass.values()):
         raise AssertionError(f"flash_attention's SASS lacks an instruction "
                              f"of its design: {flash_sass}")
+    if not all(c["HMMA"] for c in f32_sass.values()):
+        raise AssertionError(f"an f32 entry's SASS has no HMMA: {f32_sass}")
 
 
 def _rand_dest(g, A, n, dev):
@@ -1140,8 +1168,8 @@ def check_ssd(stats: dict):
     """ssd_scan against ref.ssd_scan over SSD_SWEEP: f32 y and final state
     within 2e-3 (tests/test_kernels.py:84), with and without an initial
     state; bf16 inputs, y within 2e-2 relative (one bf16 rounding of y)
-    and the f32 state within 2e-3.  N = 1024 runs in bf16 only: the f32
-    body refuses it."""
+    and the f32 state within 2e-3.  Both types run every case: the
+    chunked body takes N = 1..1024 in either."""
     import torch
     from repro_torch.kernels import ref, ssd_scan as sk
     dev = torch.device("cuda")
@@ -1149,8 +1177,6 @@ def check_ssd(stats: dict):
     cases = 0
     for B, S, H, P, N in SSD_SWEEP:
         for dtype, tol in ((torch.float32, 2e-3), (torch.bfloat16, 2e-2)):
-            if not sk.takes_state_dim(N, dtype):        # f32 at N = 1024
-                continue
             xh = _normal(g, (B, S, H, P), dtype, dev, 0.5)
             bv = _normal(g, (B, S, N), dtype, dev, 0.5)
             cv = _normal(g, (B, S, N), dtype, dev, 0.5)
@@ -1344,9 +1370,9 @@ def check_cross(stats: dict, record: dict) -> dict:
     dropped-tile control above ROW_TOL, and each timed beside its plain
     version and non-causal scaled_dot_product_attention (timed only: the
     port never calls it); f32 also timed at whisper's encoder shape (its
-    f32 witness), beside f32 SDPA.  Bound: the larger of the operations,
-    4 B S T D H (every key of T read), at 989 TFLOP/s (67 in f32) and q,
-    k, v, o once at 3.35 TB/s."""
+    f32 witness), beside f32 SDPA (:func:`_f32_flash_times`).  Bound: the
+    larger of the operations, 4 B S T D H (every key of T read), at 989
+    TFLOP/s and q, k, v, o once at 3.35 TB/s."""
     import torch
     import torch.nn.functional as F
     from repro_torch.bench.serve import row_rel_err
@@ -1430,73 +1456,87 @@ def check_cross(stats: dict, record: dict) -> dict:
     q = _normal(g, (B, S, H, D), torch.float32, dev)
     k = _normal(g, (B, T, KH, D), torch.float32, dev)
     v = _normal(g, (B, T, KH, D), torch.float32, dev)
-    err = float((fa.flash_attention(q, k, v, causal=False)
-                 - ref.flash_attention(q, k, v, causal=False)).abs().max())
-    if not err <= 2e-5:
-        raise AssertionError(f"flash_f32 non-causal off at whisper's "
-                             f"encoder shape: max {err}")
-    flops = 4 * B * S * T * D * H
-    nbytes = 4 * (2 * q.numel() + 2 * k.numel())
-    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    F32["flash_f32_noncausal"].update(
-        ms=time_ms(lambda: fa.flash_attention(q, k, v, causal=False),
-                   iters=5),
-        plain_ms=time_ms(lambda: ref.flash_attention(q, k, v, causal=False),
-                         iters=3, warmup=1),
-        bound_ms=max(bound_ms(nbytes), flops / F32_FLOP_PER_S * 1e3),
-        bound_by=("operations" if flops / F32_FLOP_PER_S
-                  > nbytes / HBM_BYTES_PER_S else "bytes"),
-        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=False), iters=5),
-        max_abs_err=err, flops=flops, bytes=nbytes,
-        shape={"B": B, "S": S, "T": T, "H": H, "KH": KH, "D": D,
-               "dtype": "f32", "causal": False})
-    del q, k, v, qt, kt, vt
+    F32["flash_f32_noncausal"].update(_f32_flash_times(q, k, v, False))
+    del q, k, v
     torch.cuda.empty_cache()
     timing["sweep_cases"] = cases
     return timing
 
 
-def time_f32_entries() -> dict:
-    """The f32 entries of flash_attention (``flash_f32``, an FMA body) and
-    ssd_scan (``ssd_kernel``, the recurrence) at the shapes of the f32
-    full-depth witnesses (FLASH_PATH and SSD_PATH in f32: glm4-9b's and
-    mamba2-370m's prefill), held to their plain versions within the
-    sweeps' f32 tolerances (2e-5; y and state 2e-3), timed beside them
-    and, for flash_f32, beside SDPA on the same f32 inputs (no one
-    PyTorch call computes the SSD scan).  Bound: the larger of the operations at 67 TFLOP/s (both bodies run
-    outside the tensor cores; the SSD's recurrence, 4 B S H hd N) and
-    the bytes at 3.35 TB/s."""
+def _f32_flash_times(q, k, v, causal: bool) -> dict:
+    """flash_f32 on f32 q, k, v (B, S, H, D) / (B, T, KH, D): held within
+    2e-5 of its plain version, timed beside it and beside SDPA on the same
+    inputs.  Bound: the larger of the bytes and S's fmas at 67 TFLOP/s (S
+    runs on the CUDA cores), beside which P.V's three TF32 products at 495
+    TFLOP/s run on the tensor cores; beside it ``bound_3xtf32_ms`` (both
+    products as three TF32 products at 495 TFLOP/s) and ``bound_fma_ms``
+    (both at 67 TFLOP/s, the earlier body's bound)."""
     import torch
-    from repro_torch.kernels import flash_attention as fa, ref, ssd_scan as sk
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa, ref
+    B, S, H, D = q.shape
+    T, KH = k.shape[1], k.shape[2]
+    err = float((fa.flash_attention(q, k, v, causal=causal)
+                 - ref.flash_attention(q, k, v, causal=causal)).abs().max())
+    if not err <= 2e-5:
+        raise AssertionError(f"flash_f32 off at B={B} S={S} T={T} H={H} "
+                             f"KH={KH} D={D} causal={causal}: max {err}")
+    flops = (4 * B * H * D * S * (S + 1) // 2 if causal
+             else 4 * B * S * T * D * H)
+    nbytes = 4 * (2 * q.numel() + 2 * k.numel())
+    s_fma = flops / 2 / F32_FLOP_PER_S            # S's half of the flops
+    pv_tf32 = 3 * flops / 2 / TF32_FLOP_PER_S     # P.V's, three passes
+    ops_s = max(s_fma, pv_tf32)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    kernels = fa.KERNELS["flash" if causal else "flash_noncausal"]
+    t = {"ms": time_ms(lambda: fa.flash_attention(q, k, v, causal=causal),
+                       iters=10),
+         "device_ms": device_ms(lambda: fa.flash_attention(
+             q, k, v, causal=causal), kernels, iters=5),
+         "plain_ms": time_ms(lambda: ref.flash_attention(q, k, v,
+                                                         causal=causal),
+                             iters=3, warmup=1),
+         "bound_ms": max(bound_ms(nbytes), ops_s * 1e3),
+         "bound_by": ("operations (S's fmas at 67 TFLOP/s; P.V's 3xTF32 "
+                      "mma.sync products at 495 beside them)"
+                      if ops_s > nbytes / HBM_BYTES_PER_S else "bytes"),
+         "bound_3xtf32_ms": max(bound_ms(nbytes),
+                                3 * flops / TF32_FLOP_PER_S * 1e3),
+         "bound_fma_ms": max(bound_ms(nbytes),
+                             flops / F32_FLOP_PER_S * 1e3),
+         "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+             qt, kt, vt, is_causal=causal, enable_gqa=H != KH), iters=5),
+         "max_abs_err": err, "flops": flops, "bytes": nbytes,
+         "shape": {"B": B, "S": S, "T": T, "H": H, "KH": KH, "D": D,
+                   "dtype": "f32", "causal": causal}}
+    t["tflop_per_s"] = flops / t["ms"] / 1e9
+    t["bound_share"] = t["bound_ms"] / t["ms"]
+    return t
+
+
+def time_f32_entries() -> dict:
+    """The f32 entries of flash_attention (``flash_f32``: S by fmas, P.V by
+    3xTF32 products on mma.sync) and ssd_scan (``ssd_chunk_f32``: the
+    chunked SSD on mma.sync, x, B and C split into bf16 parts) at the
+    shapes of the f32 full-depth witnesses (FLASH_PATH and SSD_PATH in
+    f32: glm4-9b's and mamba2-370m's prefill), held to their plain
+    versions within the sweeps' f32 tolerances (2e-5; y and state 2e-3),
+    timed beside them and, for flash_f32, beside SDPA on the same f32
+    inputs (no one PyTorch call computes the SSD scan).  Bounds: flash_f32 :func:`_f32_flash_times`;
+    the SSD the larger of its bytes at 3.35 TB/s and its split products
+    (three MMAs a product of the chunked form at the kernel's chunk) at 989
+    TFLOP/s, with the recurrence's FMA bound (4 B S H hd N at 67 TFLOP/s)
+    beside it as ``bound_recurrence_ms``."""
+    import torch
+    from repro_torch.kernels import ref, ssd_scan as sk
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(22)
     B, S, H, KH, D = FLASH_PATH
     q = _normal(g, (B, S, H, D), torch.float32, dev)
     k = _normal(g, (B, S, KH, D), torch.float32, dev)
     v = _normal(g, (B, S, KH, D), torch.float32, dev)
-    err = float((fa.flash_attention(q, k, v)
-                 - ref.flash_attention(q, k, v)).abs().max())
-    if not err <= 2e-5:
-        raise AssertionError(f"flash_f32 off at the glm4 witness shape: "
-                             f"max {err}")
-    flops = 4 * B * H * D * S * (S + 1) // 2
-    nbytes = 4 * (2 * q.numel() + 2 * k.numel())
-    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    F32["flash_f32"].update(
-        ms=time_ms(lambda: fa.flash_attention(q, k, v), iters=5),
-        plain_ms=time_ms(lambda: ref.flash_attention(q, k, v), iters=3,
-                         warmup=1),
-        bound_ms=max(bound_ms(nbytes), flops / F32_FLOP_PER_S * 1e3),
-        bound_by=("operations" if flops / F32_FLOP_PER_S
-                  > nbytes / HBM_BYTES_PER_S else "bytes"),
-        library_ms=time_ms(lambda: torch.nn.functional
-                           .scaled_dot_product_attention(
-                               qt, kt, vt, is_causal=True, enable_gqa=True),
-                           iters=5),
-        max_abs_err=err, flops=flops, bytes=nbytes,
-        shape={"B": B, "S": S, "H": H, "KH": KH, "D": D, "dtype": "f32"})
-    del q, k, v, qt, kt, vt
+    F32["flash_f32"].update(_f32_flash_times(q, k, v, True))
+    del q, k, v
     torch.cuda.empty_cache()
     B, S, H, P, N = SSD_PATH
     xh = _normal(g, (B, S, H, P), torch.float32, dev, 0.5)
@@ -1511,22 +1551,30 @@ def time_f32_entries() -> dict:
     serr = float((st - sr).abs().max())
     if not (torch.allclose(y, yr, atol=2e-3, rtol=2e-3)
             and torch.allclose(st, sr, atol=2e-3, rtol=2e-3)):
-        raise AssertionError(f"ssd_kernel off at the mamba2 witness shape: "
-                             f"y {err}, state {serr}")
+        raise AssertionError(f"ssd_chunk_f32 off at the mamba2 witness "
+                             f"shape: y {err}, state {serr}")
     del y, st, yr, sr
-    flops = 4 * B * S * H * P * N
+    plan = sk.chunk_plan(P, N, dtype=torch.float32)
+    split_flops = 3 * ssd_chunked_flops(B, S, H, P, N, plan["L"])
     nbytes = 4 * (2 * xh.numel() + 2 * bv.numel() + dt.numel() + H
                   + B * H * P * N)
-    F32["ssd_kernel"].update(
-        ms=time_ms(lambda: sk.ssd_scan(xh, bv, cv, dt, a), iters=5),
+    F32["ssd_chunk_f32"].update(
+        ms=time_ms(lambda: sk.ssd_scan(xh, bv, cv, dt, a), iters=10),
+        device_ms=device_ms(lambda: sk.ssd_scan(xh, bv, cv, dt, a),
+                            sk.KERNELS["ssd"], iters=5),
         plain_ms=time_ms(lambda: ref.ssd_scan(xh, bv, cv, dt, a), iters=3,
                          warmup=1),
-        bound_ms=max(bound_ms(nbytes), flops / F32_FLOP_PER_S * 1e3),
-        bound_by=("operations" if flops / F32_FLOP_PER_S
-                  > nbytes / HBM_BYTES_PER_S else "bytes"),
+        bound_ms=max(bound_ms(nbytes), split_flops / BF16_FLOP_PER_S * 1e3),
+        bound_by=("operations (three bf16 mma.sync products a product)"
+                  if split_flops / BF16_FLOP_PER_S > nbytes / HBM_BYTES_PER_S
+                  else "bytes (f32 x, y, B, C, dt, a and the state once)"),
+        bound_recurrence_ms=max(bound_ms(nbytes), 4 * B * S * H * P * N
+                                / F32_FLOP_PER_S * 1e3),
         library_ms=None, max_abs_err=err, state_max_abs_err=serr,
-        flops=flops, bytes=nbytes,
+        split_flops=split_flops, bytes=nbytes, plan=plan,
         shape={"B": B, "S": S, "H": H, "hd": P, "N": N, "dtype": "f32"})
+    F32["ssd_chunk_f32"]["bound_share"] = (F32["ssd_chunk_f32"]["bound_ms"]
+                                           / F32["ssd_chunk_f32"]["ms"])
     del xh, bv, cv, dt
     torch.cuda.empty_cache()
     return F32
@@ -2245,7 +2293,7 @@ def phase_serve(quick: bool, record: dict):
         before = ops.launch_counts()
         f32 = serve.f32_witness(cfg, batch=batch, seq=seq, device="cuda")
         _count_f32("flash_f32" if kernel == "flash_attention"
-                   else "ssd_kernel", kernel, before)
+                   else "ssd_chunk_f32", kernel, before)
         torch.cuda.empty_cache()
         failures = []
         for launches in pre["launches"]:
@@ -2585,7 +2633,7 @@ def _grad_check(cfg, params, batch, kernel: str) -> dict:
         before = ops.launch_counts()
         gk, lk, nk = grads()
         _count_f32("flash_f32" if kernel == "flash_attention"
-                   else "ssd_kernel", kernel, before)
+                   else "ssd_chunk_f32", kernel, before)
         gp32, lp, np_ = grads(impl="plain")
         chk = bt.leaf_check(gk, gp32)
         f32 = {"max": chk["max"], "worst_leaf": names[chk["worst_leaf"]],
@@ -2649,7 +2697,9 @@ def check_ps_route(cfg, stats: dict) -> dict:
     rows of the compressed payload's L/4 + L/256 lanes, and of the raw
     payload's L lanes): bit-exact against ref, then timed beside the
     plain version and the bytes bound (rows read once, the buffer written
-    once).  No earlier path routes rows this wide."""
+    once), and against index_copy_ in PS_ROUNDS turns of PS_CALLS calls
+    each (``interleaved``: per-call medians of each round, and the ratio
+    of their medians).  No earlier path routes rows this wide."""
     import torch
     from repro_torch.analytics import row_layout
     from repro_torch.kernels import radix_partition as rp, ref
@@ -2697,6 +2747,15 @@ def check_ps_route(cfg, stats: dict) -> dict:
             "bound_by": "bytes",
             "library_ms": time_ms(lib_copy, iters=10),
             "library_host_ms": host_ms(lib_copy, iters=20)}
+        # the factor over index_copy_, settled: PS_ROUNDS rounds of
+        # PS_CALLS calls of each, in turns (kernel, library, kernel, ...)
+        turns = {"kernel_ms": [], "library_ms": []}
+        for _ in range(PS_ROUNDS):
+            turns["kernel_ms"].append(time_ms(scatter, iters=PS_CALLS))
+            turns["library_ms"].append(time_ms(lib_copy, iters=PS_CALLS))
+        turns["factor"] = (statistics.median(turns["kernel_ms"])
+                           / statistics.median(turns["library_ms"]))
+        out[name]["interleaved"] = turns
         del rows, wide, buf
         torch.cuda.empty_cache()
     return out

@@ -54,11 +54,54 @@
 //     tile, 21 GB a layer).
 //     Each consumer runs a tile's S, softmax and P.V in order, waiting on
 //     each product; the two consumers' phases interleave on the SM.
-//   f32 (flash_f32): FMA on the CUDA cores, no TF32, so it agrees with an
-//     f32 reference to 2e-5.  64-row query tiles, one block of 4 warps;
-//     two threads a query row, each with its half of the tile's scores and
-//     of the output in registers; a row's probabilities pass between the
-//     pair by shuffles.
+//   f32 (flash_f32): the same function in f32, P.V on the tensor cores.
+//     S = Q.K^T runs on the CUDA cores: each score is one chain of f32
+//     fmas over d in order from 0, as the plain version's f32 product
+//     (cuBLAS) sums it, so S is that product bit for bit, scaled by D^-0.5
+//     as the plain version scales it; the softmax takes exp in natural
+//     units, as the plain version does.  No other rounding of S will do:
+//     glm4's reference init gives scaled scores of rms ~500 (up to
+//     ~2900), where one ulp of a score moves a probability by ~1e-4, and
+//     the f32 gradient check of chip_smoke.py's phase train (2 glm4
+//     layers, held within 2^-8) then reads 0.012, even for S computed in
+//     f64 and rounded once; S as three TF32 MMAs a product reads the same.
+//     O += P.V is three TF32 MMAs a product (the error-compensated
+//     "3xTF32" product): P (after the exp) and V are split into hi =
+//     TF32(x) and lo = TF32(x - hi), both rounded as cvt.rna.tf32.f32
+//     rounds (to nearest, ties away; done as an integer add and mask) and
+//     x - hi exact in f32, and p.v is taken as hi.hi + hi.lo + lo.hi, every
+//     MMA accumulating in f32: about 2^-22 of each product, against f32's
+//     2^-24, which holds the f32 tolerance of 2e-5
+//     (tests/test_torch_flash_f32_split.py emulates it; one TF32 pass is
+//     1e-3 off) and moves glm4's f32 gradients by ~3e-4.  The tensor cores
+//     do not round an accumulation to nearest, and an error that leans one
+//     way grows with the chain, so P.V sums a tile's 64 keys (24 MMAs)
+//     into a fresh accumulator for each 8 columns, added to O by an f32
+//     fma (a glm4 layer's O would otherwise take 3072 MMAs in one
+//     accumulator).
+//     A block is 4 warps on one head's query tile.  Shared-memory loads,
+//     not the fmas, bound S, so a warp owns two m16 tiles of query rows
+//     (32 rows, a 128-row query tile) up to DP = 64, where the registers
+//     allow it: a lane loads 20 Q and K values a d for 64 fmas, not 18 for
+//     32; at DP = 128 a warp owns 16 rows (a 64-row query tile).  A warp
+//     holds S in m16n8k8 accumulators' layout, and the softmax runs there
+//     as in the bf16 body (a row's max and sum over the quad of lanes that
+//     holds it; masks, -inf after the product, only on the diagonal tiles
+//     and the ragged last one).  P's layout is then the A operand of
+//     O += P.V once the keys of each 8-key step are taken in the order
+//     (0, 2, 4, 6, 1, 3, 5, 7), V's B fragments read in that order too, so
+//     P never moves between lanes.  Q, one K tile and one V tile of 64
+//     keys live in shared memory, rows DP + 4 floats apart, with which the
+//     float4 loads of Q and K rows and the scalar loads of V down its keys
+//     (V is MN-major for P.V) are free of bank conflicts.  The two tile
+//     slots form a ring filled by cp.async: K_{j+1} lands while the block
+//     runs the softmax and P.V of tile j, V_{j+1} while it runs S_{j+1}.
+//     99 KB at DP = 128 and 70 KB at DP = 64: two blocks an SM (at DP =
+//     64 a lane's registers bound it).  Query tiles run longest first, heads fastest unless one
+//     batch row's K and V pass half the L2 (as flash_bf16).
+//     Bound: S's fmas at 67 TFLOP/s (a glm4 layer: 275 GFLOP, 4.10 ms),
+//     beside which P.V's three TF32 products at 495 TFLOP/s (1.67 ms) can
+//     run on the tensor cores.
 #include <cuda.h>             // CUtensorMap and its enums (no -lcuda: the
                               // encoder is found at run time)
 #include <cuda_bf16.h>
@@ -71,29 +114,9 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr float kNegInf = -1e30f;
-constexpr int kBQ = 64;       // f32: query rows a block
 constexpr int kBK = 64;       // f32: key rows a tile
 constexpr int kThreads = 128; // f32: threads a block
 constexpr unsigned kFull = 0xffffffffu;
-
-// Rows [0, 64) of a strided (rows, D) matrix into shared memory with row
-// stride ldd, zero beyond rows_valid rows and beyond D columns (up to DP).
-// 16 bytes a thread and copy; D is a multiple of 16 / sizeof(T).
-template <typename T, int DP>
-__device__ __forceinline__ void load_tile(T* dst, int ldd, const T* src,
-                                          long long ld_src, int rows_valid,
-                                          int D) {
-  constexpr int E = 16 / sizeof(T);
-  constexpr int CH = DP / E;
-  for (int i = threadIdx.x; i < 64 * CH; i += kThreads) {
-    const int r = i / CH, c = (i % CH) * E;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r < rows_valid && c < D)
-      val = *reinterpret_cast<const uint4*>(src + r * ld_src + c);
-    *reinterpret_cast<uint4*>(dst + r * ldd + c) = val;
-  }
-}
 
 // ------------------------------------------- bf16, wgmma + TMA ring ------
 
@@ -626,108 +649,310 @@ flash_bf16(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-// ------------------------------------------------------- f32, FMA ------
+// -------------------------------------- f32, 3xTF32 on mma.sync ------
 
+// A warp holds MT m16 tiles of query rows: two up to DP = 64, so each Q
+// and K value a lane loads for S feeds more fmas (20 loads a d for 64
+// fmas, against 18 for 32 with one tile); one at DP = 128, where O's
+// registers leave no room for a second.  A block is 4 warps, BQ query
+// rows.  Rows are DP + 4 floats apart (4 mod 32): the float4 loads of Q
+// and K rows for S and the scalar loads of V down its keys for P.V are
+// then free of bank conflicts.
 template <int DP>
 struct F32Layout {
-  static constexpr int LD = DP + 4;
-  static constexpr size_t bytes = sizeof(float) * (kBQ + 2 * kBK) * LD;
+  static constexpr int MT = DP <= 64 ? 2 : 1;
+  static constexpr int BQ = 4 * 16 * MT;     // query rows a block
+  static constexpr int LD = DP + 4;          // floats a row
+  static constexpr int q_tile = BQ * LD;     // floats of the Q tile
+  static constexpr int tile = kBK * LD;      // floats of a K or V tile
+  // Q, then the ring's K slot and V slot
+  static constexpr size_t bytes = sizeof(float) * (q_tile + 2 * tile);
+  static constexpr int min_blocks = DP <= 64 ? 2 : 1;
 };
 
+// s += a . b over four d in order, one rounding each (fma)
+__device__ __forceinline__ void fma4(float& s, const float4& a,
+                                     const float4& b) {
+  s = fmaf(a.x, b.x, s);
+  s = fmaf(a.y, b.y, s);
+  s = fmaf(a.z, b.z, s);
+  s = fmaf(a.w, b.w, s);
+}
+
+// Rows [0, ROWS) of a strided (rows, D) f32 matrix into shared memory
+// with row stride ldd by cp.async, 16 bytes a copy; rows past rows_valid
+// and columns D .. DP - 1 land as zeros.  D is a multiple of 4.
+template <int DP, int ROWS = kBK>
+__device__ __forceinline__ void cp_tile(float* dst, int ldd, const float* src,
+                                        long long ld_src, int rows_valid,
+                                        int D) {
+  constexpr int CH = DP / 4;
+  for (int i = threadIdx.x; i < ROWS * CH; i += kThreads) {
+    const int r = i / CH, c = (i % CH) * 4;
+    const bool ok = r < rows_valid && c < D;
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                     smem_addr(dst + r * ldd + c)),
+                 "l"(ok ? src + r * ld_src + c : src), "r"(ok ? 16 : 0));
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// Returns once at most N of this thread's cp.async groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// x rounded to TF32 (10 mantissa bits), to nearest with ties away from
+// zero: cvt.rna.tf32.f32's rounding of a finite x, as an add and a mask on
+// its bits (two instructions; the cvt also handles NaN and infinity and
+// takes four).
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x as hi = TF32(x) and lo = TF32(x - hi): x - hi is exact in f32, so
+// hi + lo carries 22 bits of x's 24.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// c += a b: m16n8k8, TF32 in, f32 accumulate.  a: (g, t), (g + 8, t),
+// (g, t + 4), (g + 8, t + 4); b: (k t, n g), (k t + 4, n g); c: (g, 2t),
+// (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1); g = lane / 4, t = lane % 4.
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// a as its TF32 high parts and remainders
+__device__ __forceinline__ void split_a(const float (&a)[4], uint32_t (&ah)[4],
+                                        uint32_t (&al)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) split_tf32(a[i], ah[i], al[i]);
+}
+
+// c += a b as three TF32 products, small terms first: hi.lo + lo.hi +
+// hi.hi (a given split, b as its two f32 values).
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4],
+                                           const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4], float b0,
+                                           float b1) {
+  uint32_t bh0, bl0, bh1, bl1;
+  split_tf32(b0, bh0, bl0);
+  split_tf32(b1, bh1, bl1);
+  mma_tf32(c, ah, bl0, bl1);
+  mma_tf32(c, al, bh0, bh1);
+  mma_tf32(c, ah, bh0, bh1);
+}
+
+// One block: BQ query rows of head h (4 warps of 16 MT rows), K and V
+// tiles of 64 keys through a two-slot ring.  A lane holds S in the layout
+// of MT m16n8k8 accumulators: in m16 tile mt, tile nt covers keys
+// 8 nt .. 8 nt + 7 (the lane's rows 16 mt + g and + 8, keys 8 nt + 2t and
+// + 1); tile dt of O columns 8 dt .. 8 dt + 7.
 template <int DP>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, F32Layout<DP>::min_blocks)
 flash_f32(const float* __restrict__ q, const float* __restrict__ k,
           const float* __restrict__ v, float* __restrict__ o, int S, int T,
-          int H, int KH, int D, int causal, float scale) {
-  constexpr int LD = F32Layout<DP>::LD;
-  constexpr int HD = DP / 2;            // output columns a thread holds
+          int H, int KH, int D, int causal, float scale,
+          int tiles_fastest) {
+  using L = F32Layout<DP>;
+  constexpr int LD = L::LD, MT = L::MT, BQ = L::BQ;
   extern __shared__ __align__(128) unsigned char smem[];
   float* Qs = reinterpret_cast<float*>(smem);
-  float* Ks = Qs + kBQ * LD;
-  float* Vs = Ks + kBK * LD;
+  float* Ks = Qs + L::q_tile;
+  float* Vs = Ks + L::tile;
 
-  const int q0 = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z;
+  // longest query tile first, in each head (tiles_fastest) or across them
+  const int h = tiles_fastest ? blockIdx.y : blockIdx.x, b = blockIdx.z;
+  const int n_qt = tiles_fastest ? gridDim.x : gridDim.y;
+  const int q0 = (n_qt - 1 - (tiles_fastest ? blockIdx.x : blockIdx.y)) *
+                 BQ;
   const int kh = h / (H / KH);
-  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
   const long long q_ld = (long long)H * D, kv_ld = (long long)KH * D;
   const float* kb = k + (long long)b * T * kv_ld + (long long)kh * D;
   const float* vb = v + (long long)b * T * kv_ld + (long long)kh * D;
+  const int kv_end = causal ? min(T, q0 + BQ) : T;
+  const int n_kt = (kv_end + kBK - 1) / kBK;
 
-  load_tile<float, DP>(Qs, LD,
-                       q + ((long long)b * S + q0) * q_ld + (long long)h * D,
-                       q_ld, min(kBQ, S - q0), D);
-  const int r = threadIdx.x / 2, half = threadIdx.x & 1;
-  const int qpos = q0 + r;
-  const int kv_end = causal ? min(T, q0 + kBQ) : T;
-  float acc[HD];                        // columns 2j + half of the row
+  // groups in flight: {Q}, {K_0}, then {V_0}
+  cp_tile<DP, BQ>(Qs, LD,
+                  q + ((long long)b * S + q0) * q_ld + (long long)h * D,
+                  q_ld, min(BQ, S - q0), D);
+  cp_tile<DP>(Ks, LD, kb, kv_ld, min(kBK, T), D);
+  cp_tile<DP>(Vs, LD, vb, kv_ld, min(kBK, T), D);
+
+  const int row0 = q0 + 16 * MT * warp + g;  // the lane's rows: row0 +
+                                             // 16 mt + {0, 8}
+  const float* qw = Qs + (16 * MT * warp + g) * LD;  // its Q rows
+  const float* kw = Ks + 2 * t * LD;                 // its keys' K rows
+  const float* vw = Vs + 2 * t * LD + g;             // its V fragments
+  float acc[MT][DP / 8][4];
 #pragma unroll
-  for (int j = 0; j < HD; ++j) acc[j] = 0.f;
-  float m_run = kNegInf, l_run = 0.f;
-
-  for (int k0 = 0; k0 < kv_end; k0 += kBK) {
-    __syncthreads();
-    load_tile<float, DP>(Ks, LD, kb + (long long)k0 * kv_ld, kv_ld,
-                         min(kBK, T - k0), D);
-    load_tile<float, DP>(Vs, LD, vb + (long long)k0 * kv_ld, kv_ld,
-                         min(kBK, T - k0), D);
-    __syncthreads();
-
-    float sv[32];
+  for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-    for (int c = 0; c < 32; ++c) sv[c] = 0.f;
+    for (int i = 0; i < DP / 8; ++i)
+      acc[mt][i][0] = acc[mt][i][1] = acc[mt][i][2] = acc[mt][i][3] = 0.f;
+  // running max, and this lane's part of the sum, of each of its rows
+  float m[MT][2], l[MT][2];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+    m[mt][0] = m[mt][1] = -INFINITY, l[mt][0] = l[mt][1] = 0.f;
+
+  for (int j = 0; j < n_kt; ++j) {
+    const int k0 = j * kBK;
+    const bool more = j + 1 < n_kt;
+    cp_wait<1>();                        // K_j (and Q) landed
+    __syncthreads();
+    // ---- S = Q.K_j^T in f32 on the CUDA cores: each score one chain
+    // of fmas over d in order from 0, as the plain version's f32 product
+    // sums it, so S is that product bit for bit; then scaled by D^-0.5 ----
+    float sc[MT][8][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+        sc[mt][nt][0] = sc[mt][nt][1] = sc[mt][nt][2] = sc[mt][nt][3] = 0.f;
+#pragma unroll 1
     for (int d = 0; d < DP; d += 4) {
-      const float4 q4 = *reinterpret_cast<const float4*>(Qs + r * LD + d);
+      float4 qa[MT], qb[MT];
 #pragma unroll
-      for (int c = 0; c < 32; ++c) {
-        const float4 k4 = *reinterpret_cast<const float4*>(
-            Ks + (half * 32 + c) * LD + d);
-        sv[c] = fmaf(q4.x, k4.x, sv[c]);
-        sv[c] = fmaf(q4.y, k4.y, sv[c]);
-        sv[c] = fmaf(q4.z, k4.z, sv[c]);
-        sv[c] = fmaf(q4.w, k4.w, sv[c]);
+      for (int mt = 0; mt < MT; ++mt) {
+        qa[mt] = *reinterpret_cast<const float4*>(qw + 16 * mt * LD + d);
+        qb[mt] = *reinterpret_cast<const float4*>(qw + (16 * mt + 8) * LD +
+                                                  d);
+      }
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        const float4 k0v =
+            *reinterpret_cast<const float4*>(kw + 8 * nt * LD + d);
+        const float4 k1v =
+            *reinterpret_cast<const float4*>(kw + (8 * nt + 1) * LD + d);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          fma4(sc[mt][nt][0], qa[mt], k0v);
+          fma4(sc[mt][nt][1], qa[mt], k1v);
+          fma4(sc[mt][nt][2], qb[mt], k0v);
+          fma4(sc[mt][nt][3], qb[mt], k1v);
+        }
       }
     }
-    unsigned valid = 0u;
-    float mx = kNegInf;
+    __syncthreads();                     // every warp has read K_j
+    if (more)
+      cp_tile<DP>(Ks, LD, kb + (long long)(k0 + kBK) * kv_ld, kv_ld,
+                  min(kBK, T - k0 - kBK), D);
+
+    // ---- masks, then the online softmax on the lane's rows ----
+    const bool masked = k0 + kBK > T || (causal && k0 + kBK - 1 > q0);
+    float corr[MT][2];
 #pragma unroll
-    for (int c = 0; c < 32; ++c) {
-      const int kpos = k0 + half * 32 + c;
-      const bool ok = kpos < T && (!causal || kpos <= qpos);
-      sv[c] = ok ? sv[c] * scale : kNegInf;
-      valid |= (ok ? 1u : 0u) << c;
-      mx = fmaxf(mx, sv[c]);
+    for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          sc[mt][nt][e] *= scale;
+          const int kpos = k0 + 8 * nt + 2 * t + (e & 1);
+          const int qpos = row0 + 16 * mt + 8 * (e >> 1);
+          if (masked && (kpos >= T || (causal && kpos > qpos)))
+            sc[mt][nt][e] = -INFINITY;
+        }
+      float use[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt)
+          mx = fmaxf(mx, fmaxf(sc[mt][nt][2 * i], sc[mt][nt][2 * i + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 2));
+        const float m_new = fmaxf(m[mt][i], mx);
+        use[i] = m_new == -INFINITY ? 0.f : m_new;   // no key yet
+        corr[mt][i] = __expf(m[mt][i] - use[i]);
+        m[mt][i] = m_new;
+      }
+      float sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          sc[mt][nt][e] = __expf(sc[mt][nt][e] - use[e >> 1]);
+          sum[e >> 1] += sc[mt][nt][e];
+        }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) l[mt][i] = l[mt][i] * corr[mt][i] + sum[i];
     }
-    mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
-    const float m_new = fmaxf(m_run, mx);
-    float sum = 0.f;
+
+    // ---- O = O corr + P.V_j: step nt takes keys 8 nt + (2t, 2t + 1) as
+    // its k indices (t, t + 4), so P's accumulator is already its A
+    // operand.  Each 8 columns of P.V_j (24 MMAs) go to a fresh
+    // accumulator, added to O by an f32 fma; one key step's split of P is
+    // live at a time ----
+    if (more) cp_wait<1>(); else cp_wait<0>();   // V_j landed
+    __syncthreads();
 #pragma unroll
-    for (int c = 0; c < 32; ++c) {
-      sv[c] = (valid >> c) & 1u ? expf(sv[c] - m_new) : 0.f;
-      sum += sv[c];
+    for (int mt = 0; mt < MT; ++mt) {
+      float part[DP / 8][4];
+#pragma unroll
+      for (int dt = 0; dt < DP / 8; ++dt)
+        part[dt][0] = part[dt][1] = part[dt][2] = part[dt][3] = 0.f;
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        const float p[4] = {sc[mt][nt][0], sc[mt][nt][2], sc[mt][nt][1],
+                            sc[mt][nt][3]};
+        uint32_t ph[4], pl[4];
+        split_a(p, ph, pl);
+#pragma unroll
+        for (int dt = 0; dt < DP / 8; ++dt) {
+          const int o = 8 * nt * LD + 8 * dt;
+          mma_3xtf32(part[dt], ph, pl, vw[o], vw[o + LD]);
+        }
+      }
+#pragma unroll
+      for (int dt = 0; dt < DP / 8; ++dt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          acc[mt][dt][e] = fmaf(acc[mt][dt][e], corr[mt][e >> 1],
+                                part[dt][e]);
     }
-    sum += __shfl_xor_sync(kFull, sum, 1);
-    const float corr = expf(m_run - m_new);
-    l_run = l_run * corr + sum;
-    m_run = m_new;
-#pragma unroll
-    for (int j = 0; j < HD; ++j) acc[j] *= corr;
-    // the pair's 64 probabilities, key by key, from the lane that has it
-#pragma unroll
-    for (int c = 0; c < kBK; ++c) {
-      const float p = __shfl_sync(kFull, sv[c % 32], (lane & ~1) | (c / 32));
-      const float* vrow = Vs + c * LD + half;
-#pragma unroll
-      for (int j = 0; j < HD; ++j) acc[j] = fmaf(p, vrow[2 * j], acc[j]);
-    }
+    __syncthreads();                     // every warp has read V_j
+    if (more)
+      cp_tile<DP>(Vs, LD, vb + (long long)(k0 + kBK) * kv_ld, kv_ld,
+                  min(kBK, T - k0 - kBK), D);
   }
 
-  if (qpos < S) {
-    const float l = fmaxf(l_run, 1e-30f);
-    float* orow = o + ((long long)b * S + qpos) * q_ld + (long long)h * D;
+  // o = acc / max(l, 1e-30), as a product with the row's reciprocal; rows
+  // past S and columns past D not written
+  float* ob = o + (long long)b * S * q_ld + (long long)h * D;
 #pragma unroll
-    for (int j = 0; j < HD; ++j)
-      if (2 * j + half < D) orow[2 * j + half] = acc[j] / l;
-  }
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float li = l[mt][i];
+      li += __shfl_xor_sync(kFull, li, 1);
+      li += __shfl_xor_sync(kFull, li, 2);
+      li = __frcp_rn(fmaxf(li, 1e-30f));
+      const int row = row0 + 16 * mt + 8 * i;
+      if (row < S) {
+        float* orow = ob + row * q_ld;
+#pragma unroll
+        for (int dt = 0; dt < DP / 8; ++dt) {
+          const int col = 8 * dt + 2 * t;
+          if (col < D)
+            *reinterpret_cast<float2*>(orow + col) =
+                make_float2(acc[mt][dt][2 * i] * li,
+                            acc[mt][dt][2 * i + 1] * li);
+        }
+      }
+    }
 }
 
 template <typename K>
@@ -818,13 +1043,17 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
                int S, int T, int H, int KH, int D, int causal,
                cudaStream_t st) {
   const float scale = (float)(1.0 / sqrt((double)D));
-  const dim3 grid((S + kBQ - 1) / kBQ, H, B);
+  constexpr int BQ = F32Layout<DP>::BQ;
+  const int n_qt = (S + BQ - 1) / BQ;
+  const int tiles_fastest =
+      (2ll * KH * T * D * 4 > kL2Bytes / 2 || n_qt > 65535) ? 1 : 0;
+  const dim3 grid = tiles_fastest ? dim3(n_qt, H, B) : dim3(H, n_qt, B);
   const size_t smem = F32Layout<DP>::bytes;
   const cudaError_t e = allow_smem(flash_f32<DP>, smem);
   if (e != cudaSuccess) return (int)e;
   flash_f32<DP><<<grid, kThreads, smem, st>>>(
       (const float*)q, (const float*)k, (const float*)v, (float*)o, S, T, H,
-      KH, D, causal, scale);
+      KH, D, causal, scale, tiles_fastest);
   return (int)cudaGetLastError();
 }
 

@@ -230,8 +230,7 @@ def ssd_scan(xh, bv, cv, dt, a, state0=None):
     over any S (the last chunk is padded with dt = 0, which leaves the
     state alone).  xh (B, S, H, hd), bv/cv (B, S, N), dt (B, S, H) f32,
     a (H,) f32, state0 (B, H, hd, N) f32 or None.  Returns (y in xh's
-    dtype, final state f32).  It takes ``_SSD_CHUNK`` steps a block; the
-    kernel runs the recurrence step by step."""
+    dtype, final state f32).  It takes ``_SSD_CHUNK`` steps a block."""
     Bsz, S, H, P = xh.shape
     N = bv.shape[-1]
     L = _SSD_CHUNK

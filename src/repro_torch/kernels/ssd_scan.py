@@ -4,9 +4,10 @@ Replaces the Pallas ``repro.kernels.ssd_scan.ssd_scan``
 (``src/repro/kernels/ssd_scan.py:55``) and the chunked jnp SSD the JAX
 model runs in its place: the port's ``ssd_chunked`` (every SSM prefill)
 comes here.  It returns y and the final state, from an optional initial
-state.  bf16 inputs run the chunked SSD on the tensor cores, which picks
-its own chunk length; f32 inputs run the plain recurrence.  CUDA tensors
-only; the plain version is
+state.  Both input types run the chunked SSD on the tensor cores
+(``ssd_chunk_bf16``, ``ssd_chunk_f32``: f32 x, B and C split into bf16
+high parts and remainders, three MMAs a product), which picks its own
+chunk length.  CUDA tensors only; the plain version is
 :func:`repro_torch.kernels.ref.ssd_scan` and :mod:`repro_torch.kernels.ops`
 picks.
 
@@ -25,7 +26,7 @@ from repro_torch.kernels.radix_partition import _raise_on
 
 launches = {"ssd": 0}
 # the device kernels each entry point launches, as the profiler names them
-KERNELS = {"ssd": ("ssd_chunk_bf16", "ssd_kernel")}
+KERNELS = {"ssd": ("ssd_chunk_bf16", "ssd_chunk_f32")}
 DTYPES = (torch.float32, torch.bfloat16)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -39,36 +40,32 @@ def _load():
         lib = build.load("ssd_scan")
         lib.ssd_scan_fwd.argtypes = [_P] * 8 + [_I] * 6 + [_P]
         lib.ssd_scan_fwd.restype = _I
-        lib.ssd_chunk_plan.argtypes = [_I, _I, _P]
+        lib.ssd_chunk_plan.argtypes = [_I, _I, _I, _P]
         lib.ssd_chunk_plan.restype = _I
         _lib = lib
     return _lib
 
 
-def takes_state_dim(n: int, dtype=torch.float32) -> bool:
-    """State widths the kernel takes for inputs of ``dtype``.  bf16 (the
-    chunked body): 1 <= N <= 1024.  f32 (the recurrence,
-    ``state_per_lane`` in the source): N = NPT * 2**k with NPT in
-    {4, 8, 16, 32} and 2**k <= 32, up to 512 (at 1024 its staging tiles
-    outgrow shared memory)."""
-    if dtype == torch.bfloat16:
-        return 1 <= n <= 1024
-    for npt in (32, 16, 8, 4):
-        ns = n // npt
-        if n % npt == 0 and 1 <= ns <= 32 and ns & (ns - 1) == 0:
-            return n <= 512
-    return False
+def takes_state_dim(n: int) -> bool:
+    """State widths the kernel takes, the same for both input types:
+    1 <= N <= 1024, zero-padded by the wrapper to a power of two from
+    8."""
+    return 1 <= n <= 1024
 
 
-def chunk_plan(P: int, N: int, device=None) -> dict:
-    """The bf16 body's chunk length, hd tile and shared bytes for head
-    width P (a multiple of 8) and state width N (a power of two from 8)
-    on ``device`` (the current card by default)."""
-    out = (ctypes.c_int * 3)()
+def chunk_plan(P: int, N: int, device=None,
+               dtype=torch.bfloat16) -> dict:
+    """The chunked body's chunk length, hd tile, shared bytes and staging
+    buffers for inputs of ``dtype``, head width P (a multiple of 8) and
+    state width N (a power of two from 8) on ``device`` (the current card
+    by default)."""
+    out = (ctypes.c_int * 4)()
     lib = _load()
     with torch.cuda.device(device):
-        _raise_on(lib.ssd_chunk_plan(P, N, out), "ssd_chunk_plan")
-    return {"L": out[0], "hd_tile": out[1], "smem_bytes": out[2]}
+        _raise_on(lib.ssd_chunk_plan(P, N, int(dtype == torch.bfloat16),
+                                     out), "ssd_chunk_plan")
+    return {"L": out[0], "hd_tile": out[1], "smem_bytes": out[2],
+            "buffers": out[3]}
 
 
 def _pad(t: torch.Tensor, sizes: dict) -> torch.Tensor:
@@ -118,26 +115,23 @@ def ssd_scan(xh: torch.Tensor, bv: torch.Tensor, cv: torch.Tensor,
     if state0 is not None:
         _check(state0, "state0", torch.float32, (B, H, P, N), dev)
         state0 = state0.contiguous()
-    if not takes_state_dim(N, xh.dtype):
-        raise ValueError(f"state width N={N} is not taken for {xh.dtype}: "
-                         "bf16 takes 1..1024, f32 4, 8, 16 or 32 times a "
-                         "power of two up to 32, at most 512")
+    if not takes_state_dim(N):
+        raise ValueError(f"state width N={N} is not taken: the kernel takes "
+                         "1..1024 in either type")
     if min(B, S, H, P) < 1 or max(B, H) > 65535:
         raise ValueError(f"B={B}, S={S}, H={H}, hd={P} out of the kernel's "
                          "range")
     xh, bv, cv, dt, a = (t.contiguous() for t in (xh, bv, cv, dt, a))
     bf16 = xh.dtype == torch.bfloat16
-    PP, NP = P, N
-    if bf16:
-        # the chunked body reads 16-byte rows: hd a multiple of 8, N a power
-        # of two from 8; zero columns add nothing to y or the state
-        PP, NP = -(-P // 8) * 8, max(8, 1 << (N - 1).bit_length())
-        if (PP, NP) != (P, N):
-            xh = _pad(xh, {3: PP})
-            bv, cv = _pad(bv, {2: NP}), _pad(cv, {2: NP})
-            if state0 is not None:
-                state0 = _pad(state0, {2: PP, 3: NP})
-        xh, bv, cv = _aligned(xh), _aligned(bv), _aligned(cv)
+    # the chunked body reads 16-byte rows: hd a multiple of 8, N a power of
+    # two from 8; zero columns add nothing to y or the state
+    PP, NP = -(-P // 8) * 8, max(8, 1 << (N - 1).bit_length())
+    if (PP, NP) != (P, N):
+        xh = _pad(xh, {3: PP})
+        bv, cv = _pad(bv, {2: NP}), _pad(cv, {2: NP})
+        if state0 is not None:
+            state0 = _pad(state0, {2: PP, 3: NP})
+    xh, bv, cv = _aligned(xh), _aligned(bv), _aligned(cv)
     y = torch.empty_like(xh)
     state = torch.empty((B, H, PP, NP), dtype=torch.float32, device=dev)
     with _lock, torch.cuda.device(dev):

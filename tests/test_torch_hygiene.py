@@ -170,7 +170,7 @@ def _global_functions() -> set:
 def test_global_function_parser_finds_every_kernel():
     assert {"hist_kernel", "scan_kernel", "rank_kernel", "scatter_medium",
             "cas_kernel", "agg_kernel", "flash_bf16",
-            "ssd_kernel"} <= _global_functions()
+            "ssd_chunk_bf16", "ssd_chunk_f32"} <= _global_functions()
 
 
 @pytest.mark.parametrize("mod", WRAPPERS,

@@ -1,6 +1,6 @@
-"""The bf16 SSD kernel's rounding, emulated in plain torch on the CPU,
-against the plain SSD (``repro_torch.kernels.ref.ssd_scan``) and JAX's
-``repro.models.ssm.ssd_chunked``.
+"""The SSD kernel's rounding in both input types, emulated in plain torch
+on the CPU, against the plain SSD (``repro_torch.kernels.ref.ssd_scan``)
+and JAX's ``repro.models.ssm.ssd_chunked``.
 
 ``ssd_chunk_bf16`` (``src/repro_torch/kernels/csrc/ssd_scan.cu``) walks
 chunks of L = 64 steps (at the mamba2 head, hd 64 and N 128) and runs
@@ -14,6 +14,14 @@ is held to the tolerances ``chip_smoke.py`` holds the kernel to (y within
 2e-2, the f32 final state within 2e-3), and a control that rounds X o w
 to plain bf16 once, as a kernel without the split would, misses the
 state's 2e-3 on the same inputs.
+
+``ssd_chunk_f32`` runs the same body on f32 x, B and C, in chunks of 16
+steps at the mamba2 head: each of x, B and C is split into a bf16 high part
+and a bf16 remainder as well, and every product of two inputs takes three
+MMAs (hi.hi + hi.lo + lo.hi).  ``emulate(..., f32=True)`` repeats that,
+with y left in f32; it holds y and the state within 2e-3 (the kernel's f32
+tolerance in ``chip_smoke.py``), and a control that rounds B and C to plain
+bf16 once misses it.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -24,7 +32,9 @@ from repro.models import ssm as jssm
 from repro_torch.kernels import ref, ssd_scan as sk
 
 L = 64
+L_F32 = 16                         # ssd_chunk_f32's chunk at the mamba2 head
 Y_TOL, STATE_TOL = 2e-2, 2e-3      # chip_smoke.py: check_ssd, time_ssd
+F32_TOL = 2e-3                     # f32 y and state: check_ssd
 
 
 def _bf(t):
@@ -37,13 +47,25 @@ def _split(t):
     return hi, _bf(t - hi)
 
 
-def emulate(xh, bv, cv, dt, a, state0=None, *, split_w=True):
-    """ssd_chunk_bf16's arithmetic on f32 tensors holding bf16 x, B, C
-    (xh (B, S, H, hd), bv/cv (B, S, N)), f32 dt (B, S, H) and a (H,).
-    Returns (y rounded to bf16, final f32 state).  ``split_w=False``
-    rounds X o w to bf16 once (the control)."""
+def _pair(t, split=True):
+    """t as (high part, remainder) MMA operands: split, or rounded to
+    bf16 once with no remainder."""
+    return _split(t) if split else (_bf(t), torch.zeros_like(t))
+
+
+def emulate(xh, bv, cv, dt, a, state0=None, *, split_w=True, f32=False,
+            split_bc=True, chunk=None):
+    """The chunked body's arithmetic on xh (B, S, H, hd), bv/cv (B, S, N),
+    f32 dt (B, S, H) and a (H,), in chunks of ``chunk`` steps (L, or L_F32
+    with ``f32``).  bf16 (``ssd_chunk_bf16``): x, B and C hold bf16 values
+    and enter the MMAs as they are.  ``f32`` (``ssd_chunk_f32``): x, B and
+    C are f32 and split, every product of two inputs three MMAs, y left in
+    f32.  Returns (y, final f32 state).  The controls: ``split_w=False``
+    rounds X o w to bf16 once; ``split_bc=False`` rounds B and C to bf16
+    once (f32 only)."""
     Bsz, S, H, P = xh.shape
     N = bv.shape[-1]
+    L = chunk or (L_F32 if f32 else globals()["L"])
     st = (torch.zeros((Bsz, H, P, N)) if state0 is None
           else state0.clone())
     causal = torch.tril(torch.ones((L, L), dtype=torch.bool))[None, :, :,
@@ -57,37 +79,41 @@ def emulate(xh, bv, cv, dt, a, state0=None, *, split_w=True):
             return torch.cat([t, t.new_zeros((Bsz, L - n) + t.shape[2:])],
                              1)
         x, b, c, d = chunk(xh), chunk(bv), chunk(cv), chunk(dt)
+        if f32:                 # (high part, remainder) of each input
+            xs, bs, cs = _split(x), _pair(b, split_bc), _pair(c, split_bc)
+        else:                   # exact bf16 operands, no remainder
+            xs, bs, cs = ((t, torch.zeros_like(t)) for t in (x, b, c))
+
+        def mm(eq, u, v):       # hi.hi + hi.lo + lo.hi, f32 sums
+            return (torch.einsum(eq, u[0], v[0]) + torch.einsum(eq, u[0], v[1])
+                    + torch.einsum(eq, u[1], v[0]))
         seg = torch.cumsum(d * a, 1)                               # B L H
-        cb = torch.einsum("bin,bjn->bij", c, b)                    # exact
+        cb = mm("bin,bjn->bij", cs, bs)
         decay = torch.exp(seg[:, :, None] - seg[:, None]) * d[:, None]
-        m_hi, m_lo = _split(torch.where(causal, cb[..., None] * decay, 0.))
-        s_hi, s_lo = _split(st)
-        y = (torch.einsum("bln,bhpn->blhp", c, s_hi)
-             + torch.einsum("bln,bhpn->blhp", c, s_lo)) * torch.exp(seg)[
-                 ..., None]
-        y = y + (torch.einsum("bijh,bjhp->bihp", m_hi, x)
-                 + torch.einsum("bijh,bjhp->bihp", m_lo, x))
+        ms = _split(torch.where(causal, cb[..., None] * decay, 0.))
+        y = mm("bln,bhpn->blhp", cs, _split(st)) * torch.exp(seg)[..., None]
+        y = y + mm("bijh,bjhp->bihp", ms, xs)
         w = torch.exp(seg[:, -1:] - seg) * d
-        xw = x * w[..., None]
-        w_hi, w_lo = (_split(xw) if split_w
-                      else (_bf(xw), torch.zeros_like(xw)))
+        ws = _pair(x * w[..., None], split_w)
         st = (st * torch.exp(seg[:, -1])[:, :, None, None]
-              + torch.einsum("blhp,bln->bhpn", w_hi, b)
-              + torch.einsum("blhp,bln->bhpn", w_lo, b))
+              + mm("blhp,bln->bhpn", ws, bs))
         ys.append(y[:, :n])
-    return _bf(torch.cat(ys, 1)), st
+    y = torch.cat(ys, 1)
+    return (y if f32 else _bf(y)), st
 
 
-def _inputs(seed, S, *, state0):
+def _inputs(seed, S, *, state0, f32=False):
     """B = H = 2 at the mamba2 head widths (hd 64, N 128), drawn as
-    chip_smoke.py draws them: x, B, C normal at 0.5 in bf16, dt =
-    softplus(normal), a = -exp(0.3 normal), state0 normal."""
+    chip_smoke.py draws them: x, B, C normal at 0.5 in bf16 (f32 with
+    ``f32``), dt = softplus(normal), a = -exp(0.3 normal), state0
+    normal."""
     rng = np.random.default_rng(seed)
     B, H, P, N = 2, 2, 64, 128
 
     def bf(shape):
-        return _bf(torch.from_numpy(
-            (rng.standard_normal(shape) * 0.5).astype(np.float32)))
+        t = torch.from_numpy(
+            (rng.standard_normal(shape) * 0.5).astype(np.float32))
+        return t if f32 else _bf(t)
     xh, bv, cv = bf((B, S, H, P)), bf((B, S, N)), bf((B, S, N))
     dt = torch.nn.functional.softplus(torch.from_numpy(
         rng.standard_normal((B, S, H)).astype(np.float32)))
@@ -149,3 +175,34 @@ def test_zero_padding_of_hd_and_n_leaves_y_and_state_alone():
     torch.testing.assert_close(stp[:, :, :P, :N], st, atol=1e-5, rtol=1e-5)
     assert not yp[..., P:].any() and not stp[:, :, P:].any()
     assert not stp[..., N:].any()
+
+
+@pytest.mark.parametrize("S", [1024, 1000], ids=["S1024", "ragged"])
+@pytest.mark.parametrize("state0", [False, True], ids=["zeros", "state0"])
+def test_emulated_f32_kernel_within_f32_tolerance(S, state0):
+    """ssd_chunk_f32: x, B and C split too, three MMAs a product; y and the
+    state within 2e-3 of the plain SSD and of JAX's ssd_chunked."""
+    xh, bv, cv, dt, a, s0 = _inputs(S + state0 + 7, S, state0=state0,
+                                    f32=True)
+    y, st = emulate(xh, bv, cv, dt, a, s0, f32=True)
+    yr, sr = ref.ssd_scan(xh, bv, cv, dt, a, s0)
+    torch.testing.assert_close(y, yr, atol=F32_TOL, rtol=F32_TOL)
+    torch.testing.assert_close(st, sr, atol=F32_TOL, rtol=F32_TOL)
+    if S % 256 == 0:
+        jy, js = jssm.ssd_chunked(
+            *(jnp.asarray(t.numpy()) for t in (xh, bv, cv, dt, a)), 256,
+            None if s0 is None else jnp.asarray(s0.numpy()))
+        np.testing.assert_allclose(y.numpy(), np.asarray(jy), atol=F32_TOL,
+                                   rtol=F32_TOL)
+        np.testing.assert_allclose(st.numpy(), np.asarray(js),
+                                   atol=F32_TOL, rtol=F32_TOL)
+
+
+def test_one_bf16_rounding_of_f32_b_and_c_misses_the_f32_tolerance():
+    """The control: with f32 inputs, B and C rounded to bf16 once (no
+    remainder) put y or the state outside 2e-3."""
+    xh, bv, cv, dt, a, s0 = _inputs(1031, 1024, state0=False, f32=True)
+    y, st = emulate(xh, bv, cv, dt, a, s0, f32=True, split_bc=False)
+    yr, sr = ref.ssd_scan(xh, bv, cv, dt, a, s0)
+    assert not (torch.allclose(y, yr, atol=F32_TOL, rtol=F32_TOL)
+                and torch.allclose(st, sr, atol=F32_TOL, rtol=F32_TOL))

@@ -192,11 +192,9 @@ def test_ssd_wrapper_refuses_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="kernel"):
         ops.ssd_scan(xh, bv, cv, dt, a, impl="kernel")
     assert sk.takes_state_dim(128) and sk.takes_state_dim(16)
-    assert sk.takes_state_dim(8) and not sk.takes_state_dim(24)
-    assert sk.takes_state_dim(512) and not sk.takes_state_dim(1024)
-    assert sk.takes_state_dim(24, torch.bfloat16)
-    assert sk.takes_state_dim(1024, torch.bfloat16)
-    assert not sk.takes_state_dim(1025, torch.bfloat16)
+    assert sk.takes_state_dim(8) and sk.takes_state_dim(24)
+    assert sk.takes_state_dim(512) and sk.takes_state_dim(1024)
+    assert not sk.takes_state_dim(1025) and not sk.takes_state_dim(0)
 
 
 @pytest.mark.gpu
