@@ -180,11 +180,11 @@ exits non-zero:
 The kernels' f32 entries, which no timed path runs, are timed in phase
 kernels at the f32 witnesses' shapes: flash_f32 (causal and non-causal
 apart; S by fmas on the CUDA cores, P.V by 3xTF32 products on mma.sync,
-bound by S's fmas at 67 TFLOP/s, the all-3xTF32 and all-FMA bounds beside
-it) and ssd_chunk_f32 (the
-chunked SSD on mma.sync with x, B and C split into bf16 parts, bound by
-its bytes, the split products at 989 TFLOP/s and the recurrence's FMA
-bound beside them).  Their launches are counted where serve's and xattn's
+bound by both products as three TF32 products at 495 TFLOP/s, the
+earlier FMA bound and S's fmas alone at 67 TFLOP/s beside it) and
+ssd_chunk_f32 (the chunked SSD on mma.sync with x, B and C split into
+bf16 parts, bound by its bytes, the split products at 989 TFLOP/s and
+the recurrence's FMA bound beside them).  Their launches are counted where serve's and xattn's
 f32 witnesses and train's f32 gradient check run them (a comparison's
 launches, on no path): one f32_entries line.
 
@@ -1466,11 +1466,12 @@ def check_cross(stats: dict, record: dict) -> dict:
 def _f32_flash_times(q, k, v, causal: bool) -> dict:
     """flash_f32 on f32 q, k, v (B, S, H, D) / (B, T, KH, D): held within
     2e-5 of its plain version, timed beside it and beside SDPA on the same
-    inputs.  Bound: the larger of the bytes and S's fmas at 67 TFLOP/s (S
-    runs on the CUDA cores), beside which P.V's three TF32 products at 495
-    TFLOP/s run on the tensor cores; beside it ``bound_3xtf32_ms`` (both
-    products as three TF32 products at 495 TFLOP/s) and ``bound_fma_ms``
-    (both at 67 TFLOP/s, the earlier body's bound)."""
+    inputs.  Bound: the larger of the bytes and both products as three TF32
+    products at 495 TFLOP/s (the f32-accurate work the card can do);
+    beside it ``bound_fma_ms`` (both products at 67 TFLOP/s, the earlier
+    FMA body's bound) and ``s_fma_ms``, the time S's fmas alone take at 67
+    TFLOP/s: this body runs S on the CUDA cores (see flash_attention.cu),
+    which keeps it from its bound."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa, ref
@@ -1484,9 +1485,7 @@ def _f32_flash_times(q, k, v, causal: bool) -> dict:
     flops = (4 * B * H * D * S * (S + 1) // 2 if causal
              else 4 * B * S * T * D * H)
     nbytes = 4 * (2 * q.numel() + 2 * k.numel())
-    s_fma = flops / 2 / F32_FLOP_PER_S            # S's half of the flops
-    pv_tf32 = 3 * flops / 2 / TF32_FLOP_PER_S     # P.V's, three passes
-    ops_s = max(s_fma, pv_tf32)
+    ops_s = 3 * flops / TF32_FLOP_PER_S           # three TF32 passes
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     kernels = fa.KERNELS["flash" if causal else "flash_noncausal"]
     t = {"ms": time_ms(lambda: fa.flash_attention(q, k, v, causal=causal),
@@ -1497,13 +1496,11 @@ def _f32_flash_times(q, k, v, causal: bool) -> dict:
                                                          causal=causal),
                              iters=3, warmup=1),
          "bound_ms": max(bound_ms(nbytes), ops_s * 1e3),
-         "bound_by": ("operations (S's fmas at 67 TFLOP/s; P.V's 3xTF32 "
-                      "mma.sync products at 495 beside them)"
-                      if ops_s > nbytes / HBM_BYTES_PER_S else "bytes"),
-         "bound_3xtf32_ms": max(bound_ms(nbytes),
-                                3 * flops / TF32_FLOP_PER_S * 1e3),
+         "bound_by": ("operations" if ops_s > nbytes / HBM_BYTES_PER_S
+                      else "bytes"),
          "bound_fma_ms": max(bound_ms(nbytes),
                              flops / F32_FLOP_PER_S * 1e3),
+         "s_fma_ms": flops / 2 / F32_FLOP_PER_S * 1e3,
          "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
              qt, kt, vt, is_causal=causal, enable_gqa=H != KH), iters=5),
          "max_abs_err": err, "flops": flops, "bytes": nbytes,
@@ -1565,9 +1562,9 @@ def time_f32_entries() -> dict:
         plain_ms=time_ms(lambda: ref.ssd_scan(xh, bv, cv, dt, a), iters=3,
                          warmup=1),
         bound_ms=max(bound_ms(nbytes), split_flops / BF16_FLOP_PER_S * 1e3),
-        bound_by=("operations (three bf16 mma.sync products a product)"
+        bound_by=("operations"
                   if split_flops / BF16_FLOP_PER_S > nbytes / HBM_BYTES_PER_S
-                  else "bytes (f32 x, y, B, C, dt, a and the state once)"),
+                  else "bytes"),
         bound_recurrence_ms=max(bound_ms(nbytes), 4 * B * S * H * P * N
                                 / F32_FLOP_PER_S * 1e3),
         library_ms=None, max_abs_err=err, state_max_abs_err=serr,
@@ -2891,6 +2888,15 @@ def phase_train(quick: bool, record: dict):
     if not (finite and math.isfinite(float(m["loss"]))):
         failures.append("glm4 grad step not finite")
     _hold_train_checks(gcfg.name, glayers, gchk, layers, failures)
+    # flash_f32 takes S by in-order fmas, the plain f32 product (cuBLAS's)
+    # bit for bit, and the f32 gradient check above passes no other
+    # rounding of S at glm4's init: the f32 losses must then be equal
+    lk, lp = gchk["f32"]["loss"]
+    if lk != lp:
+        failures.append(f"glm4 f32 loss {lk} on the kernel path is not the "
+                        f"plain path's {lp}: flash_f32's S no longer equals "
+                        f"the plain f32 product bit for bit (has the plain "
+                        f"product's summation order changed?)")
     emit("train_glm4_grad", arch=gcfg.name, layers=layers, batch=gb,
          seq=gs, params=nparams, step_s=step_s, peak_bytes=peak,
          step_loss=float(m["loss"]), launches=launches,

@@ -65,6 +65,11 @@
 //     the f32 gradient check of chip_smoke.py's phase train (2 glm4
 //     layers, held within 2^-8) then reads 0.012, even for S computed in
 //     f64 and rounded once; S as three TF32 MMAs a product reads the same.
+//     So the body rests on the plain product's summation order (cuBLAS's
+//     at these shapes): phase train asserts that glm4's f32 losses on the
+//     two paths are equal, so that a change of that order fails there by
+//     name.  Once the check holds sound roundings of S, S goes back to
+//     3xTF32 (ROADMAP.md, faults of the checks).
 //     O += P.V is three TF32 MMAs a product (the error-compensated
 //     "3xTF32" product): P (after the exp) and V are split into hi =
 //     TF32(x) and lo = TF32(x - hi), both rounded as cvt.rna.tf32.f32
@@ -99,9 +104,10 @@
 //     99 KB at DP = 128 and 70 KB at DP = 64: two blocks an SM (at DP =
 //     64 a lane's registers bound it).  Query tiles run longest first, heads fastest unless one
 //     batch row's K and V pass half the L2 (as flash_bf16).
-//     Bound: S's fmas at 67 TFLOP/s (a glm4 layer: 275 GFLOP, 4.10 ms),
-//     beside which P.V's three TF32 products at 495 TFLOP/s (1.67 ms) can
-//     run on the tensor cores.
+//     Bound: both products as three TF32 products at 495 TFLOP/s, the
+//     f32-accurate work the card can do (a glm4 layer: 3 x 550 GFLOP,
+//     3.33 ms).  S's fmas alone take 4.10 ms at 67 TFLOP/s, which keeps
+//     this body from that bound.
 #include <cuda.h>             // CUtensorMap and its enums (no -lcuda: the
                               // encoder is found at run time)
 #include <cuda_bf16.h>

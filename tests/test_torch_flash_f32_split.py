@@ -10,7 +10,8 @@ rounding of ``cvt.rna.tf32.f32``), and lo = TF32(x - hi), and p.v is taken
 as hi.hi + hi.lo + lo.hi.  It walks key tiles of 64 rows with an online
 softmax in natural units and masks after the product.  :func:`emulate`
 repeats that arithmetic (TF32 rounding by bit masking, every product
-summed in f32); the kernel itself runs on the card only.  On the same
+summed in f32; S summed in the CPU's order, not the kernel's); the
+kernel itself runs on the card only.  On the same
 numpy inputs it holds JAX's reference within 2e-5, the tolerance
 ``chip_smoke.py`` holds the kernel to, over the f32 cases of its
 ``FLASH_SWEEP`` and ``CROSS_SWEEP`` that the CPU runs in a few seconds; a
@@ -58,8 +59,11 @@ def product(a: torch.Tensor, b: torch.Tensor, passes: int) -> torch.Tensor:
 def emulate(q, k, v, *, causal=True, passes=3, s_passes=None):
     """flash_f32's arithmetic on (B, S, H, D) q and (B, T, KH, D) k, v
     (f32 tensors); head h reads kv head h // (H // KH).  ``passes``: TF32
-    products a product of P.V; ``s_passes``: of S too (None: S is the
-    plain f32 product, as the kernel takes it)."""
+    products a product of P.V; ``s_passes``: of S too (None: S as a CPU
+    f32 product, whose blocked sums are not the kernel's in-order fmas, so
+    S is emulated only to within the tolerance: that the kernel's S equals
+    the plain product bit for bit is held on the card, by phase train's
+    equal f32 losses in ``chip_smoke.py``)."""
     B, S, H, D = q.shape
     T, KH = k.shape[1], k.shape[2]
     qh = q.transpose(1, 2)                                       # B H S D
