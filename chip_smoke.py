@@ -10,7 +10,8 @@ exits non-zero:
            for sm_90a, one process per source, all at once; the flash
            library's SASS must hold HGMMA and UTMALDG (the bf16 body's
            wgmma and TMA loads), and the SASS of flash_f32 and of
-           ssd_chunk_f32 HMMA (the f32 entries' mma.sync products)
+           ssd_chunk_f32 HMMA (the f32 entries' mma.sync products), each
+           flash_f32 instance twice its P.V's (S on the tensor cores too)
   kernels  each hand-written kernel held against its plain PyTorch
            version over a sweep of shapes (bit-exact; the scatter with the
            rank's counts, at row widths of every body: narrow, medium,
@@ -135,9 +136,10 @@ exits non-zero:
            and to the same query on one shard (RRJ also to the plain
            path), with times and peak memory
   train    the rank and the scatter at a parameter-server push's shapes
-           (4 rows of 23.4 M and of 92 M lanes) against their plain
-           versions, timed, and the scatter against index_copy_ in
-           PS_ROUNDS interleaved rounds; the trainer (src/repro_torch/bench/train.py)
+           (4 rows of 23.4 M and of 92 M lanes) and at RDMA-AGG's flush at
+           G = 2^26 (4 rows of 2^26 lanes; 16 of 2^24 into 4 buckets, a
+           shard's at n = 4) against their plain versions, timed, and the
+           scatter against index_copy_ in PS_ROUNDS interleaved rounds; the trainer (src/repro_torch/bench/train.py)
            at mamba2-370m's full config, f32 masters from seed 0, AdamW, SyntheticLM
            batches of 8 x 2048, through Trainer.run in three sync modes:
            allreduce (6 steps), raw paramserver(staleness=0) (6 steps,
@@ -148,7 +150,8 @@ exits non-zero:
            where its device time goes; then, on the first batch, every
            layer's bf16 kernel against its plain version at the training
            shapes within ROW_TOL, and the gradients on the kernel path
-           against the plain path, leaf by leaf, in f32 within GRAD_TOL
+           against the plain path, leaf by leaf, in f32 within
+           max(GRAD_TOL, 2 x the spread of sound roundings of S)
            (a faulty plain path above both limits) and in bf16 within
            each leaf's spread of bf16 rounding, for mamba2-370m and
            for glm4-9b at full width cut to 2 layers (B 1, S 4096: one
@@ -179,9 +182,9 @@ exits non-zero:
 
 The kernels' f32 entries, which no timed path runs, are timed in phase
 kernels at the f32 witnesses' shapes: flash_f32 (causal and non-causal
-apart; S by fmas on the CUDA cores, P.V by 3xTF32 products on mma.sync,
-bound by both products as three TF32 products at 495 TFLOP/s, the
-earlier FMA bound and S's fmas alone at 67 TFLOP/s beside it) and
+apart; S and P.V by 3xTF32 products on mma.sync, bound by both products
+as three TF32 products at 495 TFLOP/s, the earlier FMA bound at 67
+TFLOP/s beside it) and
 ssd_chunk_f32 (the chunked SSD on mma.sync with x, B and C split into
 bf16 parts, bound by its bytes, the split products at 989 TFLOP/s and
 the recurrence's FMA bound beside them).  Their launches are counted where serve's and xattn's
@@ -266,9 +269,11 @@ PS_ROUNDS, PS_CALLS = 3, 50     # the PS push's scatter against index_copy_:
                                  # rounds in turns, calls a round
 GRAD_TOL = 2 ** -8       # kernel vs plain path gradients, f32 masters and
                          # f32 activations: rms(diff) / rms(plain) per
-                         # leaf, the worst leaf (on an H100: sound 2.4e-5
-                         # and 2.3e-4, faulty controls 0.034 and 0.90, for
-                         # mamba2-370m and glm4-9b)
+                         # leaf, the worst leaf; the floor of the limit,
+                         # which is twice the spread of sound roundings of
+                         # S where that is larger (_grad_check; on an
+                         # H100 mamba2-370m read 2.6e-5, faulty control
+                         # 0.034, glm4-9b's control 0.90)
 GLM_GRAD = ("glm4-9b", 2, 1, 4096)   # arch, layers, batch, seq
 SCALE_TXNS = 64          # fig_scale at the oltp store: transactions a
                          # worker, so T = 4096 at W = 64 (the oltp wave)
@@ -414,14 +419,17 @@ def device_ms(fn, kernels, *, setup=None, iters=20) -> float:
     """Mean device milliseconds per call of ``fn()`` spent in the named
     kernels and in fills (:func:`device_events`): the kernel's own time,
     without the host work of its wrapper.  ``setup()`` runs before each
-    call; its copies are not counted."""
-    us = sum(e.time_range.elapsed_us()
-             for e in device_events(fn, setup=setup, iters=iters)
-             if e.name.startswith("Memset")
-             or any(f"::{k}{c}" in e.name for k in kernels for c in "(<"))
-    if us == 0:
-        raise AssertionError(f"the profiler saw none of {kernels}")
-    return us / 1e3 / iters
+    call; its copies are not counted.  A trace that holds none of the
+    kernels is taken again once (on an H100 machine one trace of ten rank
+    calls lost all their records)."""
+    for _ in range(2):       # a trace that lost every record, once more
+        us = sum(e.time_range.elapsed_us()
+                 for e in device_events(fn, setup=setup, iters=iters)
+                 if e.name.startswith("Memset")
+                 or any(f"::{k}{c}" in e.name for k in kernels for c in "(<"))
+        if us > 0:
+            return us / 1e3 / iters
+    raise AssertionError(f"the profiler saw none of {kernels}, twice")
 
 
 def host_ms(fn, *, setup=None, iters=50, warmup=5) -> float:
@@ -523,20 +531,32 @@ def phase_build():
              for name, log in report.items()}
     # the bf16 flash body is wgmma fed by TMA, and the f32 entries run
     # their products on the tensor cores (mma.sync: HMMA), or the build
-    # fails
+    # fails.  flash_f32 takes S = Q.K^T and P.V alike as 3 MMAs a product
+    # of 8 keys x 8 columns of d (the loops unrolled): each instance needs
+    # twice the HMMA of its P.V alone, or S left the tensor cores
+    from repro_torch.kernels import flash_attention as fa
     flash_sass = sass_counts("flash_attention")
-    f32_sass = {"flash_f32": sass_counts("flash_attention", ("HMMA",),
-                                         fun="flash_f32"),
-                "ssd_chunk_f32": sass_counts("ssd_scan", ("HMMA",),
+    f32_sass = {"ssd_chunk_f32": sass_counts("ssd_scan", ("HMMA",),
                                              fun="ssd_chunk_f32")}
+    f32_need = {}
+    for dp, bk in fa.F32_TILE_KEYS.items():
+        name = f"flash_f32<{dp}>"
+        f32_sass[name] = sass_counts("flash_attention", ("HMMA", "FFMA"),
+                                     fun=f"flash_f32ILi{dp}E")
+        f32_need[name] = 2 * 3 * (bk // 8) * (dp // 8)
     emit("build", seconds=secs, sources=list(report), ptxas=ptxas,
-         flash_sass=flash_sass, f32_sass=f32_sass,
+         flash_sass=flash_sass, f32_sass=f32_sass, f32_hmma_needed=f32_need,
          dir=str(build.BUILD_DIR.relative_to(ROOT)))
     if not all(flash_sass.values()):
         raise AssertionError(f"flash_attention's SASS lacks an instruction "
                              f"of its design: {flash_sass}")
     if not all(c["HMMA"] for c in f32_sass.values()):
         raise AssertionError(f"an f32 entry's SASS has no HMMA: {f32_sass}")
+    short = {k: f32_sass[k]["HMMA"] for k, n in f32_need.items()
+             if f32_sass[k]["HMMA"] < n}
+    if short:
+        raise AssertionError(f"flash_f32's S is not on the tensor cores: "
+                             f"HMMA {short}, needed {f32_need}")
 
 
 def _rand_dest(g, A, n, dev):
@@ -546,49 +566,59 @@ def _rand_dest(g, A, n, dev):
                          dtype=torch.int32)
 
 
+WIDE_WIDTHS = (2000, 2001, 2002, 5003)   # scatter_wide's rows: w + 1 is
+                                         # 1, 2, 3 and 0 mod 4
+
+
 def check_radix(quick: bool, stats: dict):
     """rank + scatter bit-exact against ref over the sweep, then the rank
-    alone at RANK_WIDE_A requests into 8 and 64 buckets."""
+    alone at RANK_WIDE_A requests into 8 and 64 buckets.  The wide body's
+    widths (WIDE_WIDTHS: every alignment of w + 1) also take rows whose
+    base is one int past a 16-byte boundary (a view at an offset)."""
     import torch
     from repro_torch.kernels import radix_partition as rp, ref
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(11)
     sizes = (1, 1000) if quick else (1, 1000, 1 << 20)
     cases = 0
-    for A in sizes:
-        for w in (1, 5, 261) + ((2000, 5003) if A <= 1000 else ()):
-            rows = torch.randint(-2 ** 31, 2 ** 31 - 1, (A, w), generator=g,
-                                 device=dev, dtype=torch.int32)
-            mask = torch.rand((A,), generator=g, device=dev) < 0.7
-            for n in (1, 8, 64):
-                dest = _rand_dest(g, A, n, dev)
-                inb = dest[(dest >= 0) & (dest < n)].to(torch.int64)
-                most = int(torch.bincount(inb, minlength=n).max()) if \
-                    inb.numel() else 0
-                for cap in sorted({max(most, 1), max(most // 2, 1)}):
-                    got = rp.rank(dest, n, cap)
-                    want = ref.rank(dest, n, cap)
-                    for x, y, what in zip(got, want, ("slot", "keep",
-                                                      "overflow", "counts")):
-                        if not torch.equal(x, y):
-                            raise AssertionError(
-                                f"radix rank {what} differs: A={A} n={n} "
-                                f"cap={cap}")
-                    stats["rank"] = max(stats["rank"], _err(got[0], want[0]))
-                    for m in (None, mask):
-                        kb = rp.scatter(rows, got[0], n * cap,
-                                        counts=got[3], mask=m)
-                        pb = ref.scatter(rows, got[0], n * cap,
-                                         counts=got[3], mask=m)
-                        if not torch.equal(kb, pb):
-                            raise AssertionError(
-                                f"radix scatter differs: A={A} n={n} "
-                                f"cap={cap} w={w} mask={m is not None}")
-                        stats["scatter"] = max(stats["scatter"], _err(kb, pb))
-                        cases += 1
-                    del kb, pb
-            del rows
-            torch.cuda.empty_cache()
+    for A, w, off in [(A, w, off) for A in sizes
+                      for w in (1, 5, 261) + (WIDE_WIDTHS if A <= 1000
+                                              else ())
+                      for off in ((0, 1) if w in WIDE_WIDTHS else (0,))]:
+        rows = torch.randint(-2 ** 31, 2 ** 31 - 1, (A * w + off,),
+                             generator=g, device=dev,
+                             dtype=torch.int32)[off:].view(A, w)
+        mask = torch.rand((A,), generator=g, device=dev) < 0.7
+        for n in (1, 8, 64):
+            dest = _rand_dest(g, A, n, dev)
+            inb = dest[(dest >= 0) & (dest < n)].to(torch.int64)
+            most = int(torch.bincount(inb, minlength=n).max()) if \
+                inb.numel() else 0
+            for cap in sorted({max(most, 1), max(most // 2, 1)}):
+                got = rp.rank(dest, n, cap)
+                want = ref.rank(dest, n, cap)
+                for x, y, what in zip(got, want, ("slot", "keep",
+                                                  "overflow", "counts")):
+                    if not torch.equal(x, y):
+                        raise AssertionError(
+                            f"radix rank {what} differs: A={A} n={n} "
+                            f"cap={cap}")
+                stats["rank"] = max(stats["rank"], _err(got[0], want[0]))
+                for m in (None, mask):
+                    kb = rp.scatter(rows, got[0], n * cap,
+                                    counts=got[3], mask=m)
+                    pb = ref.scatter(rows, got[0], n * cap,
+                                     counts=got[3], mask=m)
+                    if not torch.equal(kb, pb):
+                        raise AssertionError(
+                            f"radix scatter differs: A={A} n={n} "
+                            f"cap={cap} w={w} offset={off} "
+                            f"mask={m is not None}")
+                    stats["scatter"] = max(stats["scatter"], _err(kb, pb))
+                    cases += 1
+                del kb, pb
+        del rows
+        torch.cuda.empty_cache()
     # the rank alone at RANK_WIDE_A requests: more blocks than the scan
     # over blocks has threads, in every bucket's column
     for n in (8, 64):
@@ -1469,9 +1499,7 @@ def _f32_flash_times(q, k, v, causal: bool) -> dict:
     inputs.  Bound: the larger of the bytes and both products as three TF32
     products at 495 TFLOP/s (the f32-accurate work the card can do);
     beside it ``bound_fma_ms`` (both products at 67 TFLOP/s, the earlier
-    FMA body's bound) and ``s_fma_ms``, the time S's fmas alone take at 67
-    TFLOP/s: this body runs S on the CUDA cores (see flash_attention.cu),
-    which keeps it from its bound."""
+    FMA body's bound)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa, ref
@@ -1500,7 +1528,6 @@ def _f32_flash_times(q, k, v, causal: bool) -> dict:
                       else "bytes"),
          "bound_fma_ms": max(bound_ms(nbytes),
                              flops / F32_FLOP_PER_S * 1e3),
-         "s_fma_ms": flops / 2 / F32_FLOP_PER_S * 1e3,
          "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
              qt, kt, vt, is_causal=causal, enable_gqa=H != KH), iters=5),
          "max_abs_err": err, "flops": flops, "bytes": nbytes,
@@ -1512,7 +1539,7 @@ def _f32_flash_times(q, k, v, causal: bool) -> dict:
 
 
 def time_f32_entries() -> dict:
-    """The f32 entries of flash_attention (``flash_f32``: S by fmas, P.V by
+    """The f32 entries of flash_attention (``flash_f32``: S and P.V by
     3xTF32 products on mma.sync) and ssd_scan (``ssd_chunk_f32``: the
     chunked SSD on mma.sync, x, B and C split into bf16 parts) at the
     shapes of the f32 full-depth witnesses (FLASH_PATH and SSD_PATH in
@@ -2244,6 +2271,57 @@ def faulty_plain(kernel: str):
         setattr(ops, kernel, orig)
 
 
+def _scores(q, k):
+    """Unscaled scores (B, K, G, c, T) of a chunk of chunked attention."""
+    import torch
+    return torch.einsum("bckgd,btkd->bkgct", q, k)
+
+
+def _halves(q, k):
+    h = q.shape[-1] // 2
+    return _scores(q[..., :h], k[..., :h]) + _scores(q[..., h:], k[..., h:])
+
+
+# S = Q.K^T of f32 q and k, rounded other sound ways than the plain f32
+# product's: each score summed in f64 and rounded once to f32; d summed
+# from D - 1 down to 0; each half of d summed apart, then the halves added
+SOUND_S = {"f64": lambda q, k: _scores(q.double(), k.double()).float(),
+           "reversed": lambda q, k: _scores(q.flip(-1), k.flip(-1)),
+           "halves": _halves}
+
+
+@contextlib.contextmanager
+def sound_plain(kernel: str, variant: str):
+    """Within the block, ``ops.flash_attention`` with impl="plain" runs
+    the function the plain path differentiates (``attention.
+    chunked_attend``) with S = Q.K^T rounded another sound way
+    (``SOUND_S[variant]``), with and without autograd; the kernel path is
+    left alone.  Each variant is the plain path's function to f32
+    precision (``tests/test_torch_flash_f32_split.py`` holds it to JAX's
+    reference), so the gradient check's reading between a variant and the
+    plain path is a spread that sound f32 arithmetic alone gives."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import attention
+    if kernel != "flash_attention":
+        raise ValueError(f"no sound variants of {kernel}: it has no S")
+    orig, scores = ops.flash_attention, SOUND_S[variant]
+
+    def patched(q, k, v, *, causal=True, impl=None, backward=None):
+        if impl != "plain":
+            return orig(q, k, v, causal=causal, impl=impl,
+                        backward=backward)
+        B, S, H, hd = q.shape
+        K = k.shape[2]
+        out = attention.chunked_attend(q.reshape(B, S, K, H // K, hd), k, v,
+                                       causal=causal, scores=scores)
+        return out.reshape(B, S, H, v.shape[-1])
+    ops.flash_attention = patched
+    try:
+        yield
+    finally:
+        ops.flash_attention = orig
+
+
 def phase_serve(quick: bool, record: dict):
     """Each model at its full published config (--quick: 4 layers, S=1024)
     through src/repro_torch/bench/serve.py.  Every timed prefill step must
@@ -2603,8 +2681,14 @@ def _grad_check(cfg, params, batch, kernel: str) -> dict:
     path's launches here are a comparison's and count on no path.
 
     * ``f32``: both paths with f32 activations (the kernels' f32 entries):
-      the autograd Functions' plumbing, held within GRAD_TOL; a faulty
-      plain path (``faulty_plain``) must read above it.
+      the autograd Functions' plumbing, held within ``limit`` = max(GRAD_TOL,
+      2 ``spread``); a faulty plain path (``faulty_plain``) must read above
+      it.  ``spread``: for flash_attention, the largest reading of the
+      plain path with S rounded another sound way (``sound_plain``, each
+      of SOUND_S: ``sound``) against the plain path; 0 for ssd_scan, which
+      has no S.  At glm4's reference init (scaled scores of rms ~500) every
+      sound rounding of S reads ~0.01 here, so GRAD_TOL alone would pass
+      only the plain product's own summation order.
     * ``bf16``: bf16 activations, as training runs.  Each leaf's kernel
       path reading must lie within that leaf's ``rounding``: the plain
       path's bf16 gradient against its f32 gradient, the spread bf16
@@ -2634,7 +2718,16 @@ def _grad_check(cfg, params, batch, kernel: str) -> dict:
         gp32, lp, np_ = grads(impl="plain")
         chk = bt.leaf_check(gk, gp32)
         f32 = {"max": chk["max"], "worst_leaf": names[chk["worst_leaf"]],
-               "loss": [lk, lp], "grad_norm": [nk, np_]}
+               "loss": [lk, lp], "grad_norm": [nk, np_], "sound": {}}
+        if kernel == "flash_attention":
+            for variant in SOUND_S:
+                with sound_plain(kernel, variant):
+                    gv, _, _ = grads(impl="plain")
+                f32["sound"][variant] = bt.leaf_check(gv, gp32)["max"]
+                del gv
+                torch.cuda.empty_cache()
+        f32["spread"] = max(f32["sound"].values(), default=0.0)
+        f32["limit"] = max(GRAD_TOL, 2 * f32["spread"])
         with faulty_plain(kernel):
             gf, _, _ = grads(impl="plain")
         f32["control"] = bt.leaf_check(gk, gf)["max"]
@@ -2676,12 +2769,13 @@ def _hold_train_checks(name: str, layers: dict, chk: dict, nlayers: int,
         failures.append(f"{name} layer check read {layers['control']} on a "
                         f"faulty plain path, not above {ROW_TOL}")
     f32, bf16 = chk["f32"], chk["bf16"]
-    if not f32["max"] <= GRAD_TOL:
+    if not f32["max"] <= f32["limit"]:
         failures.append(f"{name} f32 gradients differ from the plain "
-                        f"path's by {f32['max']} > {GRAD_TOL}")
-    if not f32["control"] > GRAD_TOL:
+                        f"path's by {f32['max']} > {f32['limit']} (sound "
+                        f"roundings of S: {f32['sound']})")
+    if not f32["control"] > f32["limit"]:
         failures.append(f"{name} f32 gradient check read {f32['control']} "
-                        f"on a faulty plain path, not above {GRAD_TOL}")
+                        f"on a faulty plain path, not above {f32['limit']}")
     if not bf16["max_ratio"] <= 1:
         failures.append(f"{name} bf16 gradient of {bf16['worst_leaf']} "
                         f"differs from the plain path's by "
@@ -2690,13 +2784,15 @@ def _hold_train_checks(name: str, layers: dict, chk: dict, nlayers: int,
 
 
 def check_ps_route(cfg, stats: dict) -> dict:
-    """The rank and the scatter at a PS push's shapes for ``cfg`` (S = 4
-    rows of the compressed payload's L/4 + L/256 lanes, and of the raw
-    payload's L lanes): bit-exact against ref, then timed beside the
-    plain version and the bytes bound (rows read once, the buffer written
-    once), and against index_copy_ in PS_ROUNDS turns of PS_CALLS calls
-    each (``interleaved``: per-call medians of each round, and the ratio
-    of their medians).  No earlier path routes rows this wide."""
+    """The rank and the scatter at the wide body's path shapes: a PS
+    push for ``cfg`` (S = 4 rows of the compressed payload's L/4 + L/256
+    lanes, and of the raw payload's L lanes) and RDMA-AGG's flush at G =
+    2^26 (4 rows of G lanes into one bucket; on 4 shards a shard's 16 rows
+    of G/4 into 4 buckets, slots out of arrival order): bit-exact against
+    ref, then timed beside the plain version and the bytes bound (rows
+    read once, the buffer written once), and against index_copy_ in
+    PS_ROUNDS turns of PS_CALLS calls each (``interleaved``: per-call
+    medians of each round, and the ratio of their medians)."""
     import torch
     from repro_torch.analytics import row_layout
     from repro_torch.kernels import radix_partition as rp, ref
@@ -2705,45 +2801,61 @@ def check_ps_route(cfg, stats: dict) -> dict:
     g = torch.Generator(device=dev).manual_seed(17)
     S, L = row_layout(sum(math.prod(s) for s in
                           _leaves(api.param_shapes(cfg))))
+    G = 1 << 26
+    push = torch.zeros((S,), dtype=torch.int32, device=dev)
+    flush4 = torch.arange(SHARDS, dtype=torch.int32, device=dev).repeat(4)
+    # name: (dest, n, cap, w)
+    shapes = {"compressed": (push, 1, S, L // 4 + L // 256),
+              "raw": (push, 1, S, L),
+              "rdma_agg_flush": (torch.zeros((4,), dtype=torch.int32,
+                                             device=dev), 1, 4, G),
+              "rdma_agg_flush_4_shards": (flush4, SHARDS, 4, G // SHARDS)}
     out = {}
-    dest = torch.zeros((S,), dtype=torch.int32, device=dev)
-    got = rp.rank(dest, 1, S)
-    for x, y in zip(got, ref.rank(dest, 1, S)):
-        if not torch.equal(x, y):
-            raise AssertionError(f"radix rank differs at the PS push: A={S}")
-    slot, counts = got[0], got[3]
-    for name, w in (("compressed", L // 4 + L // 256), ("raw", L)):
-        rows = torch.randint(-2 ** 31, 2 ** 31 - 1, (S, w), generator=g,
+    for name, (dest, n, cap, w) in shapes.items():
+        A = dest.shape[0]
+        got = rp.rank(dest, n, cap)
+        for x, y in zip(got, ref.rank(dest, n, cap)):
+            if not torch.equal(x, y):
+                raise AssertionError(f"radix rank differs at {name}: A={A}")
+        slot, counts = got[0], got[3]
+        rows = torch.randint(-2 ** 31, 2 ** 31 - 1, (A, w), generator=g,
                              device=dev, dtype=torch.int32)
-        kb = rp.scatter(rows, slot, S, counts=counts)
-        pb = ref.scatter(rows, slot, S, counts=counts)
+        kb = rp.scatter(rows, slot, n * cap, counts=counts)
+        pb = ref.scatter(rows, slot, n * cap, counts=counts)
         if not torch.equal(kb, pb):
-            raise AssertionError(f"radix scatter differs at the {name} PS "
-                                 f"push: A={S} w={w}")
+            raise AssertionError(f"radix scatter differs at {name}: A={A} "
+                                 f"w={w}")
         stats["scatter"] = max(stats["scatter"], _err(kb, pb))
         del kb, pb
         # the nearest PyTorch call: index_copy_ of the rows with their
         # valid lane into the wire buffer, at the rank's slots
-        wide = torch.cat([rows, torch.ones((S, 1), dtype=torch.int32,
+        wide = torch.cat([rows, torch.ones((A, 1), dtype=torch.int32,
                                            device=dev)], 1)
-        buf = torch.zeros((S, w + 1), dtype=torch.int32, device=dev)
+        buf = torch.zeros((n * cap, w + 1), dtype=torch.int32, device=dev)
         slot64 = slot.to(torch.int64)
 
         def lib_copy():
             return buf.index_copy_(0, slot64, wide)
 
         def scatter():
-            return rp.scatter(rows, slot, S, counts=counts)
+            return rp.scatter(rows, slot, n * cap, counts=counts)
+        # the card's copy rate at these bytes: the rows copied as they are
+        flat = rows.view(-1)
+        copy = torch.empty_like(flat)
         out[name] = {
-            "A": S, "w": w,
-            "ms": time_ms(scatter, iters=10),
+            "A": A, "w": w, "n": n, "cap": cap,
+            "ms": time_ms(scatter, iters=PS_CALLS),
+            "device_ms": device_ms(scatter, rp.KERNELS["scatter"], iters=5),
             "host_ms": host_ms(scatter, iters=20),
-            "plain_ms": time_ms(lambda: ref.scatter(rows, slot, S,
+            "plain_ms": time_ms(lambda: ref.scatter(rows, slot, n * cap,
                                                     counts=counts), iters=5),
-            "bound_ms": bound_ms(S * w * 4 + S * 4 + S * (w + 1) * 4),
+            "bound_ms": bound_ms(A * w * 4 + A * 4
+                                 + n * cap * (w + 1) * 4),
             "bound_by": "bytes",
             "library_ms": time_ms(lib_copy, iters=10),
-            "library_host_ms": host_ms(lib_copy, iters=20)}
+            "library_host_ms": host_ms(lib_copy, iters=20),
+            "copy_ms": time_ms(lambda: copy.copy_(flat), iters=10)}
+        out[name]["bound_share"] = out[name]["bound_ms"] / out[name]["ms"]
         # the factor over index_copy_, settled: PS_ROUNDS rounds of
         # PS_CALLS calls of each, in turns (kernel, library, kernel, ...)
         turns = {"kernel_ms": [], "library_ms": []}
@@ -2753,7 +2865,7 @@ def check_ps_route(cfg, stats: dict) -> dict:
         turns["factor"] = (statistics.median(turns["kernel_ms"])
                            / statistics.median(turns["library_ms"]))
         out[name]["interleaved"] = turns
-        del rows, wide, buf
+        del rows, wide, buf, flat, copy
         torch.cuda.empty_cache()
     return out
 
@@ -2773,8 +2885,9 @@ def phase_train(quick: bool, record: dict):
     trainer's first batch, the layer check (every layer's bf16 kernel
     against its plain version at the training shapes within ROW_TOL, a
     faulty plain path above it) and the gradient check (kernel vs plain
-    path in f32 within GRAD_TOL, a faulty plain path above it; in bf16
-    within the spread of bf16 rounding, leaf by leaf), Fig 9 on the card
+    path in f32 within max(GRAD_TOL, twice the spread that other sound
+    roundings of S give the plain path), a faulty plain path above it; in
+    bf16 within the spread of bf16 rounding, leaf by leaf), Fig 9 on the card
     (its rows equal to the CPU's), and glm4-9b at full width cut to 2
     layers: one build_grad_step on the kernel path (flash_attention twice
     a layer: forward and recompute) and the same two checks.  Each phase
@@ -2842,7 +2955,8 @@ def phase_train(quick: bool, record: dict):
     emit("train_grad_check", arch=cfg.name, layers=cfg.num_layers,
          batch=TRAIN_BATCH, seq=seq, parity_rel=parity,
          parity_rtol=PARITY_RTOL, layer_check=layers,
-         layer_check_held_to=ROW_TOL, held_to=GRAD_TOL, **chk, gpu=smi())
+         layer_check_held_to=ROW_TOL, held_to=chk["f32"]["limit"], **chk,
+         gpu=smi())
     # Fig 9 at the reference's sizes on the card: its rows depend on the
     # schedule and the counters, not on values, so they equal the CPU's
     from repro_torch.bench import fig9_ml
@@ -2888,20 +3002,11 @@ def phase_train(quick: bool, record: dict):
     if not (finite and math.isfinite(float(m["loss"]))):
         failures.append("glm4 grad step not finite")
     _hold_train_checks(gcfg.name, glayers, gchk, layers, failures)
-    # flash_f32 takes S by in-order fmas, the plain f32 product (cuBLAS's)
-    # bit for bit, and the f32 gradient check above passes no other
-    # rounding of S at glm4's init: the f32 losses must then be equal
-    lk, lp = gchk["f32"]["loss"]
-    if lk != lp:
-        failures.append(f"glm4 f32 loss {lk} on the kernel path is not the "
-                        f"plain path's {lp}: flash_f32's S no longer equals "
-                        f"the plain f32 product bit for bit (has the plain "
-                        f"product's summation order changed?)")
     emit("train_glm4_grad", arch=gcfg.name, layers=layers, batch=gb,
          seq=gs, params=nparams, step_s=step_s, peak_bytes=peak,
          step_loss=float(m["loss"]), launches=launches,
          layer_check=glayers, layer_check_held_to=ROW_TOL,
-         held_to=GRAD_TOL, **gchk,
+         held_to=gchk["f32"]["limit"], **gchk,
          failures=failures, seconds=time.perf_counter() - t0, gpu=smi())
     if failures:
         raise AssertionError("train: " + "; ".join(failures))

@@ -54,60 +54,52 @@
 //     tile, 21 GB a layer).
 //     Each consumer runs a tile's S, softmax and P.V in order, waiting on
 //     each product; the two consumers' phases interleave on the SM.
-//   f32 (flash_f32): the same function in f32, P.V on the tensor cores.
-//     S = Q.K^T runs on the CUDA cores: each score is one chain of f32
-//     fmas over d in order from 0, as the plain version's f32 product
-//     (cuBLAS) sums it, so S is that product bit for bit, scaled by D^-0.5
-//     as the plain version scales it; the softmax takes exp in natural
-//     units, as the plain version does.  No other rounding of S will do:
-//     glm4's reference init gives scaled scores of rms ~500 (up to
-//     ~2900), where one ulp of a score moves a probability by ~1e-4, and
-//     the f32 gradient check of chip_smoke.py's phase train (2 glm4
-//     layers, held within 2^-8) then reads 0.012, even for S computed in
-//     f64 and rounded once; S as three TF32 MMAs a product reads the same.
-//     So the body rests on the plain product's summation order (cuBLAS's
-//     at these shapes): phase train asserts that glm4's f32 losses on the
-//     two paths are equal, so that a change of that order fails there by
-//     name.  Once the check holds sound roundings of S, S goes back to
-//     3xTF32 (ROADMAP.md, faults of the checks).
-//     O += P.V is three TF32 MMAs a product (the error-compensated
-//     "3xTF32" product): P (after the exp) and V are split into hi =
-//     TF32(x) and lo = TF32(x - hi), both rounded as cvt.rna.tf32.f32
-//     rounds (to nearest, ties away; done as an integer add and mask) and
-//     x - hi exact in f32, and p.v is taken as hi.hi + hi.lo + lo.hi, every
+//   f32 (flash_f32): the same function in f32, both products on the
+//     tensor cores as three TF32 MMAs a product (the error-compensated
+//     "3xTF32" product): each operand x is split into hi = TF32(x) and lo
+//     = TF32(x - hi), both rounded as cvt.rna.tf32.f32 rounds (to nearest,
+//     ties away; done as an integer add and mask) and x - hi exact in f32,
+//     and a.b is taken as hi.lo + lo.hi + hi.hi, small terms first, every
 //     MMA accumulating in f32: about 2^-22 of each product, against f32's
 //     2^-24, which holds the f32 tolerance of 2e-5
 //     (tests/test_torch_flash_f32_split.py emulates it; one TF32 pass is
-//     1e-3 off) and moves glm4's f32 gradients by ~3e-4.  The tensor cores
-//     do not round an accumulation to nearest, and an error that leans one
-//     way grows with the chain, so P.V sums a tile's 64 keys (24 MMAs)
-//     into a fresh accumulator for each 8 columns, added to O by an f32
-//     fma (a glm4 layer's O would otherwise take 3072 MMAs in one
-//     accumulator).
-//     A block is 4 warps on one head's query tile.  Shared-memory loads,
-//     not the fmas, bound S, so a warp owns two m16 tiles of query rows
-//     (32 rows, a 128-row query tile) up to DP = 64, where the registers
-//     allow it: a lane loads 20 Q and K values a d for 64 fmas, not 18 for
-//     32; at DP = 128 a warp owns 16 rows (a 64-row query tile).  A warp
-//     holds S in m16n8k8 accumulators' layout, and the softmax runs there
-//     as in the bf16 body (a row's max and sum over the quad of lanes that
-//     holds it; masks, -inf after the product, only on the diagonal tiles
-//     and the ragged last one).  P's layout is then the A operand of
-//     O += P.V once the keys of each 8-key step are taken in the order
-//     (0, 2, 4, 6, 1, 3, 5, 7), V's B fragments read in that order too, so
-//     P never moves between lanes.  Q, one K tile and one V tile of 64
-//     keys live in shared memory, rows DP + 4 floats apart, with which the
-//     float4 loads of Q and K rows and the scalar loads of V down its keys
-//     (V is MN-major for P.V) are free of bank conflicts.  The two tile
-//     slots form a ring filled by cp.async: K_{j+1} lands while the block
-//     runs the softmax and P.V of tile j, V_{j+1} while it runs S_{j+1}.
-//     99 KB at DP = 128 and 70 KB at DP = 64: two blocks an SM (at DP =
-//     64 a lane's registers bound it).  Query tiles run longest first, heads fastest unless one
+//     1e-3 off).  S = Q.K^T is scaled by D^-0.5 after the product and the
+//     softmax takes exp in natural units, as the plain version does.  S
+//     is not the plain f32 product bit for bit, and glm4's reference init
+//     (scaled scores of rms ~500) turns any rounding of S into gradients
+//     ~1 % apart: chip_smoke.py's phase train holds glm4's f32 gradient
+//     check within twice the spread that other sound roundings of S give
+//     the plain path (S in f64 rounded once, d reversed, d in halves).
+//     The tensor cores do not round an accumulation to nearest, and an
+//     error that leans one way grows with the chain, so P.V sums a tile's
+//     keys into a fresh accumulator for each 8 columns, added to O by an
+//     f32 fma (a glm4 layer's O would otherwise take 3072 MMAs in one
+//     accumulator); S's chain is the 3 DP / 8 MMAs of one score tile.
+//     A block is 8 warps of 16 query rows, a 128-row query tile.  The
+//     block splits Q once, from device memory into shared memory, and
+//     each K tile once, after it lands (cp.async) in a raw slot, into its
+//     split slot.  Both split layouts hold a row's hi and lo in the MMA
+//     fragments' order, so a lane's A or B fragment of a k-step, hi and
+//     lo, is one 16-byte load, free of bank conflicts with the 16-byte
+//     units of odd rows swapped in pairs (no padding); the warps then run
+//     S with no CUDA-core work beside the MMAs.  A warp holds S in
+//     m16n8k8 accumulators' layout, and the softmax runs there as in the
+//     bf16 body (a row's max and sum over the quad of lanes that holds
+//     it; masks, -inf after the product, only on the diagonal tiles and
+//     the ragged last one).  P's layout is then the A operand of O += P.V
+//     once the keys of each 8-key step are taken in the order (0, 2, 4,
+//     6, 1, 3, 5, 7), V's B fragments read raw in that order and split in
+//     registers, so P never moves between lanes.  K tiles (raw and split)
+//     and V tiles of 64 keys up to DP = 64, 48 at DP = 128, where split Q
+//     takes 128 KB: 225.5 KB at DP = 128, 130 KB at 64 (one block an SM),
+//     66 KB at 32 (two).  The raw K slot and the V slot form a ring
+//     filled by cp.async: K_{j+1} lands while the block runs S, the
+//     softmax and P.V of tile j, V_{j+1} while it splits K_{j+1} and runs
+//     S_{j+1}.  Query tiles run longest first, heads fastest unless one
 //     batch row's K and V pass half the L2 (as flash_bf16).
 //     Bound: both products as three TF32 products at 495 TFLOP/s, the
 //     f32-accurate work the card can do (a glm4 layer: 3 x 550 GFLOP,
-//     3.33 ms).  S's fmas alone take 4.10 ms at 67 TFLOP/s, which keeps
-//     this body from that bound.
+//     3.33 ms).
 #include <cuda.h>             // CUtensorMap and its enums (no -lcuda: the
                               // encoder is found at run time)
 #include <cuda_bf16.h>
@@ -120,8 +112,7 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kBK = 64;       // f32: key rows a tile
-constexpr int kThreads = 128; // f32: threads a block
+constexpr int kThreads = 256; // f32: threads a block
 constexpr unsigned kFull = 0xffffffffu;
 
 // ------------------------------------------- bf16, wgmma + TMA ring ------
@@ -657,38 +648,39 @@ flash_bf16(const __grid_constant__ CUtensorMap tq,
 
 // -------------------------------------- f32, 3xTF32 on mma.sync ------
 
-// A warp holds MT m16 tiles of query rows: two up to DP = 64, so each Q
-// and K value a lane loads for S feeds more fmas (20 loads a d for 64
-// fmas, against 18 for 32 with one tile); one at DP = 128, where O's
-// registers leave no room for a second.  A block is 4 warps, BQ query
-// rows.  Rows are DP + 4 floats apart (4 mod 32): the float4 loads of Q
-// and K rows for S and the scalar loads of V down its keys for P.V are
-// then free of bank conflicts.
+// A block is 8 warps of 16 query rows (a 128-row query tile); K and V
+// tiles of BK keys.  Q (split once a block) and each K tile (split once a
+// tile) are kept as TF32 parts in the fragments' order: in a row, the 8
+// columns 8b .. 8b + 7 take 16 words, 4 for each t in 0..3: (hi of 8b + t,
+// hi of 8b + t + 4, lo of 8b + t, lo of 8b + t + 4), so a lane's A or B
+// fragment of a k-step, hi and lo, is one 16-byte load.  Split rows are
+// LS = 2 DP words, the 16-byte units of odd rows swapped in pairs (unit u
+// at u ^ 4: swz), so that the 16-byte loads of two neighbouring rows, and
+// the split's stores, are free of bank conflicts with no padding.  Raw
+// rows are LD = DP + 4 floats apart (4 mod 32): the loads of raw K rows
+// that the split reads and the scalar loads of V down its keys for P.V
+// are then free of bank conflicts too.
 template <int DP>
 struct F32Layout {
-  static constexpr int MT = DP <= 64 ? 2 : 1;
-  static constexpr int BQ = 4 * 16 * MT;     // query rows a block
-  static constexpr int LD = DP + 4;          // floats a row
-  static constexpr int q_tile = BQ * LD;     // floats of the Q tile
-  static constexpr int tile = kBK * LD;      // floats of a K or V tile
-  // Q, then the ring's K slot and V slot
-  static constexpr size_t bytes = sizeof(float) * (q_tile + 2 * tile);
-  static constexpr int min_blocks = DP <= 64 ? 2 : 1;
+  static constexpr int BQ = 128;                  // query rows a block
+  static constexpr int BK = DP <= 64 ? 64 : 48;   // keys a tile
+  static constexpr int NT = BK / 8;               // 8-key steps a tile
+  static constexpr int LD = DP + 4;               // floats a raw row
+  static constexpr int LS = 2 * DP;               // words a split row
+  // split Q, split K, then the ring's raw K slot and V slot
+  static constexpr size_t bytes =
+      sizeof(float) * ((size_t)(BQ + BK) * LS + 2 * BK * LD);
+  static constexpr int min_blocks = bytes <= 113 * 1024 ? 2 : 1;
 };
 
-// s += a . b over four d in order, one rounding each (fma)
-__device__ __forceinline__ void fma4(float& s, const float4& a,
-                                     const float4& b) {
-  s = fmaf(a.x, b.x, s);
-  s = fmaf(a.y, b.y, s);
-  s = fmaf(a.z, b.z, s);
-  s = fmaf(a.w, b.w, s);
-}
+// word w of split row r as stored: 16-byte units of odd rows swapped in
+// pairs
+__device__ __forceinline__ int swz(int r, int w) { return w ^ ((r & 1) << 4); }
 
 // Rows [0, ROWS) of a strided (rows, D) f32 matrix into shared memory
 // with row stride ldd by cp.async, 16 bytes a copy; rows past rows_valid
 // and columns D .. DP - 1 land as zeros.  D is a multiple of 4.
-template <int DP, int ROWS = kBK>
+template <int DP, int ROWS>
 __device__ __forceinline__ void cp_tile(float* dst, int ldd, const float* src,
                                         long long ld_src, int rows_valid,
                                         int D) {
@@ -725,6 +717,28 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
   lo = tf32_rna(x - __uint_as_float(hi));
 }
 
+// (hi a, hi b, lo a, lo b): a split row's 4 words for one t
+__device__ __forceinline__ uint4 split_pair(float a, float b) {
+  uint4 r;
+  split_tf32(a, r.x, r.z);
+  split_tf32(b, r.y, r.w);
+  return r;
+}
+
+// Item i of splitting a tile of DP columns, two values an item: its row
+// r, the raw column c of its first value (the second is c + 4) and the
+// word o of its 4 words in the split row.  A warp's 32 items are 2 rows x
+// 4 column groups x 4 t, so the raw loads r LD + c of a warp hit 32 banks.
+template <int DP>
+__device__ __forceinline__ void split_item(int i, int& r, int& c, int& o) {
+  constexpr int NB4 = DP / 32;
+  const int t = i & 3, rest = i >> 5;
+  const int b = 4 * (rest % NB4) + ((i >> 2) & 3);
+  r = 2 * (rest / NB4) + ((i >> 4) & 1);
+  c = 8 * b + t;
+  o = 16 * b + 4 * t;
+}
+
 // c += a b: m16n8k8, TF32 in, f32 accumulate.  a: (g, t), (g + 8, t),
 // (g, t + 4), (g + 8, t + 4); b: (k t, n g), (k t + 4, n g); c: (g, 2t),
 // (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1); g = lane / 4, t = lane % 4.
@@ -757,11 +771,11 @@ __device__ __forceinline__ void mma_3xtf32(float (&c)[4],
   mma_tf32(c, ah, bh0, bh1);
 }
 
-// One block: BQ query rows of head h (4 warps of 16 MT rows), K and V
-// tiles of 64 keys through a two-slot ring.  A lane holds S in the layout
-// of MT m16n8k8 accumulators: in m16 tile mt, tile nt covers keys
-// 8 nt .. 8 nt + 7 (the lane's rows 16 mt + g and + 8, keys 8 nt + 2t and
-// + 1); tile dt of O columns 8 dt .. 8 dt + 7.
+// One block: BQ query rows of head h (8 warps of 16 rows), K and V tiles
+// of BK keys through a two-slot ring.  A lane holds S in the layout of
+// m16n8k8 accumulators: tile nt covers keys 8 nt .. 8 nt + 7 (the lane's
+// rows g and g + 8 of its warp's 16, keys 8 nt + 2t and + 1); tile dt of
+// O columns 8 dt .. 8 dt + 7.
 template <int DP>
 __global__ void __launch_bounds__(kThreads, F32Layout<DP>::min_blocks)
 flash_f32(const float* __restrict__ q, const float* __restrict__ k,
@@ -769,11 +783,12 @@ flash_f32(const float* __restrict__ q, const float* __restrict__ k,
           int H, int KH, int D, int causal, float scale,
           int tiles_fastest) {
   using L = F32Layout<DP>;
-  constexpr int LD = L::LD, MT = L::MT, BQ = L::BQ;
+  constexpr int LD = L::LD, LS = L::LS, BQ = L::BQ, BK = L::BK, NT = L::NT;
   extern __shared__ __align__(128) unsigned char smem[];
-  float* Qs = reinterpret_cast<float*>(smem);
-  float* Ks = Qs + L::q_tile;
-  float* Vs = Ks + L::tile;
+  uint32_t* Qs = reinterpret_cast<uint32_t*>(smem);
+  uint32_t* Ks = Qs + BQ * LS;
+  float* Kr = reinterpret_cast<float*>(Ks + BK * LS);
+  float* Vs = Kr + BK * LD;
 
   // longest query tile first, in each head (tiles_fastest) or across them
   const int h = tiles_fastest ? blockIdx.y : blockIdx.x, b = blockIdx.z;
@@ -787,178 +802,173 @@ flash_f32(const float* __restrict__ q, const float* __restrict__ k,
   const float* kb = k + (long long)b * T * kv_ld + (long long)kh * D;
   const float* vb = v + (long long)b * T * kv_ld + (long long)kh * D;
   const int kv_end = causal ? min(T, q0 + BQ) : T;
-  const int n_kt = (kv_end + kBK - 1) / kBK;
+  const int n_kt = (kv_end + BK - 1) / BK;
 
-  // groups in flight: {Q}, {K_0}, then {V_0}
-  cp_tile<DP, BQ>(Qs, LD,
-                  q + ((long long)b * S + q0) * q_ld + (long long)h * D,
-                  q_ld, min(BQ, S - q0), D);
-  cp_tile<DP>(Ks, LD, kb, kv_ld, min(kBK, T), D);
-  cp_tile<DP>(Vs, LD, vb, kv_ld, min(kBK, T), D);
+  // groups in flight: {K_0}, then {V_0}; Q is read and split meanwhile
+  cp_tile<DP, BK>(Kr, LD, kb, kv_ld, min(BK, T), D);
+  cp_tile<DP, BK>(Vs, LD, vb, kv_ld, min(BK, T), D);
+  {
+    const float* qb = q + ((long long)b * S + q0) * q_ld + (long long)h * D;
+    const int rows = min(BQ, S - q0);
+    for (int i = threadIdx.x; i < BQ * DP / 2; i += kThreads) {
+      int r, c, w;
+      split_item<DP>(i, r, c, w);
+      const bool ok = r < rows && c < D;     // D % 8 == 0: c + 4 < D too
+      *reinterpret_cast<uint4*>(Qs + r * LS + swz(r, w)) =
+          split_pair(ok ? qb[r * q_ld + c] : 0.f,
+                     ok ? qb[r * q_ld + c + 4] : 0.f);
+    }
+  }
 
-  const int row0 = q0 + 16 * MT * warp + g;  // the lane's rows: row0 +
-                                             // 16 mt + {0, 8}
-  const float* qw = Qs + (16 * MT * warp + g) * LD;  // its Q rows
-  const float* kw = Ks + 2 * t * LD;                 // its keys' K rows
-  const float* vw = Vs + 2 * t * LD + g;             // its V fragments
-  float acc[MT][DP / 8][4];
+  const int row0 = q0 + 16 * warp + g;     // the lane's rows: row0, + 8
+  // the lane's 16-byte units of its A fragments (rows g and g + 8 of its
+  // warp's, + 2 LS for the second) and of its B fragments (key g of each
+  // 8-key step nt, + 2 LS nt); its rows' parity is g's, so k-step ks is
+  // unit 4 ks + t of an even row and 4 (ks ^ 1) + t of an odd one: from
+  // qe and ke at even ks, qo and ko at odd
+  const int sw = 4 * (g & 1);
+  const uint4* qe = reinterpret_cast<const uint4*>(Qs + (16 * warp + g) * LS)
+                    + t + sw;
+  const uint4* ke = reinterpret_cast<const uint4*>(Ks + g * LS) + t + sw;
+  const uint4* qo = qe - 2 * sw;
+  const uint4* ko = ke - 2 * sw;
+  const float* vw = Vs + 2 * t * LD + g;   // its V fragments
+  float acc[DP / 8][4];
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int i = 0; i < DP / 8; ++i)
-      acc[mt][i][0] = acc[mt][i][1] = acc[mt][i][2] = acc[mt][i][3] = 0.f;
+  for (int i = 0; i < DP / 8; ++i)
+    acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
   // running max, and this lane's part of the sum, of each of its rows
-  float m[MT][2], l[MT][2];
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-    m[mt][0] = m[mt][1] = -INFINITY, l[mt][0] = l[mt][1] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
 
   for (int j = 0; j < n_kt; ++j) {
-    const int k0 = j * kBK;
+    const int k0 = j * BK;
     const bool more = j + 1 < n_kt;
-    cp_wait<1>();                        // K_j (and Q) landed
-    __syncthreads();
-    // ---- S = Q.K_j^T in f32 on the CUDA cores: each score one chain
-    // of fmas over d in order from 0, as the plain version's f32 product
-    // sums it, so S is that product bit for bit; then scaled by D^-0.5 ----
-    float sc[MT][8][4];
+    cp_wait<1>();                        // K_j landed
+    __syncthreads();                     // (and every warp is past S_{j-1})
+    for (int i = threadIdx.x; i < BK * DP / 2; i += kThreads) {
+      int r, c, w;
+      split_item<DP>(i, r, c, w);
+      *reinterpret_cast<uint4*>(Ks + r * LS + swz(r, w)) =
+          split_pair(Kr[r * LD + c], Kr[r * LD + c + 4]);
+    }
+    __syncthreads();                     // K_j split, its raw slot free
+    if (more)
+      cp_tile<DP, BK>(Kr, LD, kb + (long long)(k0 + BK) * kv_ld, kv_ld,
+                      min(BK, T - k0 - BK), D);
+
+    // ---- S = Q.K_j^T as three TF32 products (hi.lo + lo.hi + hi.hi
+    // each k-step), f32 accumulate, then scaled by D^-0.5 ----
+    float sc[NT][4];
 #pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
+    for (int nt = 0; nt < NT; ++nt)
+      sc[nt][0] = sc[nt][1] = sc[nt][2] = sc[nt][3] = 0.f;
 #pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
-        sc[mt][nt][0] = sc[mt][nt][1] = sc[mt][nt][2] = sc[mt][nt][3] = 0.f;
-#pragma unroll 1
-    for (int d = 0; d < DP; d += 4) {
-      float4 qa[MT], qb[MT];
+    for (int ks = 0; ks < DP / 8; ++ks) {
+      const uint4* qw = ks & 1 ? qo : qe;
+      const uint4* kw = ks & 1 ? ko : ke;
+      const uint4 qa = qw[4 * ks], qc = qw[2 * LS + 4 * ks];
+      const uint32_t ah[4] = {qa.x, qc.x, qa.y, qc.y};
+      const uint32_t al[4] = {qa.z, qc.z, qa.w, qc.w};
 #pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        qa[mt] = *reinterpret_cast<const float4*>(qw + 16 * mt * LD + d);
-        qb[mt] = *reinterpret_cast<const float4*>(qw + (16 * mt + 8) * LD +
-                                                  d);
-      }
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        const float4 k0v =
-            *reinterpret_cast<const float4*>(kw + 8 * nt * LD + d);
-        const float4 k1v =
-            *reinterpret_cast<const float4*>(kw + (8 * nt + 1) * LD + d);
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          fma4(sc[mt][nt][0], qa[mt], k0v);
-          fma4(sc[mt][nt][1], qa[mt], k1v);
-          fma4(sc[mt][nt][2], qb[mt], k0v);
-          fma4(sc[mt][nt][3], qb[mt], k1v);
-        }
+      for (int nt = 0; nt < NT; ++nt) {
+        const uint4 kv = kw[2 * LS * nt + 4 * ks];
+        mma_tf32(sc[nt], ah, kv.z, kv.w);
+        mma_tf32(sc[nt], al, kv.x, kv.y);
+        mma_tf32(sc[nt], ah, kv.x, kv.y);
       }
     }
-    __syncthreads();                     // every warp has read K_j
-    if (more)
-      cp_tile<DP>(Ks, LD, kb + (long long)(k0 + kBK) * kv_ld, kv_ld,
-                  min(kBK, T - k0 - kBK), D);
 
     // ---- masks, then the online softmax on the lane's rows ----
-    const bool masked = k0 + kBK > T || (causal && k0 + kBK - 1 > q0);
-    float corr[MT][2];
+    const bool masked = k0 + BK > T || (causal && k0 + BK - 1 > q0);
 #pragma unroll
-    for (int mt = 0; mt < MT; ++mt) {
+    for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          sc[mt][nt][e] *= scale;
-          const int kpos = k0 + 8 * nt + 2 * t + (e & 1);
-          const int qpos = row0 + 16 * mt + 8 * (e >> 1);
-          if (masked && (kpos >= T || (causal && kpos > qpos)))
-            sc[mt][nt][e] = -INFINITY;
-        }
-      float use[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        float mx = -INFINITY;
-#pragma unroll
-        for (int nt = 0; nt < 8; ++nt)
-          mx = fmaxf(mx, fmaxf(sc[mt][nt][2 * i], sc[mt][nt][2 * i + 1]));
-        mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
-        mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 2));
-        const float m_new = fmaxf(m[mt][i], mx);
-        use[i] = m_new == -INFINITY ? 0.f : m_new;   // no key yet
-        corr[mt][i] = __expf(m[mt][i] - use[i]);
-        m[mt][i] = m_new;
+      for (int e = 0; e < 4; ++e) {
+        sc[nt][e] *= scale;
+        const int kpos = k0 + 8 * nt + 2 * t + (e & 1);
+        const int qpos = row0 + 8 * (e >> 1);
+        if (masked && (kpos >= T || (causal && kpos > qpos)))
+          sc[nt][e] = -INFINITY;
       }
-      float sum[2] = {0.f, 0.f};
+    float use[2], corr[2];
 #pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
+    for (int i = 0; i < 2; ++i) {
+      float mx = -INFINITY;
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          sc[mt][nt][e] = __expf(sc[mt][nt][e] - use[e >> 1]);
-          sum[e >> 1] += sc[mt][nt][e];
-        }
-#pragma unroll
-      for (int i = 0; i < 2; ++i) l[mt][i] = l[mt][i] * corr[mt][i] + sum[i];
+      for (int nt = 0; nt < NT; ++nt)
+        mx = fmaxf(mx, fmaxf(sc[nt][2 * i], sc[nt][2 * i + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 2));
+      const float m_new = fmaxf(m[i], mx);
+      use[i] = m_new == -INFINITY ? 0.f : m_new;   // no key yet
+      corr[i] = __expf(m[i] - use[i]);
+      m[i] = m_new;
     }
+    float sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        sc[nt][e] = __expf(sc[nt][e] - use[e >> 1]);
+        sum[e >> 1] += sc[nt][e];
+      }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) l[i] = l[i] * corr[i] + sum[i];
 
     // ---- O = O corr + P.V_j: step nt takes keys 8 nt + (2t, 2t + 1) as
     // its k indices (t, t + 4), so P's accumulator is already its A
-    // operand.  Each 8 columns of P.V_j (24 MMAs) go to a fresh
+    // operand.  Each 8 columns of P.V_j (3 NT MMAs) go to a fresh
     // accumulator, added to O by an f32 fma; one key step's split of P is
     // live at a time ----
     if (more) cp_wait<1>(); else cp_wait<0>();   // V_j landed
     __syncthreads();
+    float part[DP / 8][4];
 #pragma unroll
-    for (int mt = 0; mt < MT; ++mt) {
-      float part[DP / 8][4];
+    for (int dt = 0; dt < DP / 8; ++dt)
+      part[dt][0] = part[dt][1] = part[dt][2] = part[dt][3] = 0.f;
 #pragma unroll
-      for (int dt = 0; dt < DP / 8; ++dt)
-        part[dt][0] = part[dt][1] = part[dt][2] = part[dt][3] = 0.f;
+    for (int nt = 0; nt < NT; ++nt) {
+      const float p[4] = {sc[nt][0], sc[nt][2], sc[nt][1], sc[nt][3]};
+      uint32_t ph[4], pl[4];
+      split_a(p, ph, pl);
 #pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        const float p[4] = {sc[mt][nt][0], sc[mt][nt][2], sc[mt][nt][1],
-                            sc[mt][nt][3]};
-        uint32_t ph[4], pl[4];
-        split_a(p, ph, pl);
-#pragma unroll
-        for (int dt = 0; dt < DP / 8; ++dt) {
-          const int o = 8 * nt * LD + 8 * dt;
-          mma_3xtf32(part[dt], ph, pl, vw[o], vw[o + LD]);
-        }
+      for (int dt = 0; dt < DP / 8; ++dt) {
+        const int w = 8 * nt * LD + 8 * dt;
+        mma_3xtf32(part[dt], ph, pl, vw[w], vw[w + LD]);
       }
-#pragma unroll
-      for (int dt = 0; dt < DP / 8; ++dt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          acc[mt][dt][e] = fmaf(acc[mt][dt][e], corr[mt][e >> 1],
-                                part[dt][e]);
     }
+#pragma unroll
+    for (int dt = 0; dt < DP / 8; ++dt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        acc[dt][e] = fmaf(acc[dt][e], corr[e >> 1], part[dt][e]);
     __syncthreads();                     // every warp has read V_j
     if (more)
-      cp_tile<DP>(Vs, LD, vb + (long long)(k0 + kBK) * kv_ld, kv_ld,
-                  min(kBK, T - k0 - kBK), D);
+      cp_tile<DP, BK>(Vs, LD, vb + (long long)(k0 + BK) * kv_ld, kv_ld,
+                      min(BK, T - k0 - BK), D);
   }
 
   // o = acc / max(l, 1e-30), as a product with the row's reciprocal; rows
   // past S and columns past D not written
   float* ob = o + (long long)b * S * q_ld + (long long)h * D;
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
+  for (int i = 0; i < 2; ++i) {
+    float li = l[i];
+    li += __shfl_xor_sync(kFull, li, 1);
+    li += __shfl_xor_sync(kFull, li, 2);
+    li = __frcp_rn(fmaxf(li, 1e-30f));
+    const int row = row0 + 8 * i;
+    if (row < S) {
+      float* orow = ob + row * q_ld;
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      float li = l[mt][i];
-      li += __shfl_xor_sync(kFull, li, 1);
-      li += __shfl_xor_sync(kFull, li, 2);
-      li = __frcp_rn(fmaxf(li, 1e-30f));
-      const int row = row0 + 16 * mt + 8 * i;
-      if (row < S) {
-        float* orow = ob + row * q_ld;
-#pragma unroll
-        for (int dt = 0; dt < DP / 8; ++dt) {
-          const int col = 8 * dt + 2 * t;
-          if (col < D)
-            *reinterpret_cast<float2*>(orow + col) =
-                make_float2(acc[mt][dt][2 * i] * li,
-                            acc[mt][dt][2 * i + 1] * li);
-        }
+      for (int dt = 0; dt < DP / 8; ++dt) {
+        const int col = 8 * dt + 2 * t;
+        if (col < D)
+          *reinterpret_cast<float2*>(orow + col) =
+              make_float2(acc[dt][2 * i] * li, acc[dt][2 * i + 1] * li);
       }
     }
+  }
 }
 
 template <typename K>
@@ -1048,16 +1058,15 @@ template <int DP>
 int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
                int S, int T, int H, int KH, int D, int causal,
                cudaStream_t st) {
+  using L = F32Layout<DP>;
   const float scale = (float)(1.0 / sqrt((double)D));
-  constexpr int BQ = F32Layout<DP>::BQ;
-  const int n_qt = (S + BQ - 1) / BQ;
+  const int n_qt = (S + L::BQ - 1) / L::BQ;
   const int tiles_fastest =
       (2ll * KH * T * D * 4 > kL2Bytes / 2 || n_qt > 65535) ? 1 : 0;
   const dim3 grid = tiles_fastest ? dim3(n_qt, H, B) : dim3(H, n_qt, B);
-  const size_t smem = F32Layout<DP>::bytes;
-  const cudaError_t e = allow_smem(flash_f32<DP>, smem);
+  const cudaError_t e = allow_smem(flash_f32<DP>, L::bytes);
   if (e != cudaSuccess) return (int)e;
-  flash_f32<DP><<<grid, kThreads, smem, st>>>(
+  flash_f32<DP><<<grid, kThreads, L::bytes, st>>>(
       (const float*)q, (const float*)k, (const float*)v, (float*)o, S, T, H,
       KH, D, causal, scale, tiles_fastest);
   return (int)cudaGetLastError();

@@ -167,7 +167,6 @@ __global__ void rank_kernel(const int* __restrict__ dest, long long A, int n,
 
 constexpr int kRowThreads = 256;
 constexpr int kWideWarps = kRowThreads / 32;
-constexpr int kSeg = 1024;     // ints of a wide row a warp writes per step
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -459,63 +458,138 @@ inline int medium_rows(int w) {
   return tr > kMaxTR ? kMaxTR : tr;
 }
 
-// Wide rows (medium_rows(w) == 0: RDMA-AGG's flush routes a few rows of up
-// to 2^26 lanes): a warp takes a run of kSeg-int segments of a row.  It
-// reads the slot and mask once, loads the lanes coalesced and stores VEC
-// ints at a time (16 bytes when w + 1 is a multiple of 4).  Blocks
-// [0, rbx * rby) are row blocks: with one segment a row, block bx takes
-// rows bx*8 + warp, strided by rbx*8; otherwise block (bx, by) takes rows
-// bx, strided by rbx, and segments by*8 + warp, strided by rby*8.
-template <int VEC>
+// Wide rows (medium_rows(w) == 0: a PS push's 4 rows of 23.4 M or 92 M
+// lanes, RDMA-AGG's flush of 4 rows of up to 2^26): a kept row's
+// destination out[s*wo, s*wo + wo) is one contiguous span, so the body is
+// a streaming shifted copy.  A block takes one (row, span) item; a span is
+// kSpan 16-byte chunks of the row's destination (16 KB), each warp
+// kUnroll runs of 32 chunks one after another, a chunk a lane a run.  A
+// row splits into a head (the <= 3 ints before its first 16-byte
+// boundary), a middle of whole chunks that hold lanes of the row alone,
+// and a tail (the <= 3 lanes after it and the valid lane); span 0's block
+// writes the head and the tail one int a thread.  A middle chunk takes its
+// 4 ints from the row's aligned source chunks q and q + 1, shifted by the
+// row's e = (source - destination) mod 4 ints: each lane loads its q with
+// one 16-byte load and takes q + 1 from the next lane by a shuffle (lane
+// 31 from lane 0's chunk of its next run); only lane 31's last run, and
+// the row's last chunk, load q + 1 themselves.  Every alignment of w + 1
+// and of the row base is the same body, e = 0 without the shuffles.
+// Stores are 16 bytes with the streaming hint (st.global.cs).  A masked
+// row stores zeros and loads nothing.  A lane issues all its kUnroll
+// loads before its first store, and one block an item lets the card keep
+// as many blocks resident as fit, each with 16 KB of loads in flight.  On
+// an H100 at a PS push's and RDMA-AGG's flush's rows this ran faster than
+// a grid of 4 to 16 blocks an SM walking the items, than 8 or 16 chunks a
+// lane, and than non-allocating loads (ld.global.nc.L1::no_allocate) in
+// place of plain ones; a head peeled to a 128-byte boundary changed
+// nothing.
+constexpr int kUnroll = 4;
+constexpr int kSpan = kRowThreads * kUnroll;
+
+__device__ __forceinline__ void st_stream(int4* p, int4 v) {
+  asm volatile("st.global.cs.v4.s32 [%0], {%1, %2, %3, %4};" ::"l"(p),
+               "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w) : "memory");
+}
+
+__device__ __forceinline__ int4 shfl_down4(int4 v) {
+  v.x = __shfl_down_sync(kFull, v.x, 1);
+  v.y = __shfl_down_sync(kFull, v.y, 1);
+  v.z = __shfl_down_sync(kFull, v.z, 1);
+  v.w = __shfl_down_sync(kFull, v.w, 1);
+  return v;
+}
+
+__device__ __forceinline__ int4 shfl0(int4 v) {
+  v.x = __shfl_sync(kFull, v.x, 0);
+  v.y = __shfl_sync(kFull, v.y, 0);
+  v.z = __shfl_sync(kFull, v.z, 0);
+  v.w = __shfl_sync(kFull, v.w, 0);
+  return v;
+}
+
+// ints e .. e + 3 of the 8 in (x, y), e in 1 .. 3
+__device__ __forceinline__ int4 funnel(int4 x, int4 y, int e) {
+  return e == 1 ? make_int4(x.y, x.z, x.w, y.x)
+       : e == 2 ? make_int4(x.z, x.w, y.x, y.y)
+                : make_int4(x.w, y.x, y.y, y.z);
+}
+
+// Blocks [0, rblocks) take items it = blockIdx.x, + rblocks, ...: row it /
+// spans, span it % spans (one item each when rblocks = A spans).
 __global__ void __launch_bounds__(kRowThreads)
     scatter_wide(const int* __restrict__ rows, const int* __restrict__ slot,
                  const uint8_t* __restrict__ mask,
                  const int* __restrict__ counts, long long A, int w, int n,
-                 long long cap, unsigned rbx, unsigned rby, unsigned nzb,
+                 long long cap, int spans, unsigned rblocks, unsigned nzb,
                  int* __restrict__ out) {
-  const int wo = w + 1;
-  const unsigned nrb = rbx * rby;
-  if (blockIdx.x >= nrb) {
-    zero_tails(blockIdx.x - nrb, nzb, counts, n, cap, wo, out);
+  const long long wo = (long long)w + 1;
+  if (blockIdx.x >= rblocks) {
+    zero_tails(blockIdx.x - rblocks, nzb, counts, n, cap, (int)wo, out);
     return;
   }
   const long long num_slots = (long long)n * cap;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const unsigned by = blockIdx.x / rbx, bx = blockIdx.x - by * rbx;
-  const int nseg = (wo + kSeg - 1) / kSeg;
-  long long i, istep;
-  int seg0, sstep;
-  if (nseg == 1) {
-    i = (long long)bx * kWideWarps + warp;
-    istep = (long long)rbx * kWideWarps;
-    seg0 = 0;
-    sstep = 1;
-  } else {
-    i = bx;
-    istep = rbx;
-    seg0 = (int)by * kWideWarps + warp;
-    sstep = (int)rby * kWideWarps;
-  }
-  for (; i < A; i += istep) {
+  const long long items = A * spans;
+  const int lane = threadIdx.x & 31;
+  // the lane's first chunk of a span: the warp's runs one after another
+  const int first = (threadIdx.x >> 5) * 32 * kUnroll + lane;
+  for (long long it = blockIdx.x; it < items; it += rblocks) {
+    const long long i = it / spans;
+    const int k = (int)(it - i * spans);
     const int s = slot[i];
-    const bool m = mask == nullptr || mask[i];
     if (s < 0 || s >= num_slots) continue;
+    const bool m = mask == nullptr || mask[i];
     const int* src = rows + i * w;
     int* dst = out + (long long)s * wo;
-    for (int sg = seg0; sg < nseg; sg += sstep) {
-      const int c1 = min(sg * kSeg + kSeg, wo);
-      for (int c = sg * kSeg + lane * VEC; c < c1; c += 32 * VEC) {
-        int v[VEC];
+    // head: ints [0, hd) up to dst's first 16-byte boundary; middle:
+    // chunks [0, n4) from int hd on, every int of them a lane < w; tail:
+    // ints [hd + 4 n4, wo), the valid lane last
+    const int hd = (int)((16 - (reinterpret_cast<uintptr_t>(dst) & 15))
+                         & 15) >> 2;
+    const long long n4 = w > hd ? (w - hd) >> 2 : 0;
+    if (k == 0 && threadIdx.x < 8) {
+      const long long p = threadIdx.x < 4 ? threadIdx.x
+                                          : hd + 4 * n4 + threadIdx.x - 4;
+      if ((threadIdx.x < 4 ? p < hd : true) && p < wo)
+        dst[p] = !m ? 0 : (p < w ? src[p] : 1);
+    }
+    const long long j0 = (long long)k * kSpan;
+    const long long j1 = j0 + kSpan < n4 ? j0 + kSpan : n4;
+    if (j0 >= j1) continue;
+    int4* d4 = reinterpret_cast<int4*>(dst + hd);
+    const long long jl = j0 + first;
+    if (!m) {
 #pragma unroll
-        for (int k = 0; k < VEC; ++k)
-          v[k] = !m ? 0 : (c + k < w ? src[c + k] : 1);
-        if constexpr (VEC == 4)
-          *reinterpret_cast<int4*>(dst + c) = make_int4(v[0], v[1], v[2], v[3]);
-        else if constexpr (VEC == 2)
-          *reinterpret_cast<int2*>(dst + c) = make_int2(v[0], v[1]);
-        else
-          dst[c] = v[0];
+      for (int u = 0; u < kUnroll; ++u)
+        if (jl + 32 * u < j1)
+          st_stream(d4 + jl + 32 * u, make_int4(0, 0, 0, 0));
+      continue;
+    }
+    const uintptr_t sp = reinterpret_cast<uintptr_t>(src + hd);
+    const int e = (int)(sp >> 2) & 3;         // uniform across the block
+    const int4* s4 = reinterpret_cast<const int4*>(sp & ~uintptr_t(15));
+    // every load first: the lane's chunks q, and lane 31's q + 1 past
+    // its last run
+    int4 x[kUnroll], last = make_int4(0, 0, 0, 0);
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const long long j = jl + 32 * u;
+      x[u] = j < j1 ? s4[j] : make_int4(0, 0, 0, 0);
+    }
+    if (e != 0 && lane == 31 && jl + 32 * (kUnroll - 1) < j1)
+      last = s4[jl + 32 * (kUnroll - 1) + 1];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const long long j = jl + 32 * u;
+      int4 v = x[u];
+      if (e != 0) {
+        int4 y = shfl_down4(v);               // every lane shuffles
+        const int4 next_run = shfl0(x[u + 1 < kUnroll ? u + 1 : u]);
+        if (lane == 31) y = u + 1 < kUnroll ? next_run : last;
+        // q + 1 past the row's middle: no lane loaded it
+        if (j + 1 == j1 && (lane != 31 || u + 1 < kUnroll)) y = s4[j + 1];
+        v = funnel(v, y, e);
       }
+      if (j < j1) st_stream(d4 + j, v);
     }
   }
 }
@@ -578,35 +652,17 @@ cudaError_t medium(const ScatterArgs& a, int tr) {
   return cudaGetLastError();
 }
 
-cudaError_t wide(const ScatterArgs& a, int sms) {
-  const long long wo = a.w + 1;
-  const long long nseg = (wo + kSeg - 1) / kSeg;
-  const long long most = 32LL * sms;           // row blocks at most
-  long long rbx, rby = 1;
-  if (a.A == 0) {
-    rbx = 0;
-  } else if (nseg == 1) {
-    rbx = (a.A + kWideWarps - 1) / kWideWarps;
-    rbx = rbx < most ? rbx : most;
-  } else {
-    rbx = a.A < most ? a.A : most;
-    rby = (nseg + kWideWarps - 1) / kWideWarps;
-    rby = rby < most / rbx ? rby : most / rbx;
-    rby = rby < 1 ? 1 : rby;
-  }
-  const unsigned grid = (unsigned)(rbx * rby) + a.nzb;
-  if (wo % 4 == 0)
-    scatter_wide<4><<<grid, kRowThreads, 0, a.st>>>(
-        a.rows, a.slot, a.mask, a.counts, a.A, a.w, a.n, a.cap, (unsigned)rbx,
-        (unsigned)rby, a.nzb, a.out);
-  else if (wo % 2 == 0)
-    scatter_wide<2><<<grid, kRowThreads, 0, a.st>>>(
-        a.rows, a.slot, a.mask, a.counts, a.A, a.w, a.n, a.cap, (unsigned)rbx,
-        (unsigned)rby, a.nzb, a.out);
-  else
-    scatter_wide<1><<<grid, kRowThreads, 0, a.st>>>(
-        a.rows, a.slot, a.mask, a.counts, a.A, a.w, a.n, a.cap, (unsigned)rbx,
-        (unsigned)rby, a.nzb, a.out);
+cudaError_t wide(const ScatterArgs& a) {
+  // spans a row: its middle holds at most w / 4 chunks; span 0 also
+  // writes the head and the tail.  One block an item (at most 2^30
+  // blocks; past that, blocks take several).
+  long long spans = ((long long)a.w / 4 + kSpan - 1) / kSpan;
+  spans = spans > 0 ? spans : 1;
+  const long long items = a.A * spans;
+  const long long rb = items < (1LL << 30) ? items : (1LL << 30);
+  scatter_wide<<<(unsigned)rb + a.nzb, kRowThreads, 0, a.st>>>(
+      a.rows, a.slot, a.mask, a.counts, a.A, a.w, a.n, a.cap, (int)spans,
+      (unsigned)rb, a.nzb, a.out);
   return cudaGetLastError();
 }
 
@@ -677,7 +733,7 @@ int radix_scatter(const void* rows, const void* slot, const void* mask,
     else if (tr >= 4)
       e = medium(a, tr);
     else
-      e = wide(a, sms);
+      e = wide(a);
   }
   if (cur >= 0 && cur != device) cudaSetDevice(cur);
   return (int)e;

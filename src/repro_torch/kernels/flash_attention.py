@@ -39,6 +39,9 @@ DTYPES = (torch.float32, torch.bfloat16)
 MAX_HEAD_DIM = 128
 MAX_QK_DIM = 192       # bf16 q.k width with v at most MAX_HEAD_DIM: the MLA
                        # entry
+# the f32 body (flash_f32): keys a tile by padded head width (csrc
+# F32Layout::BK)
+F32_TILE_KEYS = {32: 64, 64: 64, 128: 48}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _lib = None

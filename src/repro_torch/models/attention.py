@@ -75,10 +75,12 @@ def _flat_chunked_attend(q, k, v, causal):
 
 
 def chunked_attend(q, k, v, *, causal: bool, q_pos=None, kv_len=None,
-                   chunk: int = 512):
+                   chunk: int = 512, scores=None):
     """The JAX package's chunked attention: scores are taken in f32 over
     query chunks, masked at -1e30, softmaxed, and p is cast to v's dtype
-    before P.V.  Shapes as :func:`grouped_attend`'s."""
+    before P.V.  Shapes as :func:`grouped_attend`'s.  ``scores(qc, kf)``,
+    if given, takes the unscaled f32 scores (B, K, G, c, T) of a chunk in
+    place of the f32 einsum (a check rounds them another way)."""
     B, S, K, G, hd = q.shape
     T = k.shape[1]
     scale = hd ** -0.5
@@ -95,8 +97,9 @@ def chunked_attend(q, k, v, *, causal: bool, q_pos=None, kv_len=None,
     kf = k.to(torch.float32)
 
     def block(qc, qp):
-        s = torch.einsum("bckgd,btkd->bkgct", qc.to(torch.float32),
-                         kf) * scale
+        qf = qc.to(torch.float32)
+        s = (torch.einsum("bckgd,btkd->bkgct", qf, kf) if scores is None
+             else scores(qf, kf)) * scale
         mask = torch.ones((qc.shape[1], T), dtype=torch.bool,
                           device=q.device)
         if causal:

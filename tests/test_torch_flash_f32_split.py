@@ -1,27 +1,31 @@
 """The f32 flash kernel's arithmetic, emulated in plain torch on the CPU,
 against JAX's ``repro.kernels.ref.flash_attention``.
 
-``flash_f32`` (``src/repro_torch/kernels/csrc/flash_attention.cu``) takes
-S = Q.K^T as the plain f32 product (fmas over d in order, on the CUDA
-cores), scaled by D^-0.5, and runs O += P.V on TF32 tensor-core MMAs with
-f32 accumulation, three a product: P (after the f32 exp) and V are split
-into hi = TF32(x), rounded to nearest with ties away from zero (the
-rounding of ``cvt.rna.tf32.f32``), and lo = TF32(x - hi), and p.v is taken
-as hi.hi + hi.lo + lo.hi.  It walks key tiles of 64 rows with an online
-softmax in natural units and masks after the product.  :func:`emulate`
-repeats that arithmetic (TF32 rounding by bit masking, every product
-summed in f32; S summed in the CPU's order, not the kernel's); the
-kernel itself runs on the card only.  On the same
-numpy inputs it holds JAX's reference within 2e-5, the tolerance
-``chip_smoke.py`` holds the kernel to, over the f32 cases of its
-``FLASH_SWEEP`` and ``CROSS_SWEEP`` that the CPU runs in a few seconds; a
-control with one TF32 pass a product of P.V (hi.hi alone) misses 2e-5, and
-so does one that takes S by one TF32 pass.  (Three TF32 passes would hold
-S within 2e-5 too; the kernel takes S as the plain f32 product because
-glm4's f32 gradient check needs S bit for bit, see the source.)
+``flash_f32`` (``src/repro_torch/kernels/csrc/flash_attention.cu``) runs
+S = Q.K^T and O += P.V on TF32 tensor-core MMAs with f32 accumulation,
+three a product: each operand (Q, K, P after the f32 exp, V) is split into
+hi = TF32(x), rounded to nearest with ties away from zero (the rounding of
+``cvt.rna.tf32.f32``), and lo = TF32(x - hi), and a.b is taken as hi.lo +
+lo.hi + hi.hi.  S is scaled by D^-0.5 after the product.  It walks key
+tiles (``F32_TILE_KEYS``: 64 keys up to a padded width of 64, 32 at 128)
+with an online softmax in natural units and masks after the product.
+:func:`emulate` repeats that arithmetic (TF32 rounding by bit masking,
+every product summed in f32, in the CPU's order); the kernel itself runs
+on the card only.  On the same numpy inputs it holds JAX's reference
+within 2e-5, the tolerance ``chip_smoke.py`` holds the kernel to, over
+the f32 cases of its ``FLASH_SWEEP`` and ``CROSS_SWEEP`` that the CPU runs
+in a few seconds; a control with one TF32 pass a product of P.V (hi.hi
+alone) misses 2e-5, and so does one that takes S by one TF32 pass.
+
+``chip_smoke.sound_plain``'s variants of the plain path (S summed in f64
+and rounded once, d reversed, d in halves), whose spread sets the limit
+of glm4's f32 gradient check, are held to JAX's reference within 2e-5
+too: the yardstick is sound f32 arithmetic, not a looser function.
 """
 import functools
+import importlib.util
 import math
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -29,9 +33,22 @@ import pytest
 import torch
 
 from repro.kernels import ref as jref
+from repro_torch.kernels import ops
+from repro_torch.kernels.flash_attention import F32_TILE_KEYS
 
-TILE = 64            # keys a tile of flash_f32
+ROOT = Path(__file__).resolve().parents[1]
 TOL = 2e-5           # chip_smoke.py: check_flash, check_cross (f32)
+
+
+def _smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+smoke = _smoke()
 
 
 def tf32(x: torch.Tensor) -> torch.Tensor:
@@ -56,14 +73,10 @@ def product(a: torch.Tensor, b: torch.Tensor, passes: int) -> torch.Tensor:
     return ah @ bl + al @ bh + ah @ bh
 
 
-def emulate(q, k, v, *, causal=True, passes=3, s_passes=None):
+def emulate(q, k, v, *, causal=True, passes=3, s_passes=3):
     """flash_f32's arithmetic on (B, S, H, D) q and (B, T, KH, D) k, v
     (f32 tensors); head h reads kv head h // (H // KH).  ``passes``: TF32
-    products a product of P.V; ``s_passes``: of S too (None: S as a CPU
-    f32 product, whose blocked sums are not the kernel's in-order fmas, so
-    S is emulated only to within the tolerance: that the kernel's S equals
-    the plain product bit for bit is held on the card, by phase train's
-    equal f32 losses in ``chip_smoke.py``)."""
+    products a product of P.V; ``s_passes``: of S."""
     B, S, H, D = q.shape
     T, KH = k.shape[1], k.shape[2]
     qh = q.transpose(1, 2)                                       # B H S D
@@ -74,11 +87,11 @@ def emulate(q, k, v, *, causal=True, passes=3, s_passes=None):
     l = torch.zeros((B, H, S))
     acc = torch.zeros((B, H, S, D))
     qpos = torch.arange(S)[:, None]
-    for k0 in range(0, T, TILE):
-        kpos = torch.arange(k0, min(k0 + TILE, T))[None, :]
-        kt = kh[:, :, k0:k0 + TILE].transpose(-1, -2)
-        s = (qh @ kt if s_passes is None
-             else product(qh, kt, s_passes)) * scale
+    tile = F32_TILE_KEYS[32 if D <= 32 else 64 if D <= 64 else 128]
+    for k0 in range(0, T, tile):
+        kpos = torch.arange(k0, min(k0 + tile, T))[None, :]
+        kt = kh[:, :, k0:k0 + tile].transpose(-1, -2)
+        s = product(qh, kt, s_passes) * scale
         if causal:
             s = s.masked_fill(kpos > qpos, -math.inf)
         m_new = torch.maximum(m, s.amax(-1))
@@ -86,7 +99,7 @@ def emulate(q, k, v, *, causal=True, passes=3, s_passes=None):
         corr = torch.exp(m - use)
         p = torch.exp(s - use[..., None])
         l = l * corr + p.sum(-1)
-        acc = acc * corr[..., None] + product(p, vh[:, :, k0:k0 + TILE],
+        acc = acc * corr[..., None] + product(p, vh[:, :, k0:k0 + tile],
                                               passes)
         m = m_new
     return (acc / l.clamp_min(1e-30)[..., None]).transpose(1, 2)
@@ -131,14 +144,36 @@ IDS = [f"B{b}-S{s}-T{t}-H{h}-KH{kh}-D{d}-{'causal' if c else 'full'}"
 @pytest.mark.parametrize("B,S,T,H,KH,D,causal", CASES, ids=IDS)
 def test_three_tf32_passes_hold_the_f32_tolerance(B, S, T, H, KH, D,
                                                   causal):
-    """The kernel's arithmetic (S plain f32, P.V 3xTF32), and 3xTF32 on S
-    as well: both within 2e-5."""
+    """The kernel's arithmetic (S and P.V as 3xTF32) within 2e-5."""
     arrs, want = _case(B, S, T, H, KH, D, causal)
     got = emulate(*arrs, causal=causal)
     assert got.shape == want.shape
     torch.testing.assert_close(got, want, atol=TOL, rtol=TOL)
-    torch.testing.assert_close(emulate(*arrs, causal=causal, s_passes=3),
-                               want, atol=TOL, rtol=TOL)
+
+
+# each sound variant on the deepest width, a long causal case and a
+# non-causal ragged one
+SOUND = [CASES[7], CASES[9], CASES[11]]
+
+
+@pytest.mark.parametrize("variant", sorted(smoke.SOUND_S))
+@pytest.mark.parametrize("B,S,T,H,KH,D,causal", SOUND,
+                         ids=[IDS[CASES.index(c)] for c in SOUND])
+def test_sound_plain_variants_hold_the_f32_tolerance(B, S, T, H, KH, D,
+                                                     causal, variant):
+    """The plain path with S rounded another sound way (what the gradient
+    check's spread measures) is attention to within 2e-5, with and
+    without autograd (the check differentiates it)."""
+    arrs, want = _case(B, S, T, H, KH, D, causal)
+    with smoke.sound_plain("flash_attention", variant):
+        got = ops.flash_attention(*arrs, causal=causal, impl="plain")
+        q = arrs[0].clone().requires_grad_(True)
+        diff = ops.flash_attention(q, *arrs[1:], causal=causal,
+                                   impl="plain")
+    torch.testing.assert_close(got, want, atol=TOL, rtol=TOL)
+    torch.testing.assert_close(diff.detach(), want, atol=TOL, rtol=TOL)
+    diff.sum().backward()
+    assert q.grad is not None and bool(torch.isfinite(q.grad).all())
 
 
 # the control on the deepest width and on a long causal case
