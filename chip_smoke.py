@@ -91,8 +91,21 @@ exits non-zero:
            layer's packed experts against the reference loop on their own
            inputs within ROW_TOL, each with a faulty control above it (a
            dropped key tile, a dropped expert, a lost state); the rank at
-           the dispatch's shape timed; a 16-request engine whose tokens
-           must equal a plain engine's, lock words 0; peak memory
+           the dispatch's shape timed; an 8-request engine (one wave)
+           whose tokens must equal a plain engine's, lock words 0; peak
+           memory.  Then
+           deepseek's sharded leg (mesh_leg, MESH_CUT): the same weights
+           under a (data 2, model 4) sharding policy, the RRJ dispatch over
+           8 shards of the card; a B 2 x S 4096 prefill step with the
+           policy and without, whose launches must be exact (the MLA
+           entry once an attention layer, the rank and the scatter twice
+           an MoE layer a shard); every MoE layer's kernel RRJ against its
+           plain twin (equal drops) and against the one-shard packed
+           experts at the tokens that dropped nothing, within ROW_TOL, a
+           dropped expert above it; 4 teacher-forced decode steps on the
+           replicated twin against the reference loop, logit rows within
+           ROW_TOL; the rank and the scatter at both radix passes' shapes
+           timed beside index_copy_; dropped assignments, peak memory
   xattn    cross-attention and the encoder-decoder (bench/serve.py):
            llama-3.2-vision-90b at full width cut to 10 of 100 layers (8
            self-attention and 2 cross layers over 1601 image tokens of
@@ -194,7 +207,9 @@ launches, on no path): one f32_entries line.
 Launch counts are set to 0 just before each path and read just after:
 the oltp sessions and commits, the olap queries (Database.execute
 alone), Fig 8b's kernel row, the one path of the f32 grouped_agg
-entry, in serve and moe each timed prefill step and each engine wave, in
+entry, in serve and moe each timed prefill step and each engine wave
+(moe's sharded leg: each timed prefill step with the policy and each
+sharded decode step), in
 xattn each timed prefill step and the decode steps, in
 paged
 each tick of each engine run, in shards the 4-shard oltp waves and the
@@ -213,7 +228,8 @@ paths named in its "paths"), the card's name and power limit
     python3 chip_smoke.py --phases env,build,shards   # the n-shard fabric
     python3 chip_smoke.py --phases env,build,train    # training
     python3 chip_smoke.py --phases env,build,paged    # paged serving
-    python3 chip_smoke.py --phases env,build,moe      # MoE and MLA models
+    python3 chip_smoke.py --phases env,build,moe      # MoE and MLA models,
+                                                      # the sharded RRJ
     python3 chip_smoke.py --phases env,build,xattn    # VLM and whisper
     python3 chip_smoke.py --phases env,build,scale,contention   # under load
 """
@@ -301,9 +317,25 @@ MOE_CUTS = {
         "reduce_config only: one 8-layer period at full width holds four MoE "
         "layers of 16 x 604 M = 9.66 B parameters each, 77 GB in bf16 before "
         "the SSM, attention and embeddings, more than the card's 80 GB; a "
-        "chip's share of its experts needs the sharding policy (ROADMAP "
-        "item 8)",
+        "chip's share of its experts needs a machine of several cards "
+        "(ROADMAP item 8, step 3): a mesh emulated on one card holds every "
+        "shard's experts",
 }
+MOE_REQUESTS = 8                 # phase moe's engines: one wave of 8 slots
+# phase moe's sharded leg: deepseek-v2's cut under make_policy(
+# make_host_mesh(*MESH_SHAPE)), the RRJ dispatch over 8 shards of the card
+MESH_ARCH = "deepseek-v2-236b"
+MESH_SHAPE = (2, 4)              # (data, model)
+MESH_PREFILL = (2, 4096)         # B over data, S over model: T_local 1024
+MESH_DECODE = (2, 4)             # batch, teacher-forced decode steps
+RRJ_PASSES = 2                   # radix passes (a rank and a scatter each)
+                                 # of moe._moe_rrj an MoE layer a shard: by
+                                 # owner shard, then by local expert; the
+                                 # decode twin (_moe_replicated) bins once
+MESH_CUT = ("deepseek-moe-5L's weights (full width, 5 of 60 layers) under a "
+            "(data 2, model 4) policy: 8 shards emulated on one card, 40 "
+            "experts a model shard, FSDP halves of d_model; B 2 x S 4096 "
+            "(the phase's 8192 tokens), capacity_factor 1.25")
 # phase xattn: arch -> (layers, what a prefill step launches)
 XATTN_ARCHS = {
     "llama-3.2-vision-90b": (10, {"flash_attention": 8,
@@ -2452,6 +2484,193 @@ def time_dispatch_rank(T: int, k: int, E: int) -> dict:
             "library_ms": None, "max_abs_err": 0}
 
 
+def time_rrj_route(T: int, k: int, E: int, D: int, tp: int, cap: int,
+                   ecap: int) -> dict:
+    """The rank and the scatter at the RRJ dispatch's two radix passes on
+    one shard (seed 26): T tokens' k distinct experts of E binned by owner
+    shard into tp buffers of cap rows of D/2 + 1 lanes (a bf16 token row
+    and its local expert; the scatter appends the valid lane), then tp *
+    cap received rows of D/2 lanes, the first counts[j] of source j's
+    block valid, by local expert into E/tp bins of ecap (invalid rows not
+    binned).  Each held bit-exact to its plain version and timed beside
+    it; the scatter also beside ``index_copy_`` into a buffer with a spare
+    row for the rows not sent.  Bounds: bytes once at 3.35 TB/s (the rank:
+    ids in, slot, keep, overflow and counts out; the scatter: the rows it
+    sends and every slot in, the whole buffer out)."""
+    import torch
+    from repro_torch.kernels import radix_partition as rp, ref
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(26)
+    local_e = E // tp
+    experts = torch.rand((T, E), generator=g, device=dev).argsort(
+        -1)[:, :k].reshape(-1).to(torch.int32)
+    passes = {"rrj1": (torch.div(experts, local_e, rounding_mode="floor")
+                       .to(torch.int32).contiguous(), tp, cap, D // 2 + 1)}
+    _, _, _, counts = rp.rank(passes["rrj1"][0], tp, cap)
+    valid = (torch.arange(cap, device=dev)[None, :] < counts[:, None]
+             ).reshape(-1)
+    le = torch.randint(0, local_e, (tp * cap,), generator=g, device=dev,
+                       dtype=torch.int32)
+    passes["rrj2"] = (torch.where(valid, le, local_e).to(torch.int32),
+                      local_e, ecap, D // 2)
+    out = {}
+    for name, (dest, n, c, w) in passes.items():
+        A = dest.numel()
+        got, want = rp.rank(dest, n, c), ref.rank(dest, n, c)
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"rank at {name} differs from its plain "
+                                 "version")
+        slot, keep, _, cnt = got
+        kept = int(keep.sum())
+        rows = torch.randint(-2 ** 31, 2 ** 31 - 1, (A, w), generator=g,
+                             device=dev, dtype=torch.int32)
+        if not torch.equal(rp.scatter(rows, slot, n * c, counts=cnt),
+                           ref.scatter(rows, slot, n * c, counts=cnt)):
+            raise AssertionError(f"scatter at {name} differs from its "
+                                 "plain version")
+        wide = torch.cat([rows, torch.ones((A, 1), dtype=torch.int32,
+                                           device=dev)], 1)
+        buf = torch.zeros((n * c + 1, w + 1), dtype=torch.int32, device=dev)
+        kslot = torch.where(keep, slot, n * c).to(torch.int64)
+        shape = {"A": A, "n": n, "cap": c, "lanes": w, "kept": kept}
+        out[f"radix_partition_rank@{name}"] = {
+            "ms": time_ms(lambda: rp.rank(dest, n, c)),
+            "device_ms": device_ms(lambda: rp.rank(dest, n, c),
+                                   rp.KERNELS["rank"], iters=10),
+            "plain_ms": time_ms(lambda: ref.rank(dest, n, c), iters=5),
+            "bound_ms": bound_ms(10 * A + 4 * n), "bound_by": "bytes",
+            "library_ms": None, "max_abs_err": 0, "shape": shape}
+        out[f"radix_partition_scatter@{name}"] = t = {
+            "ms": time_ms(lambda: rp.scatter(rows, slot, n * c,
+                                             counts=cnt)),
+            "device_ms": device_ms(lambda: rp.scatter(rows, slot, n * c,
+                                                      counts=cnt),
+                                   rp.KERNELS["scatter"], iters=10),
+            "plain_ms": time_ms(lambda: ref.scatter(rows, slot, n * c,
+                                                    counts=cnt), iters=5),
+            "bound_ms": bound_ms(4 * (kept * w + A + n * c * (w + 1))),
+            "bound_by": "bytes",
+            "library_ms": time_ms(lambda: buf.index_copy_(0, kslot, wide)),
+            "max_abs_err": 0, "shape": shape}
+        t["bound_share"] = t["bound_ms"] / t["ms"]
+    return out
+
+
+def mesh_leg(cfg, params, quick: bool, record: dict):
+    """Phase moe's sharded leg (MESH_CUT; --quick: S 512) on the weights
+    the phase holds, under ``set_policy(make_policy(make_host_mesh(
+    *MESH_SHAPE)))``:
+
+    * the prefill step (``bench.serve.prefill``) with the policy and,
+      beside it, without: with it each step must launch the MLA entry
+      once an attention layer and the rank and the scatter RRJ_PASSES
+      times an MoE layer a shard, and nothing else; logits finite; peak
+      memory;
+    * every MoE layer on its own inputs (``bench.serve.mesh_layer_check``):
+      the kernel RRJ against the plain RRJ (the same dropped assignments,
+      rows within ROW_TOL) and, at the tokens none of whose assignments
+      dropped, against today's one-shard packed experts within ROW_TOL;
+      a dropped expert (``_moe_expert_dropped``) must read above it;
+    * MESH_DECODE teacher-forced decode steps with the policy (the
+      replicated twin: the rank and the scatter once an MoE layer a shard
+      a step) against the same steps without it (the reference loop, no
+      launch): each step's logit rows within ROW_TOL;
+    * the rank and the scatter at the two passes' shapes
+      (:func:`time_rrj_route`).
+
+    The leg's line is printed before a failure is raised."""
+    import torch
+    from repro_torch.bench import serve
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import moe
+    from repro_torch.sharding import make_policy, set_policy
+    t0 = time.perf_counter()
+    mesh = make_host_mesh(*MESH_SHAPE, device="cuda")
+    pol = make_policy(mesh)
+    batch, seq = (MESH_PREFILL[0], 512) if quick else MESH_PREFILL
+    arch_want = MOE_ARCHS[MESH_ARCH][2]
+    n_moe = arch_want["radix_partition_rank"]
+    want = {"flash_attention_mla": arch_want["flash_attention_mla"],
+            "radix_partition_rank": n_moe * mesh.size * RRJ_PASSES,
+            "radix_partition_scatter": n_moe * mesh.size * RRJ_PASSES}
+    want_dec = {"radix_partition_rank": n_moe * mesh.size,
+                "radix_partition_scatter": n_moe * mesh.size}
+    m = cfg.moe
+    tp = mesh.shape["model"]
+    T_local = batch // mesh.shape["data"] * (seq // tp)
+    cap = moe._round8(int(T_local * m.top_k / tp * m.capacity_factor))
+    ecap = min(moe._round8(int(tp * cap / (m.num_experts // tp)
+                               * m.capacity_factor)), moe._round8(tp * cap))
+    base = serve.prefill(cfg, params, batch=batch, seq=seq, profiled=False)
+    with set_policy(pol):
+        pre = serve.prefill(cfg, params, batch=batch, seq=seq,
+                            profiled=False)
+    dev = params["embed"].device
+    tokens = serve.prompt(cfg, batch, seq, dev)
+    with set_policy(pol):
+        layers = serve.mesh_layer_check(cfg, params, tokens,
+                                        faulty=_moe_expert_dropped)
+    del tokens
+    toks = serve.prompt(cfg, *MESH_DECODE, dev)
+    dec_ref = serve.forced_decode(cfg, params, toks)
+    with set_policy(pol):
+        dec = serve.forced_decode(cfg, params, toks)
+    dec_rows = [serve.row_rel_err(a, b) for a, b in zip(dec["logits"],
+                                                         dec_ref["logits"])]
+    torch.cuda.empty_cache()
+    route = time_rrj_route(T_local, m.top_k, m.num_experts, cfg.d_model, tp,
+                           cap, ecap)
+    failures = []
+    for launches in pre["launches"]:
+        got = {k: v for k, v in launches.items() if v}
+        if got != want:
+            failures.append(f"the sharded prefill launched {got}, not {want}")
+    if not (pre["full"]["finite"] and pre["full"]["step_agrees"]):
+        failures.append(f"sharded prefill logits: {pre['full']}")
+    per = layers["per_layer"]
+    if len(per) != n_moe:
+        failures.append(f"the layer check read {len(per)} MoE layers")
+    if not all(r["drops_equal"] for r in per):
+        failures.append("the kernel RRJ dropped other assignments than the "
+                        "plain RRJ")
+    for key in ("max_vs_plain", "max_vs_packed"):
+        if not layers[key] <= ROW_TOL:
+            failures.append(f"the layer check's {key} read {layers[key]} "
+                            f"> {ROW_TOL}")
+    if not per[0].get("control", 0.0) > ROW_TOL:
+        failures.append(f"the layer check read {per[0].get('control')} on "
+                        f"a dropped expert, not above {ROW_TOL}")
+    for s, launches in enumerate(dec["launches"]):
+        got = {k: v for k, v in launches.items() if v}
+        if got != want_dec:
+            failures.append(f"sharded decode step {s} launched {got}, not "
+                            f"{want_dec}")
+    if any(v for l in dec_ref["launches"] for v in l.values()):
+        failures.append("the reference decode launched a kernel")
+    if not max(dec_rows) <= ROW_TOL:
+        failures.append(f"sharded decode logits differ from the reference "
+                        f"loop's by {max(dec_rows)} > {ROW_TOL}")
+    emit("moe_mesh", arch=MESH_ARCH, cut=MESH_CUT, mesh=mesh.shape,
+         capacity={"T_local": T_local, "cap": cap, "ecap": ecap,
+                   "capacity_factor": m.capacity_factor},
+         prefill=pre, prefill_unsharded=base,
+         dropped={"count": layers["dropped"],
+                  "share": layers["dropped"] / layers["assignments"]},
+         layer_check=layers, layer_check_held_to=ROW_TOL,
+         decode={"steps": MESH_DECODE[1], "batch": MESH_DECODE[0],
+                 "rows": dec_rows, "launches": dec["launches"]},
+         route=route, failures=failures,
+         seconds=time.perf_counter() - t0, gpu=smi())
+    if failures:
+        raise AssertionError("moe mesh: " + "; ".join(failures))
+    for launches in pre["launches"]:
+        _count(tuple(want), launches, record, f"moe {MESH_ARCH} mesh "
+               "prefill")
+    for launches in dec["launches"]:
+        _count(tuple(want_dec), launches, record, f"moe {MESH_ARCH} mesh "
+               "decode")
+
+
 def phase_moe(quick: bool, record: dict):
     """MOE_ARCHS through src/repro_torch/bench/serve.py (--quick: S=1024).
     Each timed prefill step must launch exactly its MOE_ARCHS kernels,
@@ -2461,8 +2680,9 @@ def phase_moe(quick: bool, record: dict):
     packed experts against the reference loop, on their own inputs at
     every position) within ROW_TOL, and a faulty control of each kind on
     the first group above it.  No f32 witness: these cuts' f32 weights
-    take about 70 GB.  The phase line is printed before a failure is
-    raised."""
+    take about 70 GB.  MESH_ARCH then runs the sharded leg on the same
+    weights (:func:`mesh_leg`).  The phase line is printed before a
+    failure is raised."""
     import torch
     from repro_torch.bench import serve
     for arch, (layers, reduced, want) in MOE_ARCHS.items():
@@ -2489,11 +2709,10 @@ def phase_moe(quick: bool, record: dict):
         layers_["control"] = controls
         del tokens
         torch.cuda.empty_cache()
-        eng = serve.engine(cfg, params)
-        plain = serve.engine(cfg, params, impl="plain")
+        eng = serve.engine(cfg, params, n=MOE_REQUESTS)
+        plain = serve.engine(cfg, params, impl="plain", n=MOE_REQUESTS)
         m = cfg.moe
         rank = time_dispatch_rank(batch * seq, m.top_k, m.num_experts)
-        del params
         torch.cuda.empty_cache()
         failures = []
         for launches in pre["launches"]:
@@ -2525,7 +2744,7 @@ def phase_moe(quick: bool, record: dict):
             failures.append("engine tokens differ from the plain engine's")
         if not (eng["lock_words_zero"] and plain["lock_words_zero"]):
             failures.append("the engine left slot locks held")
-        if len(eng["outs"]) != serve.REQUESTS:
+        if len(eng["outs"]) != MOE_REQUESTS:
             failures.append(f"the engine finished {len(eng['outs'])} "
                             "requests")
         emit("moe", arch=arch, cut=MOE_CUTS[arch], layers=cfg.num_layers,
@@ -2543,6 +2762,10 @@ def phase_moe(quick: bool, record: dict):
             _count(("cas_lock",), w["launches"], record,
                    f"moe {arch} engine wave")
         del pre, eng, plain
+        if arch == MESH_ARCH:
+            mesh_leg(cfg, params, quick, record)
+        del params
+        torch.cuda.empty_cache()
 
 
 def phase_xattn(quick: bool, record: dict):
@@ -3369,8 +3592,12 @@ def main(argv=None) -> int:
             "replaces": "src/repro/kernels/ssd_scan.py:55"},
     }
     paths = {"radix_partition_rank": "oltp, olap, moe prefill (expert "
-                                     "packing), scale, contention",
-             "radix_partition_scatter": "oltp, olap, scale, contention",
+                                     "packing), moe deepseek-v2-236b mesh "
+                                     "prefill and decode (RRJ), scale, "
+                                     "contention",
+             "radix_partition_scatter": "oltp, olap, moe deepseek-v2-236b "
+                                        "mesh prefill and decode (RRJ), "
+                                        "scale, contention",
              "cas_lock": "oltp, serve and moe engine waves, paged ticks, "
                          "scale, contention recorded wave",
              "grouped_agg": "fig8b kernel row", "grouped_sum_u32": "olap",

@@ -16,6 +16,10 @@ bf16 weights drawn on the device from seed 0:
   that layer's own inputs in a kernel-path forward, at every position
   (self-attention, cross-attention and whisper's encoder layers), and
   every MoE layer's packed experts against the reference loop.
+* :func:`mesh_layer_check` (under a sharding policy): every MoE layer's
+  RRJ dispatch against its plain twin and against the one-shard packed
+  experts, with its dropped assignments; :func:`forced_decode`:
+  teacher-forced decode steps, their logits and launches.
 * :func:`f32_witness`: the full-depth logits of both paths with f32
   weights and activations, and of the plain path against itself with its
   embedding nudged.
@@ -46,6 +50,7 @@ from repro_torch.kernels import flash_attention, ops, radix_partition, \
     ssd_scan
 from repro_torch.models import api, lm, moe
 from repro_torch.serving import Request, ServeEngine
+from repro_torch.sharding import set_policy
 from repro_torch.train.train_step import build_prefill_step
 
 # (batch, seq) of the prefill path per architecture
@@ -244,6 +249,69 @@ def layer_check(cfg, params, tokens, *, modality=None, groups=None) -> dict:
         moe._moe_packed = packed
     return {"per_layer": readings, "kinds": kinds, "max": max(readings),
             "worst_layer": readings.index(max(readings))}
+
+
+def mesh_layer_check(cfg, params, tokens, *, faulty=None) -> dict:
+    """Under a sharding policy (the caller's ``set_policy``): a kernel-path
+    forward over ``tokens`` in which every MoE layer's RRJ dispatch
+    (``moe._moe_rrj``, the rank and scatter kernels) is also run on the
+    same inputs with the kernels' plain twins, and as today's one-shard
+    packed experts (``moe._moe_packed``, no policy).  For each MoE layer:
+    the dropped assignments of both runs (equal sets, their count and
+    share), the kernel run against the plain run at every token
+    (:func:`row_rel_err`), and against the packed experts at the tokens
+    none of whose assignments dropped.  ``faulty(cfg, mcfg, p, x)``, a
+    plain MoE layer with a fault, is read the same way on the first MoE
+    layer (``control``): a sound check must read it far off."""
+    rrj = moe._moe_rrj
+    layers = []
+
+    def check(cfg_, mcfg, p, x, *, impl=None, kept=False):
+        y, k = rrj(cfg_, mcfg, p, x, impl=impl, kept=True)
+        yp, kp = rrj(cfg_, mcfg, p, x, impl="plain", kept=True)
+        clean = k.all(-1)                      # (B, S): nothing dropped
+        with set_policy(None):
+            packed = moe._moe_packed(cfg_, mcfg, p, x, impl=impl)
+        rec = {"dropped": int((~k).sum()), "assignments": k.numel(),
+               "dropped_plain": int((~kp).sum()),
+               "drops_equal": bool(torch.equal(k, kp)),
+               "vs_plain": row_rel_err(y, yp),
+               "clean_tokens": int(clean.sum()),
+               "vs_packed": row_rel_err(y[clean], packed[clean])}
+        rec["dropped_share"] = rec["dropped"] / rec["assignments"]
+        if faulty is not None and not layers:
+            rec["control"] = row_rel_err(y[clean],
+                                         faulty(cfg_, mcfg, p, x)[clean])
+        layers.append(rec)
+        return (y, k) if kept else y
+
+    moe._moe_rrj = check
+    try:
+        with torch.inference_mode():
+            api.module(cfg).forward_hidden(cfg, params, tokens)
+    finally:
+        moe._moe_rrj = rrj
+    return {"per_layer": layers,
+            "max_vs_plain": max(r["vs_plain"] for r in layers),
+            "max_vs_packed": max(r["vs_packed"] for r in layers),
+            "dropped": sum(r["dropped"] for r in layers),
+            "assignments": sum(r["assignments"] for r in layers)}
+
+
+@torch.inference_mode()
+def forced_decode(cfg, params, tokens) -> dict:
+    """Teacher-forced decode: ``tokens`` (B, steps) fed one position a step
+    (``api.decode_step``) from a fresh state; each step's logits (B, V)
+    and kernel launches."""
+    batch, steps = tokens.shape
+    state = api.init_decode_state(cfg, params, batch, steps)
+    logits, launches = [], []
+    for s in range(steps):
+        ops.reset_launch_counts()
+        out, state = api.decode_step(cfg, params, state, tokens[:, s:s + 1])
+        launches.append(ops.launch_counts())
+        logits.append(out[:, -1].float())
+    return {"logits": logits, "launches": launches}
 
 
 def f32_witness(cfg, *, batch: int, seq: int, device=None) -> dict:

@@ -9,8 +9,8 @@ the port's :mod:`repro_torch.fabric.netsim`:
 3. The §6 parameter-server communication model.
 
 The JAX package's TPU roofline block (``TpuSpec``, ``roofline_terms``,
-``model_flops*``) is left out: an H100 counterpart comes with the port's
-sharding and launch code.
+``model_flops*``) is left out: an H100 counterpart comes with the
+launch roofline and report (ROADMAP.md queue 1, item 8, step 5).
 """
 from __future__ import annotations
 

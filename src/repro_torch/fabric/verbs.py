@@ -96,6 +96,17 @@ class NamPool:
         return {n: torch.zeros(r.shape, dtype=r.dtype, device=device)
                 for n, r in self.regions.items()}
 
+    def specs(self) -> dict:
+        """(shape, dtype) of every region by name (JAX's
+        ``ShapeDtypeStruct``s)."""
+        return {n: (r.shape, r.dtype) for n, r in self.regions.items()}
+
+    def shardings(self, policy) -> dict:
+        """Every region's ``NamedSharding`` under ``policy``, from its
+        logical axes."""
+        return {n: policy.sharding(r.logical_axes)
+                for n, r in self.regions.items()}
+
 
 # -------------------------------------------------------- completions ----
 

@@ -22,6 +22,10 @@ def param_shapes(cfg):
     return module(cfg).param_shapes(cfg)
 
 
+def param_logical_axes(cfg):
+    return module(cfg).logical_axes(cfg)
+
+
 def forward(cfg, params, tokens, **kw):
     return module(cfg).forward(cfg, params, tokens, **kw)
 

@@ -34,8 +34,10 @@ def kv_heads_eff(cfg) -> int:
 
 def build_gqa(cfg, mk):
     d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.hd
-    return {"wq": mk((d, h, hd)), "wk": mk((d, kv, hd)),
-            "wv": mk((d, kv, hd)), "wo": mk((h, hd, d))}
+    return {"wq": mk((d, h, hd), ("embed", "heads", None)),
+            "wk": mk((d, kv, hd), ("embed", None, None)),
+            "wv": mk((d, kv, hd), ("embed", None, None)),
+            "wo": mk((h, hd, d), ("heads", None, "embed"))}
 
 
 def grouped_attend(q, k, v, *, causal: bool, q_pos=None, kv_len=None,
@@ -198,14 +200,16 @@ def apply_gqa_decode(cfg, p, x, cache, pos, *, cross: bool = False):
 def build_mla(cfg, mk):
     m, d, h = cfg.mla, cfg.d_model, cfg.num_heads
     qk = m.qk_nope_head_dim + m.qk_rope_head_dim
-    return {"wq_a": mk((d, m.q_lora_rank)),
-            "q_norm": mk((m.q_lora_rank,), "zeros"),
-            "wq_b": mk((m.q_lora_rank, h, qk)),
-            "wkv_a": mk((d, m.kv_lora_rank + m.qk_rope_head_dim)),
-            "kv_norm": mk((m.kv_lora_rank,), "zeros"),
+    return {"wq_a": mk((d, m.q_lora_rank), ("embed", None)),
+            "q_norm": mk((m.q_lora_rank,), (None,), "zeros"),
+            "wq_b": mk((m.q_lora_rank, h, qk), (None, "heads", None)),
+            "wkv_a": mk((d, m.kv_lora_rank + m.qk_rope_head_dim),
+                        ("embed", None)),
+            "kv_norm": mk((m.kv_lora_rank,), (None,), "zeros"),
             "wkv_b": mk((m.kv_lora_rank, h,
-                         m.qk_nope_head_dim + m.v_head_dim)),
-            "wo": mk((h, m.v_head_dim, d))}
+                         m.qk_nope_head_dim + m.v_head_dim),
+                        (None, "heads", None)),
+            "wo": mk((h, m.v_head_dim, d), ("heads", None, "embed"))}
 
 
 def _mla_qkv(cfg, p, x, positions):

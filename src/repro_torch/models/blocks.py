@@ -67,7 +67,7 @@ def group_pattern(cfg):
 
 
 def build_sublayer(cfg, mk, kind: str):
-    p = {"norm": mk((cfg.d_model,), "zeros")}
+    p = {"norm": mk((cfg.d_model,), (None,), "zeros")}
     if kind == "attn":
         p.update(A.build_mla(cfg, mk) if cfg.mla else A.build_gqa(cfg, mk))
     elif kind == "cross":

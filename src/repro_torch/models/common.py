@@ -3,7 +3,8 @@
 
 Models are functional: a parameter tree (nested dicts of tensors) plus
 apply functions.  The same build code produces either initialized
-tensors or the tree of shapes, so the two always match.
+tensors, the tree of shapes or the tree of logical axes (for
+sharding), so the three always match.
 """
 from __future__ import annotations
 
@@ -14,20 +15,34 @@ import torch.nn.functional as F
 
 
 class Mk:
-    """Parameter factory.  With a ``torch.Generator`` it draws tensors on
-    the generator's device; with ``generator=None`` it returns shapes.
-    The scales are the JAX ``Mk``'s: ``fan_in`` is normal with std
+    """Parameter factory, called as JAX's is: ``mk(shape, axes, scale)``
+    with one logical axis (or None) a dimension.  ``mode="init"`` (the
+    default with a ``torch.Generator``) draws tensors on the generator's
+    device, ``"shapes"`` (the default without one) returns the shape and
+    ``"axes"`` the logical axes, so the three trees always match.  The
+    scales are the JAX ``Mk``'s: ``fan_in`` is normal with std
     ``1/sqrt(shape[-2])`` (``shape[0]`` for 1-D), ``zeros``, ``ones``, or a
     number times a standard normal.  torch's generator does not give
     JAX's numbers: the tests carry JAX's parameters across instead."""
 
-    def __init__(self, generator=None, dtype=torch.float32):
+    MODES = ("init", "shapes", "axes")
+
+    def __init__(self, generator=None, dtype=torch.float32, *, mode=None):
         self.generator = generator
         self.dtype = dtype
+        self.mode = mode or ("shapes" if generator is None else "init")
+        if self.mode not in self.MODES:
+            raise ValueError(f"Mk mode {self.mode!r} not in {self.MODES}")
+        if self.mode == "init" and generator is None:
+            raise ValueError("Mk(mode='init') needs a generator")
 
-    def __call__(self, shape, scale="fan_in"):
-        shape = tuple(shape)
-        if self.generator is None:
+    def __call__(self, shape, axes, scale="fan_in"):
+        shape, axes = tuple(shape), tuple(axes)
+        if len(shape) != len(axes):
+            raise ValueError(f"shape {shape} and logical axes {axes}")
+        if self.mode == "axes":
+            return axes
+        if self.mode == "shapes":
             return shape
         dev = self.generator.device
         if scale == "zeros":
@@ -73,8 +88,10 @@ def apply_rope(x, cos, sin):
 def build_mlp(cfg, mk):
     d, f = cfg.d_model, cfg.d_ff
     if cfg.gated_mlp:
-        return {"wi": mk((d, 2 * f)), "wo": mk((f, d))}
-    return {"wi": mk((d, f)), "wo": mk((f, d))}
+        return {"wi": mk((d, 2 * f), ("embed", "ff")),
+                "wo": mk((f, d), ("ff", "embed"))}
+    return {"wi": mk((d, f), ("embed", "ff")),
+            "wo": mk((f, d), ("ff", "embed"))}
 
 
 def apply_mlp(cfg, p, x):

@@ -36,15 +36,15 @@ def build(cfg, mk):
     d, v = cfg.d_model, cfg.vocab_size
     enc_pat, ge = _enc_pattern(cfg)
     dec_pat, gd = _dec_pattern(cfg)
-    p = {"embed": mk((v, d), 0.02),
-         "mod_proj": mk((cfg.modality_dim, d)),
-         "enc_pos": mk((cfg.num_modality_tokens, d), 0.02),
+    p = {"embed": mk((v, d), ("vocab", None), 0.02),
+         "mod_proj": mk((cfg.modality_dim, d), (None, None)),
+         "enc_pos": mk((cfg.num_modality_tokens, d), (None, None), 0.02),
          "enc_groups": B.build_group(cfg, lm.StackedMk(mk, ge), enc_pat),
-         "enc_norm": mk((d,), "zeros"),
+         "enc_norm": mk((d,), (None,), "zeros"),
          "groups": B.build_group(cfg, lm.StackedMk(mk, gd), dec_pat),
-         "final_norm": mk((d,), "zeros")}
+         "final_norm": mk((d,), (None,), "zeros")}
     if not cfg.tie_embeddings:
-        p["lm_head"] = mk((d, v))
+        p["lm_head"] = mk((d, v), (None, "vocab"))
     return p
 
 
@@ -57,6 +57,11 @@ def init_params(cfg, generator=None, dtype=torch.float32, device=None):
 def param_shapes(cfg):
     """The parameter tree with shape tuples for leaves."""
     return build(cfg, Mk())
+
+
+def logical_axes(cfg):
+    """The parameter tree with logical-axis tuples for leaves."""
+    return build(cfg, Mk(mode="axes"))
 
 
 def encode(cfg, params, modality, *, impl=None):

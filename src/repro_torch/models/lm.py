@@ -38,18 +38,20 @@ class StackedMk:
     def __init__(self, mk, g: int):
         self.mk, self.g = mk, g
 
-    def __call__(self, shape, scale="fan_in"):
-        return self.mk((self.g,) + tuple(shape), scale)
+    def __call__(self, shape, axes, scale="fan_in"):
+        return self.mk((self.g,) + tuple(shape), ("stack",) + tuple(axes),
+                       scale)
 
 
 def build(cfg, mk):
     d, v = cfg.d_model, cfg.vocab_size
     pattern, G, pre = B.group_pattern(cfg)
-    p = {"embed": mk((v, d), 0.02), "final_norm": mk((d,), "zeros")}
+    p = {"embed": mk((v, d), ("vocab", None), 0.02),
+         "final_norm": mk((d,), (None,), "zeros")}
     if not cfg.tie_embeddings:
-        p["lm_head"] = mk((d, v))
+        p["lm_head"] = mk((d, v), (None, "vocab"))
     if cfg.modality_dim:
-        p["mod_proj"] = mk((cfg.modality_dim, d))
+        p["mod_proj"] = mk((cfg.modality_dim, d), (None, None))
     if pre:  # deepseek-v2: irregular dense first layer (d_ff = cfg.d_ff)
         p["pre"] = {"s0_attn": B.build_sublayer(cfg, mk, "attn"),
                     "s1_mlp": B.build_sublayer(cfg, mk, "mlp")}
@@ -74,6 +76,11 @@ def init_params(cfg, generator=None, dtype=torch.float32, device=None, *,
 def param_shapes(cfg):
     """The parameter tree with shape tuples for leaves."""
     return build(cfg, Mk())
+
+
+def logical_axes(cfg):
+    """The parameter tree with logical-axis tuples for leaves."""
+    return build(cfg, Mk(mode="axes"))
 
 
 def tree_map(fn, tree):
@@ -281,9 +288,11 @@ def init_decode_state(cfg, params, batch: int, seq: int, *, modality=None):
 @torch.inference_mode()
 def decode_step(cfg, params, state, tokens):
     """tokens: (B, 1) int -> (logits (B, 1, V), state with pos + 1).  The
-    state's caches are updated in place.  No kernel of the port runs in a
-    decode step: attention against the cache is the plain chunked path
-    (MLA's absorbed form), MoE the reference loop."""
+    state's caches are updated in place.  Attention against the cache is
+    the plain chunked path (MLA's absorbed form) and MoE the reference
+    loop, so no kernel of the port runs in a decode step, but under a
+    sharding policy, whose MoE decode dispatch bins on the rank and
+    scatter kernels (``moe._moe_replicated``)."""
     pos = state["pos"]
     x = _embed(params, tokens)
     new_state = {}

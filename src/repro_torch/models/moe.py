@@ -1,39 +1,67 @@
-"""Mixture-of-Experts (a port of ``repro.models.moe``'s one-device path).
+"""Mixture-of-Experts with the NAM/RRJ dispatch (a port of
+``repro.models.moe``).
 
 With no sharding policy JAX's ``apply_moe`` runs ``_moe_reference``, the
-loop in which every token goes through every expert, and one card has no
-policy.  The port keeps that loop as the plain version
-(:func:`_moe_reference`; decode runs it, as JAX's does) and computes the
-same function on the prefill and training path by packing
-(:func:`_moe_packed`): the router's rank kernel
+loop in which every token goes through every expert.  The port keeps
+that loop as the plain version (:func:`_moe_reference`; decode runs it,
+as JAX's does) and computes the same function on the prefill and
+training path by packing (:func:`_moe_packed`): the router's rank kernel
 (``kernels/radix_partition.py`` ``rank``) bins the T * top_k
 assignments by expert with capacity T, so none drops (a token's top-k
 experts are distinct), each expert's SwiGLU runs on its own rows only,
 and the gate-weighted outputs come back to their tokens in the
-reference's order of additions.  That is the stable binning of JAX's
-``_radix_to_buffers`` (the paper's radix-partitioned buffers, §5.2)
-with no capacity cut.  Under ``impl="plain"`` the same packing takes the
-rank's plain twin, so both paths build the same rows.
+reference's order of additions.  Under ``impl="plain"`` the same packing
+takes the rank's plain twin, so both paths build the same rows.
 
-JAX's RRJ dispatch (``_moe_rrj``, ``_moe_replicated``) needs a ``model``
-mesh axis: it comes with ROADMAP queue 1 item 8.
+Under a policy whose mesh has a ``model`` axis of more than one shard
+that divides the experts, ``apply_moe`` runs JAX's expert-parallel
+dispatch over the mesh's shards (``launch/mesh.py``: emulated on one
+card, a host thread a shard):
+
+  - :func:`_moe_rrj` (prefill): the paper's RDMA Radix Join mapped to
+    tokens.  Each shard bins its tokens' assignments by owner shard into
+    fixed-capacity send buffers (§5.2's software-managed buffers: the
+    router's rank and scatter kernels, ``fabric/router.py``), one
+    ``all_to_all`` over 'model' ships them, a second radix pass (rank
+    and scatter again) bins the received rows by local expert, the
+    experts run, and the paired ``all_to_all`` returns the results.
+    Expert weights are FSDP-sharded over 'data' and gathered in the
+    body (the one-sided READ).  Assignments past a buffer's capacity
+    drop, as in JAX: which ones depends on the order of arrival, which
+    is JAX's (token-major, each token's experts in top-k order);
+  - :func:`_moe_replicated` (decode, or one position): every shard sees
+    the few tokens, bins those routed to its own experts (one rank and
+    one scatter), multiplies its D-slice of the weights, and two psums
+    assemble the result: the weights stay put.
+
+The combine adds a token's k gate-weighted results in top-k order (a
+fixed order: no atomics), and every collective combines in the order of
+its axis, so the kernel path and the plain path give the same values.
+Neither dispatch has a backward: the route packs rows into int32 lanes.
 """
 from __future__ import annotations
+
+import math
+from functools import partial
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.fabric.router import plan_route, route
 from repro_torch.kernels import ops
+from repro_torch.launch.mesh import shard_map
+from repro_torch.sharding.policy import P, current_policy
 
 
 def build_moe(cfg, mcfg, mk):
     d, f, e = cfg.d_model, mcfg.d_ff, mcfg.num_experts
-    p = {"router": mk((d, e)), "wi": mk((e, d, 2 * f)),
-         "wo": mk((e, f, d))}
+    p = {"router": mk((d, e), ("embed", None)),
+         "wi": mk((e, d, 2 * f), ("experts", "embed", None)),
+         "wo": mk((e, f, d), ("experts", None, "embed"))}
     if mcfg.num_shared:
         sf = mcfg.shared_d_ff or f
-        p["shared_wi"] = mk((d, 2 * sf * mcfg.num_shared))
-        p["shared_wo"] = mk((sf * mcfg.num_shared, d))
+        p["shared_wi"] = mk((d, 2 * sf * mcfg.num_shared), ("embed", "ff"))
+        p["shared_wo"] = mk((sf * mcfg.num_shared, d), ("ff", "embed"))
     return p
 
 
@@ -55,6 +83,13 @@ def _expert_ffn(h_in, wi, wo):
     """One expert's SwiGLU: h_in (C, D), wi (D, 2F), wo (F, D)."""
     g, u = (h_in @ wi).chunk(2, dim=-1)
     return (F.silu(g) * u) @ wo
+
+
+def _expert_ffn_grouped(h_in, wi, wo):
+    """Every local expert's SwiGLU at once: h_in (E, C, D), wi (E, D, 2F),
+    wo (E, F, D)."""
+    g, u = torch.bmm(h_in, wi).chunk(2, dim=-1)
+    return torch.bmm(F.silu(g) * u, wo)
 
 
 def aux_load_balance(mcfg, xt, router_w):
@@ -118,15 +153,223 @@ def _moe_packed(cfg, mcfg, p, x, *, impl=None):
     return out.reshape(B, S, D)
 
 
+# ------------------------------------------------------------------- RRJ --
+
+def _round8(n: int) -> int:
+    return max(8, int(math.ceil(n / 8)) * 8)
+
+
+def _zero_row(y):
+    """y with a zero row appended: the row a dropped slot reads."""
+    return torch.cat([y, y.new_zeros((1,) + tuple(y.shape[1:]))])
+
+
+def _radix_to_buffers(xt, dest, src_slot, meta, num_dest: int, cap: int, *,
+                      impl=None):
+    """Software-managed buffer fill (paper §5.2): the assignments binned by
+    destination in arrival order, those past a destination's ``cap``
+    dropped, into (num_dest, cap) send buffers; a ``dest`` outside
+    [0, num_dest) is not sent.  The router's rank (``plan_route``) and
+    scatter (``route``): the kernels on the card.
+
+    xt: (T, D) tokens; dest: (A,) destination ids; src_slot: (A,) source
+    token of each assignment; meta: dict of (A,) payload scalars.
+    Returns (buf (num_dest*cap, D), meta_buf, valid (num_dest*cap,) f32,
+    the plan); empty slots are zero, as in JAX's."""
+    plan = plan_route(dest, n=num_dest, cap=cap, impl=impl)
+    res = route((xt[src_slot.long()], meta), plan=plan, impl=impl)
+    buf, mbuf = res.sent
+    return buf, mbuf, res.sent_valid.to(torch.float32), plan
+
+
+def _combine(y, plan, gates, T: int, k: int, dtype):
+    """Each assignment's result (``y``'s row at its slot, the zero row if
+    dropped) times its gate in ``dtype``, a token's k added to zeros in
+    top-k order."""
+    w = torch.where(plan.keep, gates, 0.0).to(dtype)
+    ya = (_zero_row(y)[plan.slot.long()] * w[:, None]).reshape(T, k, -1)
+    out = torch.zeros_like(ya[:, 0])
+    for j in range(k):
+        out = out + ya[:, j]
+    return out
+
+
+def _moe_rrj_body(mcfg, mesh, tp: int, cap: int, ecap: int, impl,
+                  kept: bool, x, router_w, wi, wo):
+    """shard_map body. x: (B_l, S_l, D); wi: (E_l, D/dp, 2F); wo likewise."""
+    local_e = wi.shape[0]
+    B_l, S_l, D = x.shape
+    k = mcfg.top_k
+    # NAM one-sided READ: fetch the FSDP-sharded expert weights for this
+    # shard, cast to the compute dtype before the gather
+    wi = mesh.all_gather(wi.to(x.dtype), "data", dim=1)
+    wo = mesh.all_gather(wo.to(x.dtype), "data", dim=2)
+
+    xt = x.reshape(-1, D)
+    T = xt.shape[0]
+    vals, idx, _ = _gates(mcfg, xt, router_w)
+    e_flat = idx.reshape(-1).to(torch.int32)
+    src = torch.arange(T, device=x.device).repeat_interleave(k)
+    dest = torch.div(e_flat, local_e, rounding_mode="floor")  # owner shard
+
+    def a2a(v):
+        return mesh.all_to_all(v.reshape((tp, cap) + tuple(v.shape[1:])),
+                               "model", 0, 0).reshape(
+                                   (tp * cap,) + tuple(v.shape[1:]))
+
+    # first radix pass and the network shuffle: one packed buffer (token
+    # row, local expert, valid lane) through one all_to_all
+    plan = plan_route(dest, n=tp, cap=cap, impl=impl)
+    got = route((xt[src], e_flat % local_e), plan=plan, exchange=a2a,
+                impl=impl)
+    rows, rle = got.fields
+    # second radix pass: received rows by local expert; invalid rows are
+    # not binned (their lanes are the zeros of empty slots)
+    rle = torch.where(got.valid > 0, rle, local_e)
+    plan2 = plan_route(rle, n=local_e, cap=ecap, impl=impl)
+    ebuf = route((rows,), plan=plan2, impl=impl).sent[0]
+    y = _expert_ffn_grouped(ebuf.reshape(local_e, ecap, D), wi, wo)
+    # un-bin: each received row reads its own slot, a dropped one zeros
+    back = _zero_row(y.reshape(local_e * ecap, D))[plan2.slot.long()]
+    # reverse shuffle, then combine into source tokens, gate-weighted
+    out = _combine(a2a(back), plan, vals.reshape(-1), T, k, x.dtype)
+    out = out.reshape(B_l, S_l, D)
+    if not kept:
+        return out
+    kept2 = _zero_row(a2a(plan2.keep.to(torch.int32)))[plan.slot.long()]
+    return out, (plan.keep & (kept2 > 0)).reshape(B_l, S_l, k)
+
+
+def _batch(pol, x) -> tuple:
+    """(the policy's mesh, the batch's mesh axes, their shard count),
+    checked against x."""
+    mesh = pol.mesh
+    axes = P.names(pol.rules.get("batch"))
+    n = math.prod(mesh.shape[a] for a in axes)
+    if x.shape[0] % n:
+        raise ValueError(f"the MoE batch of shape {tuple(x.shape)} does not "
+                         f"split over {axes} of mesh {mesh.shape}")
+    if mesh.device != x.device:
+        raise ValueError(f"the mesh runs on {mesh.device}, the tokens lie "
+                         f"on {x.device}")
+    return mesh, axes, n
+
+
+_W_SPECS = (P(None, None), P("model", "data", None), P("model", None, "data"))
+
+
+def _moe_rrj(cfg, mcfg, p, x, *, impl=None, kept: bool = False):
+    """The RRJ dispatch over the policy's mesh; with ``kept``, also
+    (B, S, top_k) bool: which assignments reached their expert."""
+    mesh, batch_axes, bsh = _batch(current_policy(), x)
+    tp = mesh.shape["model"]
+    B, S, D = x.shape
+    if S % tp:
+        raise ValueError(f"the MoE sequence of shape {tuple(x.shape)} does "
+                         f"not split over 'model' of mesh {mesh.shape}")
+    T_local = (B // bsh) * (S // tp)
+    local_e = mcfg.num_experts // tp
+    # software-managed buffer capacities (paper: reserve remote buffers)
+    cap = _round8(int(T_local * mcfg.top_k / tp * mcfg.capacity_factor))
+    ecap = min(_round8(int(tp * cap / local_e * mcfg.capacity_factor)),
+               _round8(tp * cap))
+    body = partial(_moe_rrj_body, mcfg, mesh, tp, cap, ecap, impl, kept)
+    xspec = P(batch_axes, "model", None)
+    f = shard_map(body, mesh, (xspec,) + _W_SPECS,
+                  (xspec, xspec) if kept else xspec)
+    return f(x, p["router"], p["wi"], p["wo"])
+
+
+# ---------------------------------------------------------------- decode --
+
+def _moe_replicated_body(mcfg, mesh, do_gather: bool, impl, kept: bool,
+                         x, router_w, wi, wo):
+    """Decode dispatch: the expert weights stay (E/tp, D/dp, F)-sharded;
+    every shard sees all (few) tokens (an all_gather over 'data'), bins
+    those routed to its own experts into capacity buffers (local: no
+    shuffle), multiplies its D-slice of the weights, and two psums
+    (data: hidden partials; model: the experts' combine) assemble the
+    result."""
+    local_e = wi.shape[0]
+    B_l, S_l, D = x.shape
+    d_l = wi.shape[1]                                  # D / dp
+    dp = D // d_l
+    k = mcfg.top_k
+    me_m = mesh.axis_index("model")
+    me_d = mesh.axis_index("data")
+
+    xt = x.reshape(-1, D)
+    xt_all = (mesh.all_gather(xt, "data", dim=0)
+              if do_gather and dp > 1 else xt)
+    T = xt_all.shape[0]
+    vals, idx, _ = _gates(mcfg, xt_all, router_w)
+    a_flat = idx.reshape(-1).to(torch.int32)
+    src = torch.arange(T, device=x.device).repeat_interleave(k)
+    # assignments owned by my model shard -> local expert bins
+    mine = torch.div(a_flat, local_e, rounding_mode="floor") == me_m
+    dest = torch.where(mine, a_flat % local_e, local_e)
+    cap = _round8(int(T * k / max(local_e, 1) * mcfg.capacity_factor))
+    cap = min(cap, _round8(T * k))
+    # bin my D-slice of the tokens (the weights' D shard) into the bins
+    ebuf, _, _, plan = _radix_to_buffers(
+        xt_all[:, me_d * d_l:(me_d + 1) * d_l], dest, src, {}, local_e, cap,
+        impl=impl)
+    h = torch.bmm(ebuf.reshape(local_e, cap, d_l), wi.to(x.dtype))
+    h = mesh.psum(h, "data")                           # (E_l, cap, 2F)
+    g, u = h.chunk(2, dim=-1)
+    y = torch.bmm(F.silu(g) * u, wo.to(x.dtype))       # (E_l, cap, D/dp)
+    out = _combine(y.reshape(local_e * cap, d_l), plan, vals.reshape(-1),
+                   T, k, x.dtype)
+    out = mesh.psum(out, "model")
+    out = mesh.all_gather(out, "data", dim=1)          # (T, D)
+    mine_rows = slice(me_d * B_l * S_l, (me_d + 1) * B_l * S_l)
+    if T != xt.shape[0]:
+        out = out[mine_rows]
+    out = out.reshape(B_l, S_l, D)
+    if not kept:
+        return out
+    got = mesh.psum(plan.keep.to(torch.int32), "model").reshape(T, k)
+    if T != xt.shape[0]:
+        got = got[mine_rows]
+    return out, (got > 0).reshape(B_l, S_l, k)
+
+
+def _moe_replicated(cfg, mcfg, p, x, *, impl=None, kept: bool = False):
+    mesh, batch_axes, _ = _batch(current_policy(), x)
+    xspec = P(batch_axes, None, None)
+    body = partial(_moe_replicated_body, mcfg, mesh, bool(batch_axes), impl,
+                   kept)
+    f = shard_map(body, mesh, (xspec,) + _W_SPECS,
+                  (xspec, xspec) if kept else xspec)
+    return f(x, p["router"], p["wi"], p["wo"])
+
+
+# ------------------------------------------------------------------ api ---
+
 def apply_moe(cfg, mcfg, p, x, *, decode: bool = False, impl=None):
-    """x: (B, S, D) -> (y, aux loss).  Decode runs the reference loop (JAX's
-    one-device decode); the full sequence the packed experts, ``impl``
-    picking the rank's dispatch (None: the kernel on the card).  Shared
-    experts are a dense SwiGLU added to every token."""
+    """x: (B, S, D) -> (y, aux loss).  With no policy, a ``model`` axis of
+    one shard, or experts it does not divide: decode runs the reference
+    loop (JAX's one-device decode), the full sequence the packed experts.
+    Otherwise decode or one position runs :func:`_moe_replicated`, the
+    full sequence :func:`_moe_rrj`.  ``impl`` picks the kernels' dispatch
+    (None: the kernels on the card).  Shared experts are a dense SwiGLU
+    added to every token."""
+    pol = current_policy()
     xt = x.reshape(-1, x.shape[-1])
     aux = aux_load_balance(mcfg, xt, p["router"])
-    y = (_moe_reference(cfg, mcfg, p, x) if decode
-         else _moe_packed(cfg, mcfg, p, x, impl=impl))
+    tp = 1 if pol is None else pol.mesh.shape.get("model", 1)
+    if tp == 1 or mcfg.num_experts % tp:
+        y = (_moe_reference(cfg, mcfg, p, x) if decode
+             else _moe_packed(cfg, mcfg, p, x, impl=impl))
+    else:
+        if torch.is_grad_enabled() and any(
+                t.requires_grad for t in (x, p["router"], p["wi"], p["wo"])):
+            raise NotImplementedError(
+                "the RRJ MoE dispatch has no backward: its route packs rows "
+                "into int32 lanes (ROADMAP.md queue 1, item 8)")
+        y = (_moe_replicated(cfg, mcfg, p, x, impl=impl)
+             if decode or x.shape[1] == 1
+             else _moe_rrj(cfg, mcfg, p, x, impl=impl))
     if mcfg.num_shared:
         g, u = torch.einsum("bsd,df->bsf", x, p["shared_wi"].to(
             x.dtype)).chunk(2, dim=-1)

@@ -32,14 +32,19 @@ def build_ssm(cfg, mk):
     d = cfg.d_model
     d_in, nheads, gn = dims(cfg)
     return {
-        "wz": mk((d, d_in)), "wx": mk((d, d_in)), "wB": mk((d, gn)),
-        "wC": mk((d, gn)), "wdt": mk((d, nheads)),
-        "conv_x": mk((s.conv_kernel, d_in), 0.1),
-        "conv_B": mk((s.conv_kernel, gn), 0.1),
-        "conv_C": mk((s.conv_kernel, gn), 0.1),
-        "A_log": mk((nheads,), "zeros"), "D": mk((nheads,), "ones"),
-        "dt_bias": mk((nheads,), "zeros"), "gnorm": mk((d_in,), "zeros"),
-        "wo": mk((d_in, d)),
+        "wz": mk((d, d_in), ("embed", "ssm_inner")),
+        "wx": mk((d, d_in), ("embed", "ssm_inner")),
+        "wB": mk((d, gn), ("embed", None)),
+        "wC": mk((d, gn), ("embed", None)),
+        "wdt": mk((d, nheads), ("embed", "heads")),
+        "conv_x": mk((s.conv_kernel, d_in), (None, "ssm_inner"), 0.1),
+        "conv_B": mk((s.conv_kernel, gn), (None, None), 0.1),
+        "conv_C": mk((s.conv_kernel, gn), (None, None), 0.1),
+        "A_log": mk((nheads,), ("heads",), "zeros"),
+        "D": mk((nheads,), ("heads",), "ones"),
+        "dt_bias": mk((nheads,), ("heads",), "zeros"),
+        "gnorm": mk((d_in,), ("ssm_inner",), "zeros"),
+        "wo": mk((d_in, d), ("ssm_inner", "embed")),
     }
 
 

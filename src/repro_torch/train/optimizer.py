@@ -5,9 +5,10 @@ Functional, as in the JAX package: ``opt.init(params) -> state``;
 ``opt.update(grads, state, params) -> (new_params, new_state)``, with new
 tensors out (nothing is updated in place).  The step counter is a 0-d
 int32 tensor on the parameters' device, as JAX's is an int32 scalar, so
-a checkpoint holds the same arrays in both packages.  The sharding axes
-of the JAX optimizer (``state_logical_axes``) come with the sharding
-policy (``ROADMAP.md`` queue 1 item 8).
+a checkpoint holds the same arrays in both packages.
+``opt.state_logical_axes(param_axes)`` gives the state's logical axes
+from the parameters' (``api.param_logical_axes``), as JAX's does, for
+``train_step.opt_state_shardings``.
 """
 from __future__ import annotations
 
@@ -17,7 +18,8 @@ from typing import Callable
 
 import torch
 
-from repro_torch.tree import leaves, tree_flatten, tree_map, tree_unflatten
+from repro_torch.tree import (leaves, map_axes, tree_flatten, tree_map,
+                              tree_unflatten)
 
 
 def global_norm(tree):
@@ -35,6 +37,7 @@ def clip_by_global_norm(grads, max_norm: float):
 class Optimizer:
     init: Callable
     update: Callable
+    state_logical_axes: Callable  # (param_axes_tree) -> state axes tree
 
 
 def warmup_cosine(step, base_lr, warmup=200, total=10_000):
@@ -80,7 +83,10 @@ def make_adamw(lr=3e-4, b1=0.9, b2=0.95, eps=1e-8, wd=0.1,
             "m": tree_unflatten(td, new_m), "v": tree_unflatten(td, new_v),
             "count": c}
 
-    return Optimizer(init, update)
+    def state_axes(param_axes):
+        return {"m": param_axes, "v": param_axes, "count": ()}
+
+    return Optimizer(init, update, state_axes)
 
 
 # -------------------------------------------------------------- Adafactor --
@@ -148,7 +154,15 @@ def make_adafactor(lr=1e-3, decay=0.8, eps=1e-30, clip_thresh=1.0,
         return (tree_unflatten(td, new_p),
                 {"s": tree_unflatten(td, new_s), "count": c})
 
-    return Optimizer(init, update)
+    def state_axes(param_axes):
+        def st(ax):
+            ax = tuple(ax)
+            if len(ax) >= 2:
+                return {"vr": ax[:-1], "vc": ax[:-2] + ax[-1:]}
+            return {"v": ax}
+        return {"s": map_axes(st, param_axes), "count": ()}
+
+    return Optimizer(init, update, state_axes)
 
 
 def _subtrees(tree, td):

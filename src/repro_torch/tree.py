@@ -13,7 +13,7 @@ import math
 import torch
 
 __all__ = ["TreeDef", "tree_flatten", "tree_flatten_with_path",
-           "tree_unflatten", "leaves", "tree_map", "ravel"]
+           "tree_unflatten", "leaves", "tree_map", "map_axes", "ravel"]
 
 
 class TreeDef:
@@ -106,6 +106,21 @@ def tree_map(fn, tree, *rest):
             raise ValueError(f"tree structures differ: {td} and {t}")
         others.append(f)
     return tree_unflatten(td, [fn(*xs) for xs in zip(flat, *others)])
+
+
+def map_axes(fn, axes, *rest):
+    """``fn`` over the leaves of a tree of logical axes (nested dicts whose
+    leaves are tuples, as ``jax.tree.map(..., is_leaf=lambda x:
+    isinstance(x, tuple))`` takes them) and the matching leaves of
+    ``rest`` (trees of the same dicts, any leaves)."""
+    if isinstance(axes, dict):
+        if any(not isinstance(r, dict) or r.keys() != axes.keys()
+               for r in rest):
+            raise ValueError(f"tree structures differ at keys "
+                             f"{sorted(axes)}")
+        return {k: map_axes(fn, v, *(r[k] for r in rest))
+                for k, v in axes.items()}
+    return fn(axes, *rest)
 
 
 def ravel(tree):

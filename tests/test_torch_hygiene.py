@@ -3,8 +3,8 @@
   * no module of ``src/repro_torch`` and not ``chip_smoke.py`` imports
     ``jax``, anything of the JAX package ``repro`` or its ``benchmarks``;
   * with no card present, every entry point that was not given
-    ``device=`` (the database, the transport, the store, the model's
-    parameters, the serving engine and its launcher, the parameter
+    ``device=`` (the database, the transport, a host mesh, the store, the
+    model's parameters, the serving engine and its launcher, the parameter
     server, the trainer and its launcher) raises instead of running on
     the CPU;
   * a kernel wrapper given a CPU tensor raises before it builds anything;
@@ -27,6 +27,7 @@ from repro_torch.db import Database
 from repro_torch.kernels import (cas_lock, flash_attention, grouped_agg, ops,
                                  radix_partition, ssd_scan)
 from repro_torch.launch import serve as launch_serve
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.launch import train as launch_train
 from repro_torch.models import api
 from repro_torch.serving import ServeEngine
@@ -65,7 +66,9 @@ def test_port_files_found():
             "bench/train.py", "tree.py", "fabric/sim.py", "fabric/check.py",
             "bench/workloads.py", "bench/fig10_contention.py",
             "bench/fig_scale.py", "fabric/tier.py", "serving/paging.py",
-            "bench/fig_serve.py", "models/moe.py", "models/encdec.py"} <= names
+            "bench/fig_serve.py", "models/moe.py", "models/encdec.py",
+            "sharding/__init__.py", "sharding/policy.py",
+            "launch/mesh.py"} <= names
     assert ROOT / "chip_smoke.py" in PORT_FILES
     assert len(list((ROOT / "src" / "repro_torch" / "kernels" / "csrc")
                     .glob("*.cu"))) == 5
@@ -83,6 +86,8 @@ def test_entry_points_raise_without_a_card(no_card):
         fabric.LocalTransport()
     with pytest.raises(RuntimeError, match="CUDA"):
         fabric.MeshTransport(4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_host_mesh(2, 4)
     with pytest.raises(RuntimeError, match="CUDA"):
         rsi.init_store(rsi.StoreCfg(num_records=4))
     with pytest.raises(RuntimeError, match="CUDA"):

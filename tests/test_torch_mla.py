@@ -125,8 +125,8 @@ def mla(monkeypatch):
     monkeypatch.setattr(jlm, "ACT_DTYPE", jnp.float32)
     monkeypatch.setattr(lm, "ACT_DTYPE", torch.float32)
     jcfg, cfg = jred(jget(ARCH)), reduce_config(get_config(ARCH))
-    shapes = attn.build_mla(cfg, lambda shape, scale="fan_in": (shape,
-                                                                 scale))
+    shapes = attn.build_mla(cfg, lambda shape, axes, scale="fan_in":
+                            (shape, scale))
     rng = np.random.default_rng(12)
     p = {k: (np.zeros(shp, np.float32) if scale == "zeros" else
              (rng.standard_normal(shp) / np.sqrt(shp[-2] if len(shp) > 1
