@@ -34,6 +34,15 @@ bf16 weights drawn on the device from seed 0:
   block space, ``slots`` decoding a round); launches, CAS claims and
   seconds are taken per tick, and the seconds of each decode step apart
   from those of the swaps around it.
+* :func:`count_on_device`, :func:`count_on_meta` (or, in a process of
+  its own, :func:`start_count_on_meta`): the prefill step counted once
+  by ``launch/roofline.py`` on the card and on meta tensors of the same
+  shapes (what the card can count must agree, :func:`counts_agree`);
+  :func:`roofline_row`: the row and the measured share.
+* :func:`rrj_grad_check` (under a sharding policy): one MoE layer's RRJ
+  gradients, kernel path against plain path and against the one-shard
+  packed experts at the tokens that dropped nothing, with a
+  dropped-expert control.
 """
 from __future__ import annotations
 
@@ -45,9 +54,10 @@ import numpy as np
 import torch
 
 from repro_torch._bits import resolve_device
-from repro_torch.configs import get_config, reduce_config
+from repro_torch.configs import ShapeCfg, get_config, reduce_config
 from repro_torch.kernels import flash_attention, ops, radix_partition, \
     ssd_scan
+from repro_torch.launch import roofline
 from repro_torch.models import api, lm, moe
 from repro_torch.serving import Request, ServeEngine
 from repro_torch.sharding import set_policy
@@ -518,3 +528,193 @@ def paged_engine(cfg, params, *, slots: int = SLOTS, max_seq: int = MAX_SEQ,
                      for v in ("read_cold", "write_cold")},
             "tiers": fab.get("tiers"),
             "fabric": fab}
+
+
+# ------------------------------------------------------------- counting --
+
+def _seen(count: roofline.StepCounter, live: bool) -> dict:
+    """What the card can count of a step (``launch/roofline.py``): the
+    kernelized totals, the collectives, the regions; the peak live bytes
+    only without a mesh (the card's shards run in turns, all alive at
+    once, where a meta mesh runs one body for all); and, to show where
+    two counts differ, the kernelized bytes by op outside the shard
+    bodies and in shard 0's."""
+    t = count.totals()
+    out = {"flops_k": t["flops_k"], "bytes_k": t["bytes_k"],
+           "collectives": t["collectives"], "regions": t["regions"]}
+    if live:
+        out["peak_live_k"] = count.peak_live_k
+    out["by_op"] = {f"{scope}:{k}": v for scope in (None, 0)
+                    if scope in count.tallies
+                    for k, v in count.tallies[scope].bytes_by_op.items()
+                    if v}
+    return out
+
+
+def count_on_device(cfg, params, *, batch: int, seq: int, mesh=None) -> dict:
+    """The prefill step on (batch, seq) prompt tokens counted once on the
+    parameters' device (under ``make_policy(mesh)`` when given).  On the
+    card the kernels are regions that credit themselves."""
+    from repro_torch.sharding import make_policy
+    step = build_prefill_step(cfg)
+    dev = params["embed"].device
+    b = {"tokens": prompt(cfg, batch, seq, dev),
+         "modality": modality(cfg, batch, dev)}
+    t0 = time.perf_counter()
+    with set_policy(None if mesh is None else make_policy(mesh)), \
+            roofline.StepCounter() as c:
+        step(params, b)
+    return {"seen": _seen(c, mesh is None),
+            "per_shard": {i: c.tallies[i].collectives for i in c.shards},
+            "seconds": time.perf_counter() - t0}
+
+
+def count_on_meta(cfg, *, batch: int, seq: int, mesh_shape=None) -> dict:
+    """The same step counted by the dry-run (``dryrun.count_cell``: bf16
+    parameters from ``api.param_shapes`` on meta tensors, int64 tokens as
+    the card's prompts), under the meta twin of a (data, model) mesh of
+    ``mesh_shape`` when given: what the card can count, the step's
+    argument bytes per device, and ``roofline.analyze``'s row (its
+    JAX-comparable totals hold the plain ops inside the kernel regions,
+    which the card does not see)."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+    mesh = None if mesh_shape is None else make_host_mesh(*mesh_shape,
+                                                          device="meta")
+    shape = ShapeCfg("measured", seq, batch, "prefill")
+    c, nbytes, secs = dryrun.count_cell(cfg, shape, mesh,
+                                        tokens_dtype=torch.int64)
+    n = 1 if mesh is None else mesh.size
+    return {"seen": _seen(c, mesh is None), "argument_bytes": nbytes,
+            "row": roofline.analyze(cfg, shape, c, n), "n_chips": n,
+            "seconds": secs}
+
+
+def _count_on_meta_into(queue, cfg, kw):
+    queue.put(count_on_meta(cfg, **kw))
+
+
+def start_count_on_meta(cfg, **kw):
+    """:func:`count_on_meta` in a process of its own (spawned: it starts
+    no CUDA context), so that the CPU work runs beside the card's; read it
+    with :func:`join_count_on_meta`."""
+    import multiprocessing
+    ctx = multiprocessing.get_context("spawn")
+    queue = ctx.Queue()
+    proc = ctx.Process(target=_count_on_meta_into, args=(queue, cfg, kw),
+                       daemon=True)
+    proc.start()
+    return proc, queue
+
+
+def join_count_on_meta(handle, timeout: float = 900.0) -> dict:
+    proc, queue = handle
+    try:
+        return queue.get(timeout=timeout)
+    finally:
+        proc.join(timeout=60)
+        if proc.is_alive():
+            proc.kill()
+            proc.join()
+
+
+def counts_agree(device: dict, meta: dict) -> tuple:
+    """(equal, the device's view, the meta device's) of what the card can
+    count; the views keep their bytes by op only where they differ."""
+    a, b = dict(device["seen"]), dict(meta["seen"])
+    da, db = a.pop("by_op"), b.pop("by_op")
+    equal = a == b
+    if not equal:
+        keys = {k for k in set(da) | set(db) if da.get(k) != db.get(k)}
+        a["by_op"] = {k: da.get(k, 0) for k in keys}
+        b["by_op"] = {k: db.get(k, 0) for k in keys}
+    return equal, a, b
+
+
+def roofline_row(meta: dict, *, median_s: float) -> dict:
+    """The meta count's roofline row with the measured median step and
+    ``mfu``: MODEL_FLOPS over the bf16 peak over that median."""
+    from repro_torch.core.costmodel import H100
+    row = dict(meta["row"])
+    mf = row["model_flops_per_chip"] * meta["n_chips"]
+    row.update(model_flops=mf, median_s=median_s,
+               mfu=mf / H100.peak_flops_bf16 / median_s,
+               kernelized_bound_over_median=row["bound_s_kernelized"]
+               / median_s)
+    return row
+
+
+def packed_expert_dropped(cfg, mcfg, p, x):
+    """``moe._moe_packed`` with one expert's weights zeroed (the first
+    choice of the first token, so it has work): a dispatch that lost an
+    expert's rows, whose gradients for that expert are zero."""
+    _, idx, _ = moe._gates(mcfg, x.reshape(-1, x.shape[-1])[:1],
+                           p["router"])
+    e = int(idx[0, 0])
+    q = dict(p, wi=[w * 0 if i == e else w for i, w in enumerate(p["wi"])])
+    return moe._moe_packed(cfg, mcfg, q, x)
+
+
+def rrj_grad_check(cfg, layer, x, g, *, tol: float) -> dict:
+    """One MoE layer's RRJ gradients under the caller's policy (its mesh
+    on the card): the gradients of x, the router, wi and wo, with the
+    output gradient ``g`` zeroed at the tokens any of whose assignments
+    dropped, through the kernels and through their plain twins (equal to
+    the bit), and against the one-shard packed experts (autograd, no
+    policy) within ``tol`` a leaf (the norm of the difference over the
+    packed gradient's); :func:`packed_expert_dropped`, a packed layer
+    with an expert dropped, must read above ``tol``.  The backward's
+    kernel launches are counted on their own."""
+    mcfg = cfg.moe
+    p = {k: layer[k] for k in ("router", "wi", "wo")}
+    with torch.no_grad():
+        _, kept = moe._moe_rrj(cfg, mcfg, p, x, kept=True)
+    clean = kept.all(-1)
+    gm = torch.where(clean[..., None], g, torch.zeros_like(g))
+    names = ("x", "router", "wi", "wo")
+
+    def rrj(impl):
+        leaves = [t.detach().requires_grad_(True) for t in (x, *p.values())]
+        y = moe._moe_rrj(cfg, mcfg, dict(zip(p, leaves[1:])), leaves[0],
+                         impl=impl)
+        ops.reset_launch_counts()
+        grads = torch.autograd.grad(y, leaves, gm)
+        launches = {k: v for k, v in ops.launch_counts().items() if v}
+        return dict(zip(names, grads)), launches
+
+    def packed(fn):
+        """Autograd of a one-shard layer, the experts as one leaf each
+        (a slice of one stacked leaf would write a full-size gradient per
+        expert)."""
+        xs = x.detach().requires_grad_(True)
+        r = p["router"].detach().requires_grad_(True)
+        wi = [t.detach().requires_grad_(True) for t in p["wi"].unbind(0)]
+        wo = [t.detach().requires_grad_(True) for t in p["wo"].unbind(0)]
+        with set_policy(None):
+            y = fn(cfg, mcfg, {"router": r, "wi": wi, "wo": wo}, xs)
+        leaves = [xs, r, *wi, *wo]
+        grads = torch.autograd.grad(y, leaves, gm, allow_unused=True)
+        # an expert no token reached is unused: its gradient is zero
+        gx, gr, *gw = (torch.zeros_like(t) if d is None else d
+                       for t, d in zip(leaves, grads))
+        E = len(wi)
+        return {"x": gx, "router": gr, "wi": torch.stack(gw[:E]),
+                "wo": torch.stack(gw[E:])}
+
+    def rel(a, b):
+        return {k: float((a[k].float() - b[k].float()).norm()
+                         / b[k].float().norm().clamp_min(1e-30))
+                for k in names}
+
+    kern, launches = rrj(None)
+    plain, _ = rrj("plain")
+    equal = {k: bool(torch.equal(kern[k], plain[k])) for k in names}
+    del plain
+    want = packed(lambda c, m, q, xs: moe._moe_packed(c, m, q, xs))
+    out = {"tokens": int(clean.numel()), "clean_tokens": int(clean.sum()),
+           "dropped": int((~kept).sum()), "assignments": kept.numel(),
+           "kernel_equals_plain": equal, "vs_packed": rel(kern, want),
+           "held_to": tol, "backward_launches": launches}
+    del want
+    out["control"] = rel(kern, packed(packed_expert_dropped))
+    return out

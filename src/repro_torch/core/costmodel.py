@@ -7,10 +7,10 @@ the port's :mod:`repro_torch.fabric.netsim`:
    §5.3 aggregation models the planner prices.
 2. The paper's OLTP message model (§4.1.3) — feeds Fig 6.
 3. The §6 parameter-server communication model.
-
-The JAX package's TPU roofline block (``TpuSpec``, ``roofline_terms``,
-``model_flops*``) is left out: an H100 counterpart comes with the
-launch roofline and report (ROADMAP.md queue 1, item 8, step 5).
+4. The roofline block of the card (:class:`GpuSpec`, :data:`H100`,
+   :func:`roofline_terms`, :func:`model_flops`, :func:`model_flops_fwd`),
+   the counterpart of the JAX package's TPU block: the peaks that every
+   bound of the port reads (``launch/roofline.py``, ``chip_smoke.py``).
 """
 from __future__ import annotations
 
@@ -218,3 +218,49 @@ class OltpModel:
         """RSI is RNIC/bandwidth-bound (server CPUs idle): the paper's
         ~2.4M txn/s cap for 1KB x 3 records on dual-port FDR."""
         return self.trx_upper_bound_bw("rdma", ports)
+
+
+# ------------------------------------------------------- GPU roofline -----
+
+@dataclass(frozen=True)
+class GpuSpec:
+    """Datasheet peaks of one card (dense tensor-core rates, no sparsity).
+
+    ``link_bw`` is the bandwidth one GPU has to the rest of an n-GPU node
+    in one direction: on an H100 SXM, 18 NVLink-4 links of 25 GB/s each
+    way, 450 GB/s, through the node's NVSwitches.  It takes the place of
+    the TPU block's ``ici_link_bw`` in the collective term."""
+    name: str = "H100 SXM5 80GB (700 W)"
+    peak_flops_bf16: float = 989e12       # dense bf16 tensor cores
+    peak_flops_tf32: float = 495e12       # dense TF32 tensor cores
+    peak_flops_f32: float = 67e12         # float32 outside the tensor cores
+    hbm_bw: float = 3.35e12               # B/s of HBM3
+    link_bw: float = 450e9                # B/s NVLink-4, one direction
+    hbm_bytes: int = 80 * 10 ** 9
+
+
+H100 = GpuSpec()
+
+
+def roofline_terms(flops_per_chip: float, hbm_bytes_per_chip: float,
+                   collective_bytes_per_chip: float, spec: GpuSpec = H100):
+    """Three-term roofline (seconds per step, per chip): the dot FLOPs at
+    the bf16 peak, the HBM bytes at the memory rate, the collective bytes
+    over the card's links; the largest term bounds the step."""
+    t_c = flops_per_chip / spec.peak_flops_bf16
+    t_m = hbm_bytes_per_chip / spec.hbm_bw
+    t_n = collective_bytes_per_chip / spec.link_bw
+    terms = {"compute_s": t_c, "memory_s": t_m, "collective_s": t_n}
+    dom = max(terms, key=terms.get)
+    terms["dominant"] = dom
+    terms["bound_s"] = terms[dom]
+    return terms
+
+
+def model_flops(n_active_params: float, tokens: float) -> float:
+    """MODEL_FLOPS = 6 * N_active * D (train); 2 * N * D (inference fwd)."""
+    return 6.0 * n_active_params * tokens
+
+
+def model_flops_fwd(n_active_params: float, tokens: float) -> float:
+    return 2.0 * n_active_params * tokens

@@ -26,6 +26,7 @@ from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import grouped_agg as _ga
 from repro_torch.kernels import radix_partition as _rp
 from repro_torch.kernels import ref
+from repro_torch.kernels._region import region
 from repro_torch.kernels import ssd_scan as _ssd
 
 IMPLS = ("kernel", "plain")
@@ -64,23 +65,29 @@ def reset_launch_counts():
 
 def rank(dest, n: int, cap: int, *, impl=None):
     """(slot, keep, overflow, counts) of ``dest`` into n buckets of cap."""
-    dest = dest.to(torch.int32).contiguous()
-    if resolve_impl(dest, impl) == "kernel":
-        return _rp.rank(dest, n, cap)
-    return ref.rank(dest, n, cap)
+    with region("rank") as r:
+        d = dest.to(torch.int32).contiguous()
+        out = (_rp.rank(d, n, cap) if resolve_impl(d, impl) == "kernel"
+               else ref.rank(d, n, cap))
+        r.io(dest, out=out)
+    return out
 
 
 def scatter_rows(rows, slot, num_slots: int, *, counts, mask=None,
                  impl=None):
     """int32 ``rows`` into the (num_slots, w + 1) wire buffer, the valid
     lane appended; ``slot`` and ``counts`` are :func:`rank`'s."""
-    rows = rows.contiguous()
-    slot = slot.to(torch.int32).contiguous()
-    if mask is not None:
-        mask = mask.to(torch.bool).contiguous()
-    if resolve_impl(rows, impl) == "kernel":
-        return _rp.scatter(rows, slot, num_slots, counts=counts, mask=mask)
-    return ref.scatter(rows, slot, num_slots, counts=counts, mask=mask)
+    with region("scatter") as r:
+        args = (rows, slot, counts, mask)
+        rows = rows.contiguous()
+        slot = slot.to(torch.int32).contiguous()
+        if mask is not None:
+            mask = mask.to(torch.bool).contiguous()
+        out = (_rp.scatter if resolve_impl(rows, impl) == "kernel"
+               else ref.scatter)(rows, slot, num_slots, counts=counts,
+                                 mask=mask)
+        r.io(*args, out=out)
+    return out
 
 
 def cas(words, idx, expected, new, priority, *, impl=None):
@@ -217,6 +224,13 @@ def flash_attention(q, k, v, *, causal: bool = True, impl=None,
     autograd must differentiate raises without it), and the plain path
     runs it in place of the plain twin, so both paths differentiate the
     same function."""
+    with region("flash_attention", q.shape, k.shape, v.shape, causal) as r:
+        out = _flash_attention(q, k, v, causal, impl, backward)
+        r.io(q, k, v, out=out)
+    return out
+
+
+def _flash_attention(q, k, v, causal, impl, backward):
     if resolve_impl(q, impl) == "kernel":
         if _wants_grad(q, k, v):
             if backward is None:
@@ -234,6 +248,13 @@ def ssd_scan(xh, bv, cv, dt, a, state0=None, *, impl=None, backward=None):
     (B, H, hd, N) f32), from ``state0`` (zeros if None).
     ``backward(xh, bv, cv, dt, a, state0) -> (y, state)``: the plain
     function the model trains through, as in :func:`flash_attention`."""
+    with region("ssd_scan", xh.shape, bv.shape) as r:
+        out = _ssd_scan(xh, bv, cv, dt, a, state0, impl, backward)
+        r.io(xh, bv, cv, dt, a, state0, out=out)
+    return out
+
+
+def _ssd_scan(xh, bv, cv, dt, a, state0, impl, backward):
     if resolve_impl(xh, impl) == "kernel":
         if _wants_grad(xh, bv, cv, dt, a, state0):
             if backward is None:

@@ -16,22 +16,27 @@ blocks (views) and runs the body once per shard on that shard's blocks;
 ``out_specs`` joins the shards' outputs the same way (an output
 dimension no spec entry names is taken from the shards at coordinate 0
 of the axes the spec leaves out).  Inside a body, :meth:`Mesh.
-axis_index`, :meth:`Mesh.all_gather`, :meth:`Mesh.psum` and
-:meth:`Mesh.all_to_all` act over a named axis: among the shards that
-share every other coordinate, combined in the order of that axis.  These
-are ``shard_map``'s collectives, not the fabric's verbs: they add
-nothing to ``transport.stats()``.
+axis_index`, :meth:`Mesh.all_gather`, :meth:`Mesh.psum`,
+:meth:`Mesh.psum_scatter` and :meth:`Mesh.all_to_all` act over a named
+axis: among the shards that share every other coordinate, combined in
+the order of that axis.  These are ``shard_map``'s collectives, not the
+fabric's verbs: they add nothing to ``transport.stats()``.  Under a
+step counter (``launch/roofline.py``) every shard body is counted as
+that shard's, and each collective records its bytes under the ring
+model.
 """
 from __future__ import annotations
 
 import itertools
 import math
+import threading
 from typing import Optional
 
 import torch
 
 from repro_torch._bits import resolve_device
 from repro_torch.fabric.transport import MeshTransport
+from repro_torch.launch import roofline
 from repro_torch.sharding.policy import NamedSharding, P
 
 
@@ -48,10 +53,21 @@ class Mesh:
         self.size = math.prod(shape)
         self._device = device
         self._transport: Optional[MeshTransport] = None
+        self._one = threading.local()    # a body standing for every shard
 
     @property
     def device(self) -> torch.device:
-        return self.transport.device
+        if self._transport is None:
+            return resolve_device(self._device)
+        return self._transport.device
+
+    @property
+    def on_meta(self) -> bool:
+        """A mesh on the meta device: tensors are shapes alone, so every
+        shard's body does the same work, and ``shard_map`` runs one body,
+        shard 0's, which stands for every shard (no thread is started)."""
+        return self._device is not None and \
+            torch.device(self._device).type == "meta"
 
     @property
     def transport(self) -> MeshTransport:
@@ -77,6 +93,8 @@ class Mesh:
     # ----------------------------------------------- inside a shard_map ---
 
     def shard_index(self) -> int:
+        if getattr(self._one, "on", False):
+            return 0
         return self.transport.shard_index()
 
     def axis_index(self, axis: str) -> int:
@@ -99,23 +117,45 @@ class Mesh:
         return members, members.index(me)
 
     def _collect(self, kind: str, x, axis) -> tuple:
-        vals = self.transport.gather(f"mesh.{kind}", x)
         members, me = self._members(axis)
+        if getattr(self._one, "on", False):
+            return [x] * len(members), me
+        vals = self.transport.gather(f"mesh.{kind}", x)
         return [vals[m] for m in members], me
 
     def all_gather(self, x, axis, dim: int = 0, tiled: bool = True):
         """The members' ``x`` concatenated on ``dim`` (``tiled``) or
         stacked on a new ``dim``."""
         xs, _ = self._collect("all_gather", x, axis)
-        return torch.cat(xs, dim) if tiled else torch.stack(xs, dim)
+        out = torch.cat(xs, dim) if tiled else torch.stack(xs, dim)
+        roofline.collective("all-gather", roofline.nbytes(out), len(xs))
+        return out
 
     def psum(self, x, axis):
         """The members' ``x`` summed in the order of ``axis``, in x's
         dtype."""
         xs, _ = self._collect("psum", x, axis)
+        roofline.collective("all-reduce", roofline.nbytes(x), len(xs))
         out = xs[0]
         for y in xs[1:]:
             out = out + y
+        return out
+
+    def psum_scatter(self, x, axis, dim: int = 0):
+        """Block j (of as many as ``axis`` has members) of the members'
+        ``x`` along ``dim``, summed in the order of ``axis``: member j
+        keeps block j (``tiled``, as ``jax.lax.psum_scatter``)."""
+        xs, me = self._collect("psum_scatter", x, axis)
+        n = len(xs)
+        if x.shape[dim] % n:
+            raise ValueError(f"psum_scatter: dimension {dim} of "
+                             f"{tuple(x.shape)} does not split into {n} "
+                             "blocks")
+        b = x.shape[dim] // n
+        out = xs[0].narrow(dim, me * b, b).clone()
+        for y in xs[1:]:
+            out += y.narrow(dim, me * b, b)
+        roofline.collective("reduce-scatter", roofline.nbytes(out), n)
         return out
 
     def all_to_all(self, x, axis, split: int = 0, concat: int = 0,
@@ -127,6 +167,7 @@ class Mesh:
         are concatenated on ``concat``."""
         xs, me = self._collect("all_to_all", x, axis)
         n = len(xs)
+        roofline.collective("all-to-all", roofline.nbytes(x), n)
         if tiled:
             if x.shape[split] % n:
                 raise ValueError(f"all_to_all: dimension {split} of "
@@ -147,7 +188,8 @@ def shard_map(body, mesh: Mesh, in_specs, out_specs):
     ``out_specs`` (a :class:`P`, or a tuple of them for a tuple of
     outputs).  The shards run with the caller's grad and inference modes;
     a dimension that does not divide by its shard count raises
-    ``ValueError`` before any shard runs."""
+    ``ValueError`` before any shard runs.  On a meta mesh one body stands
+    for every shard (:attr:`Mesh.on_meta`)."""
     single = isinstance(out_specs, P)
     outs_spec = (out_specs,) if single else tuple(out_specs)
 
@@ -158,19 +200,33 @@ def shard_map(body, mesh: Mesh, in_specs, out_specs):
         n = mesh.size
         shardings = [NamedSharding(mesh, P(*s)) for s in in_specs]
         blocks = [[sh.block(a, i) for sh, a in zip(shardings, args)]
-                  for i in range(n)]
+                  for i in range(1 if mesh.on_meta else n)]
         outs = [None] * n
         grad = torch.is_grad_enabled()
         infer = torch.is_inference_mode_enabled()
+        counter = roofline.active()
 
         def shard(token):
             i = mesh.shard_index()
-            with torch.inference_mode(infer), torch.set_grad_enabled(grad):
+            with torch.inference_mode(infer), torch.set_grad_enabled(grad), \
+                    roofline.shard_scope(counter, i):
                 out = body(*blocks[i])
             outs[i] = (out,) if single else tuple(out)
             return token
 
-        mesh.transport.run(shard, (torch.arange(n),), True)
+        if mesh.on_meta:
+            mesh._one.on = True
+            try:
+                with torch.inference_mode(infer), \
+                        torch.set_grad_enabled(grad), \
+                        roofline.shard_scope(counter, 0, stands_for=n):
+                    out = body(*blocks[0])
+            finally:
+                mesh._one.on = False
+            outs = [(out,) if single else tuple(out)] * n
+        else:
+            mesh.transport.run(shard, (torch.empty(n, device="meta"),),
+                               True)
         joined = tuple(_join(mesh, spec, [o[j] for o in outs])
                        for j, spec in enumerate(outs_spec))
         return joined[0] if single else joined
@@ -178,11 +234,15 @@ def shard_map(body, mesh: Mesh, in_specs, out_specs):
 
 
 def _join(mesh: Mesh, spec, values):
-    """The tensor whose ``spec`` blocks the shards' ``values`` are."""
+    """The tensor whose ``spec`` blocks the shards' ``values`` are.  On a
+    meta mesh the block copies are one copy of the whole (the same
+    bytes)."""
     sh = NamedSharding(mesh, P(*spec))
     v0 = values[0]
     parts = sh.parts(v0.dim())
     out = v0.new_empty(tuple(s * k for s, k in zip(v0.shape, parts)))
+    if mesh.on_meta:
+        return out.copy_(torch.empty_like(out))
     named = {a for e in sh.spec for a in P.names(e)}
     rest = [k for k, a in enumerate(mesh.axis_names) if a not in named]
     for i, v in enumerate(values):

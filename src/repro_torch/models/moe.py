@@ -37,7 +37,12 @@ card, a host thread a shard):
 The combine adds a token's k gate-weighted results in top-k order (a
 fixed order: no atomics), and every collective combines in the order of
 its axis, so the kernel path and the plain path give the same values.
-Neither dispatch has a backward: the route packs rows into int32 lanes.
+
+The route packs rows into int32 lanes, so autograd cannot flow through
+it: the RRJ carries a backward of its own (:class:`_RRJFn`), which
+routes the gradient back along the forward's plans, and which trains
+through the RRJ as JAX's ``jax.grad`` does.  The decode twin has none
+(JAX never trains through it).
 """
 from __future__ import annotations
 
@@ -97,7 +102,11 @@ def aux_load_balance(mcfg, xt, router_w):
     tokens' mean count of assignments to e, p_e their mean probability."""
     _, idx, probs = _gates(mcfg, xt, router_w)
     e = mcfg.num_experts
-    f = F.one_hot(idx, e).to(torch.float32).sum(1).mean(0)
+    # JAX's one_hot as a comparison: ``F.one_hot`` runs other aten ops on
+    # the meta device than on the card, and a step's count on meta must
+    # equal the card's (``launch/roofline.py``)
+    hot = idx[..., None] == torch.arange(e, device=idx.device)
+    f = hot.to(torch.float32).sum(1).mean(0)
     return e * torch.sum(f * probs.mean(0))
 
 
@@ -194,9 +203,20 @@ def _combine(y, plan, gates, T: int, k: int, dtype):
     return out
 
 
+def _a2a(mesh, tp: int, cap: int):
+    """The paired all-to-all over 'model' of a (tp * cap, ...) buffer."""
+    def a2a(v):
+        return mesh.all_to_all(v.reshape((tp, cap) + tuple(v.shape[1:])),
+                               "model", 0, 0).reshape(
+                                   (tp * cap,) + tuple(v.shape[1:]))
+    return a2a
+
+
 def _moe_rrj_body(mcfg, mesh, tp: int, cap: int, ecap: int, impl,
-                  kept: bool, x, router_w, wi, wo):
-    """shard_map body. x: (B_l, S_l, D); wi: (E_l, D/dp, 2F); wo likewise."""
+                  kept: bool, saved, x, router_w, wi, wo):
+    """shard_map body. x: (B_l, S_l, D); wi: (E_l, D/dp, 2F); wo likewise.
+    ``saved``: None, or a list whose entry for this shard takes what the
+    backward needs (the two plans, the expert inputs, the results)."""
     local_e = wi.shape[0]
     B_l, S_l, D = x.shape
     k = mcfg.top_k
@@ -211,11 +231,7 @@ def _moe_rrj_body(mcfg, mesh, tp: int, cap: int, ecap: int, impl,
     e_flat = idx.reshape(-1).to(torch.int32)
     src = torch.arange(T, device=x.device).repeat_interleave(k)
     dest = torch.div(e_flat, local_e, rounding_mode="floor")  # owner shard
-
-    def a2a(v):
-        return mesh.all_to_all(v.reshape((tp, cap) + tuple(v.shape[1:])),
-                               "model", 0, 0).reshape(
-                                   (tp * cap,) + tuple(v.shape[1:]))
+    a2a = _a2a(mesh, tp, cap)
 
     # first radix pass and the network shuffle: one packed buffer (token
     # row, local expert, valid lane) through one all_to_all
@@ -229,15 +245,135 @@ def _moe_rrj_body(mcfg, mesh, tp: int, cap: int, ecap: int, impl,
     plan2 = plan_route(rle, n=local_e, cap=ecap, impl=impl)
     ebuf = route((rows,), plan=plan2, impl=impl).sent[0]
     y = _expert_ffn_grouped(ebuf.reshape(local_e, ecap, D), wi, wo)
+    del wi, wo
     # un-bin: each received row reads its own slot, a dropped one zeros
     back = _zero_row(y.reshape(local_e * ecap, D))[plan2.slot.long()]
     # reverse shuffle, then combine into source tokens, gate-weighted
-    out = _combine(a2a(back), plan, vals.reshape(-1), T, k, x.dtype)
+    sb = a2a(back)
+    out = _combine(sb, plan, vals.reshape(-1), T, k, x.dtype)
     out = out.reshape(B_l, S_l, D)
+    if saved is not None:
+        saved[mesh.shard_index()] = (plan, plan2, ebuf, sb)
     if not kept:
         return out
     kept2 = _zero_row(a2a(plan2.keep.to(torch.int32)))[plan.slot.long()]
     return out, (plan.keep & (kept2 > 0)).reshape(B_l, S_l, k)
+
+
+def _gates_grad(mcfg, xt, router_w, d_vals):
+    """The gradients of (xt, router_w) of :func:`_gates`' renormalized
+    top-k gates given theirs, ``d_vals`` (T, k) f32, in closed form: the
+    renormalization's, the top-k's scatter, the softmax's and the router
+    product's backward.  A shard body cannot call autograd: on the card
+    the engine runs a backward's device work on one thread, which is
+    waiting for the shards."""
+    f32 = torch.float32
+    x32, r32 = xt.to(f32), router_w.to(f32)
+    probs = torch.softmax(x32 @ r32, dim=-1)
+    svals, sidx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    raw, idx = svals[:, :mcfg.top_k], sidx[:, :mcfg.top_k]
+    s = raw.sum(-1, keepdim=True)
+    sc = torch.clamp_min(s, 1e-9)
+    d_s = -(d_vals * raw).sum(-1, keepdim=True) / (sc * sc)
+    d_raw = d_vals / sc + torch.where(s >= 1e-9, d_s, 0.0)
+    d_probs = torch.zeros_like(probs).scatter(-1, idx, d_raw)
+    d_logits = probs * (d_probs - (d_probs * probs).sum(-1, keepdim=True))
+    return (d_logits @ r32.T).to(xt.dtype), (x32.T @ d_logits)
+
+
+def _expert_ffn_grad(h_in, wi, wo, d_y):
+    """The gradients of (h_in, wi, wo) of :func:`_expert_ffn_grouped`
+    given its output's, ``d_y``: the ops autograd runs for it, written
+    out (see :func:`_gates_grad`)."""
+    h = torch.bmm(h_in, wi)
+    g, u = h.chunk(2, dim=-1)
+    a = F.silu(g)
+    m = a * u
+    d_wo = torch.bmm(m.transpose(1, 2), d_y)
+    d_m = torch.bmm(d_y, wo.transpose(1, 2))
+    d_h = torch.cat([torch.ops.aten.silu_backward(d_m * u, g), d_m * a], -1)
+    return (torch.bmm(d_h, wi.transpose(1, 2)),
+            torch.bmm(h_in.transpose(1, 2), d_h), d_wo)
+
+
+def _moe_rrj_grad_body(mcfg, mesh, tp: int, cap: int, ecap: int, impl,
+                       saved, g, x, router_w, wi, wo):
+    """The RRJ's backward on one shard, along the forward's own plans (no
+    rank runs): the combine's gathers become scatters by the same slots
+    (the scatter kernel on the card, with the rank's counts), the
+    scatters gathers, the two all-to-alls run in reverse, the experts'
+    SwiGLU is differentiated on the saved expert inputs and the
+    re-gathered weights, whose gradient is reduce-scattered over 'data'.
+    The gates' gradient is each kept assignment's result row against its
+    token's output gradient; a token's k input gradients are added in
+    top-k order.  Dropped assignments carry no gradient.  Returns the
+    gradients of (x, router_w, wi, wo) of this shard."""
+    plan, plan2, ebuf, sb = saved[mesh.shard_index()]
+    local_e = wi.shape[0]
+    B_l, S_l, D = x.shape
+    k = mcfg.top_k
+    dt = x.dtype
+    T = B_l * S_l
+    xt = x.reshape(T, D)
+    gt = g.reshape(T, D).to(dt)
+    a2a = _a2a(mesh, tp, cap)
+    vals, _, _ = _gates(mcfg, xt, router_w)
+    w = torch.where(plan.keep, vals.reshape(-1), 0.0).to(dt)
+    g_rows = gt.repeat_interleave(k, dim=0)                      # (A, D)
+    # the combine: d gate = its result row . its token's gradient
+    ya = _zero_row(sb)[plan.slot.long()]
+    d_vals = (g_rows * ya).sum(-1).to(torch.float32).reshape(T, k)
+    d_vals = torch.where(plan.keep.reshape(T, k), d_vals, 0.0)
+    dx_gate, d_router = _gates_grad(mcfg, xt, router_w, d_vals)
+    # the combine's gather -> a scatter by the first plan's slots, then
+    # the reverse shuffle, then the un-bin's gather -> a scatter by the
+    # second plan's slots: each expert slot's output gradient
+    d_sb = route((g_rows * w[:, None],), plan=plan, impl=impl).sent[0]
+    d_back = a2a(d_sb)
+    d_y = route((d_back,), plan=plan2, impl=impl).sent[0]
+    del d_sb, d_back
+    wi_f = mesh.all_gather(wi.to(dt), "data", dim=1)
+    wo_f = mesh.all_gather(wo.to(dt), "data", dim=2)
+    d_e, d_wi, d_wo = _expert_ffn_grad(ebuf.reshape(local_e, ecap, D),
+                                       wi_f, wo_f,
+                                       d_y.reshape(local_e, ecap, D))
+    del wi_f, wo_f, d_y
+    d_wi = mesh.psum_scatter(d_wi, "data", dim=1).to(wi.dtype)
+    d_wo = mesh.psum_scatter(d_wo, "data", dim=2).to(wo.dtype)
+    # the second pass's scatter -> a gather; the first shuffle in
+    # reverse; the first pass's scatter -> a gather
+    d_rows = _zero_row(d_e.reshape(local_e * ecap, D))[plan2.slot.long()]
+    d_xa = _zero_row(a2a(d_rows))[plan.slot.long()].reshape(T, k, D)
+    dx = torch.zeros_like(d_xa[:, 0])
+    for j in range(k):
+        dx = dx + d_xa[:, j]
+    dx = dx + dx_gate
+    d_router = mesh.psum(d_router, ("data", "model")).to(router_w.dtype)
+    return dx.reshape(B_l, S_l, D), d_router, d_wi, d_wo
+
+
+class _RRJFn(torch.autograd.Function):
+    """The RRJ dispatch with its backward (:func:`_moe_rrj_grad_body`)."""
+
+    @staticmethod
+    def forward(ctx, x, router_w, wi, wo, setup):
+        mesh, xspec, args = setup
+        saved = [None] * mesh.size
+        f = shard_map(partial(_moe_rrj_body, *args, False, saved), mesh,
+                      (xspec,) + _W_SPECS, xspec)
+        out = f(x, router_w, wi, wo)
+        ctx.setup, ctx.saved = setup, saved
+        ctx.save_for_backward(x, router_w, wi, wo)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, xspec, args = ctx.setup
+        f = shard_map(partial(_moe_rrj_grad_body, *args, ctx.saved), mesh,
+                      (xspec, xspec) + _W_SPECS, (xspec,) + _W_SPECS)
+        grads = f(g.contiguous(), *ctx.saved_tensors)
+        ctx.saved = None
+        return (*grads, None)
 
 
 def _batch(pol, x) -> tuple:
@@ -258,9 +394,15 @@ def _batch(pol, x) -> tuple:
 _W_SPECS = (P(None, None), P("model", "data", None), P("model", None, "data"))
 
 
+def _wants_grad(*ts) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
 def _moe_rrj(cfg, mcfg, p, x, *, impl=None, kept: bool = False):
     """The RRJ dispatch over the policy's mesh; with ``kept``, also
-    (B, S, top_k) bool: which assignments reached their expert."""
+    (B, S, top_k) bool: which assignments reached their expert.  When a
+    gradient is wanted, the dispatch runs with its backward
+    (:class:`_RRJFn`), which returns no ``kept``."""
     mesh, batch_axes, bsh = _batch(current_policy(), x)
     tp = mesh.shape["model"]
     B, S, D = x.shape
@@ -273,11 +415,19 @@ def _moe_rrj(cfg, mcfg, p, x, *, impl=None, kept: bool = False):
     cap = _round8(int(T_local * mcfg.top_k / tp * mcfg.capacity_factor))
     ecap = min(_round8(int(tp * cap / local_e * mcfg.capacity_factor)),
                _round8(tp * cap))
-    body = partial(_moe_rrj_body, mcfg, mesh, tp, cap, ecap, impl, kept)
     xspec = P(batch_axes, "model", None)
+    args = (mcfg, mesh, tp, cap, ecap, impl)
+    ws = (p["router"], p["wi"], p["wo"])
+    if _wants_grad(x, *ws):
+        if kept:
+            raise NotImplementedError(
+                "the RRJ's backward returns no kept mask: ask for it "
+                "where no gradient is wanted")
+        return _RRJFn.apply(x, *ws, (mesh, xspec, args))
+    body = partial(_moe_rrj_body, *args, kept, None)
     f = shard_map(body, mesh, (xspec,) + _W_SPECS,
                   (xspec, xspec) if kept else xspec)
-    return f(x, p["router"], p["wi"], p["wo"])
+    return f(x, *ws)
 
 
 # ---------------------------------------------------------------- decode --
@@ -335,6 +485,15 @@ def _moe_replicated_body(mcfg, mesh, do_gather: bool, impl, kept: bool,
 
 
 def _moe_replicated(cfg, mcfg, p, x, *, impl=None, kept: bool = False):
+    """The decode dispatch (:func:`_moe_replicated_body`) over the
+    policy's mesh.  It has no backward (its route packs rows into int32
+    lanes, and nothing trains through decode): it raises when a gradient
+    is wanted."""
+    if _wants_grad(x, p["router"], p["wi"], p["wo"]):
+        raise NotImplementedError(
+            "the decode MoE dispatch has no backward: its route packs rows "
+            "into int32 lanes; a gradient runs through the full-sequence "
+            "RRJ")
     mesh, batch_axes, _ = _batch(current_policy(), x)
     xspec = P(batch_axes, None, None)
     body = partial(_moe_replicated_body, mcfg, mesh, bool(batch_axes), impl,
@@ -350,8 +509,8 @@ def apply_moe(cfg, mcfg, p, x, *, decode: bool = False, impl=None):
     """x: (B, S, D) -> (y, aux loss).  With no policy, a ``model`` axis of
     one shard, or experts it does not divide: decode runs the reference
     loop (JAX's one-device decode), the full sequence the packed experts.
-    Otherwise decode or one position runs :func:`_moe_replicated`, the
-    full sequence :func:`_moe_rrj`.  ``impl`` picks the kernels' dispatch
+    Otherwise decode or one position runs :func:`_moe_replicated` (no
+    backward), the full sequence :func:`_moe_rrj` (with one).  ``impl`` picks the kernels' dispatch
     (None: the kernels on the card).  Shared experts are a dense SwiGLU
     added to every token."""
     pol = current_policy()
@@ -362,11 +521,6 @@ def apply_moe(cfg, mcfg, p, x, *, decode: bool = False, impl=None):
         y = (_moe_reference(cfg, mcfg, p, x) if decode
              else _moe_packed(cfg, mcfg, p, x, impl=impl))
     else:
-        if torch.is_grad_enabled() and any(
-                t.requires_grad for t in (x, p["router"], p["wi"], p["wo"])):
-            raise NotImplementedError(
-                "the RRJ MoE dispatch has no backward: its route packs rows "
-                "into int32 lanes (ROADMAP.md queue 1, item 8)")
         y = (_moe_replicated(cfg, mcfg, p, x, impl=impl)
              if decode or x.shape[1] == 1
              else _moe_rrj(cfg, mcfg, p, x, impl=impl))

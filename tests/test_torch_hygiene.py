@@ -9,9 +9,13 @@
     the CPU;
   * a kernel wrapper given a CPU tensor raises before it builds anything;
   * every device-kernel name a wrapper lists (``KERNELS``, which the
-    profiling code reads) is a ``__global__`` function of the sources.
+    profiling code reads) is a ``__global__`` function of the sources;
+  * the dry-run of a cell makes no tensor of a parameter's size off the
+    meta device and calls no kernel;
+  * the kernels import nothing of the layers above them.
 """
 import ast
+import math
 import re
 from pathlib import Path
 
@@ -55,6 +59,20 @@ def test_port_imports_neither_jax_nor_repro(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+KERNEL_FILES = [p for p in PORT_FILES if p.parent.name == "kernels"]
+
+
+@pytest.mark.parametrize("path", KERNEL_FILES,
+                         ids=[p.name for p in KERNEL_FILES])
+def test_the_kernels_import_nothing_above_them(path):
+    """``kernels/`` is the port's lowest layer: a step counter reaches its
+    wrappers through the hook of ``kernels/_region.py``, not by import."""
+    above = [m for m in _imported_modules(path)
+             if m.startswith("repro_torch.") and m.split(".")[1]
+             not in ("kernels", "_bits")]
+    assert not above, f"{path.name} imports {above}"
+
+
 def test_port_files_found():
     names = {str(p.relative_to(ROOT / "src" / "repro_torch"))
              for p in PORT_FILES if p.name != "chip_smoke.py"}
@@ -68,7 +86,8 @@ def test_port_files_found():
             "bench/fig_scale.py", "fabric/tier.py", "serving/paging.py",
             "bench/fig_serve.py", "models/moe.py", "models/encdec.py",
             "sharding/__init__.py", "sharding/policy.py",
-            "launch/mesh.py"} <= names
+            "launch/mesh.py", "launch/roofline.py", "launch/dryrun.py",
+            "launch/report.py"} <= names
     assert ROOT / "chip_smoke.py" in PORT_FILES
     assert len(list((ROOT / "src" / "repro_torch" / "kernels" / "csrc")
                     .glob("*.cu"))) == 5
@@ -185,3 +204,37 @@ def test_listed_kernel_names_are_global_functions(mod):
     listed = {name for names in mod.KERNELS.values() for name in names}
     assert listed and listed <= _global_functions(), \
         listed - _global_functions()
+
+
+def test_the_dry_run_allocates_nothing_and_launches_no_kernel(monkeypatch):
+    """One reduced MoE train cell on a (2, 4) meta mesh (its RRJ's shard
+    bodies included): every tensor any op makes, on any thread, is on the
+    meta device or smaller than the smallest parameter, and no kernel
+    library of ``kernels/`` is loaded."""
+    from repro_torch.configs import ShapeCfg
+    from repro_torch.launch import dryrun, roofline
+    cfg = reduce_config(get_config("deepseek-v2-236b"))
+    smallest = min(math.prod(s) for _, s in roofline._walk(
+        api.param_shapes(cfg)))
+    made = []
+    record = roofline.StepCounter._record
+
+    def watch(self, func, args, kwargs, out):
+        made.extend((t.device.type, t.numel())
+                    for t in roofline._tensors(out))
+        return record(self, func, args, kwargs, out)
+
+    monkeypatch.setattr(roofline.StepCounter, "_record", watch)
+    entered = []
+    for mod in WRAPPERS:            # every launch loads its library first
+        monkeypatch.setattr(mod, "_load", lambda m=mod: entered.append(m))
+    before = ops.launch_counts()
+    row = dryrun.dry_cell("deepseek-v2-236b", "train_4k",
+                          make_host_mesh(2, 4, device="meta"), cfg=cfg,
+                          shape=ShapeCfg("train_4k", 64, 8, "train"),
+                          verbose=False, microbatches=2)
+    assert row["roofline"]["collective_bytes_per_chip"]["all-to-all"] > 0
+    assert len(made) > 1000
+    off_meta = [(d, n) for d, n in made if d != "meta"]
+    assert all(n < smallest for _, n in off_meta), off_meta[:5]
+    assert not entered and ops.launch_counts() == before

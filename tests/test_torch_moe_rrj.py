@@ -18,8 +18,9 @@ Inputs are drawn once with numpy and fed to both packages in f32.
     radix pass drops too);
   * llama4's (top-1, a shared expert) and jamba's ``reduce_config``
     through ``apply_moe`` under the policy, prefill and decode;
-  * ``apply_moe``'s choice of path, the errors, and the transport's
-    counters left alone.
+  * ``apply_moe``'s choice of path, the errors, a gradient through the
+    dispatch (the gradient of the plain RRJ's function), and the
+    transport's counters left alone.
 """
 import dataclasses
 import itertools
@@ -293,11 +294,33 @@ def test_the_dispatch_refuses_what_it_cannot_run(inputs):
             moe._moe_rrj(cfg, mcfg, p, x[:, :6])        # S % 4
         with pytest.raises(ValueError, match=r"\(3, 8, 64\).*data"):
             moe._moe_replicated(cfg, mcfg, p, x[:3, :8])  # B % 2
-        with pytest.raises(NotImplementedError, match="item 8"):
-            moe.apply_moe(cfg, mcfg, dict(p, wi=p["wi"].requires_grad_()),
-                          x)
+        # a gradient is wanted: it flows, and it is the gradient of the
+        # plain RRJ's function (the reference loop with the dropped
+        # assignments' gates zeroed)
+        wi = p["wi"].clone().requires_grad_()
+        xg = x.clone().requires_grad_()
+        y, _ = moe.apply_moe(cfg, mcfg, dict(p, wi=wi), xg)
         with torch.no_grad():
-            moe.apply_moe(cfg, mcfg, p, x)   # no gradient wanted: runs
+            _, kept = moe._moe_rrj(cfg, mcfg, p, x, kept=True)
+    assert int((~kept).sum()) > 0
+    g = torch.ones_like(y)
+    got = torch.autograd.grad(y, [xg, wi], g)
+    xr, wr = x.clone().requires_grad_(), p["wi"].clone().requires_grad_()
+    xt = xr.reshape(-1, xr.shape[-1])
+    vals, idx, _ = moe._gates(mcfg, xt, p["router"])
+    vals = torch.where(kept.reshape(vals.shape), vals, 0.0)
+    ref = torch.zeros_like(xt)
+    for e in range(mcfg.num_experts):
+        w = torch.where(idx == e, vals, 0.0).sum(-1)
+        ref = ref + moe._expert_ffn(xt, wr[e], p["wo"][e]) * w[:, None]
+    if mcfg.num_shared:
+        gs, us = torch.einsum("bsd,df->bsf", xr, p["shared_wi"]).chunk(2, -1)
+        ref = ref + torch.einsum("bsf,fd->bsd", torch.nn.functional.silu(gs)
+                                 * us, p["shared_wo"]).reshape(ref.shape)
+    want = torch.autograd.grad(ref.reshape(x.shape), [xr, wr], g)
+    for a, b in zip(got, want):
+        assert bool(a.abs().sum() > 0)
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=TOL, atol=TOL)
 
 
 def test_a_dispatch_adds_nothing_to_the_transport_counters(inputs):
