@@ -201,8 +201,12 @@ exits non-zero:
            grouped wave: launches, read-back, commits + final aborts ==
            sessions, host seconds, device time profiled; at W = 64 zipf
            1.2 the store equal to the plain path's; panels (b) and (c) on
-           those traces, with the simulator's host time
-  contention  Fig 10 (bench/fig10_contention.py): the window sweep; the
+           those traces, with the simulator's host time; the figure
+           itself (panels, locality run, timed waves) through the
+           harness's one-figure entry, on the kernel path's economics
+  contention  Fig 10 (bench/fig10_contention.py) through the harness's
+           one-figure entry at the JAX benchmark's sizes: the window
+           sweep, the planner, a recorded workload replayed; the
            planner's load crossover on the §5.4 join (R and S of 128M
            tuples, sel 0.25) at loads 0, 8, 64; one GHJ and one RRJ at
            128M recorded through an EventTracer on the kernel and the
@@ -211,6 +215,14 @@ exits non-zero:
            row; then fabric-check on the card: every suite (27
            targets, 0 violations) and one 4096-session checkout wave
            through a ScheduleRecorder, race-checked (0 violations)
+  figures  the benchmark harness (bench/run.py) in this process: --only F
+           --time --check --json for fig2, fig6, fig7, fig8a and fig8b
+           (train, paged, scale and contention run fig9, fig_serve,
+           fig_scale and fig10 through bench.run.run_figure into the same
+           folder); every JSON with JAX's keys and a measured_s for each
+           measured row, 0 fabric-check violations, fig7's rows and
+           fig2's modeled rows equal to a CPU run's; then the example
+           twins (src/repro_torch/examples) at their small sizes
 
 The kernels' f32 entries, which no timed path runs, are timed in phase
 kernels at the f32 witnesses' shapes: flash_f32 (causal and non-causal
@@ -233,8 +245,10 @@ xattn each timed prefill step and the decode steps, in
 paged
 each tick of each engine run, in shards the 4-shard oltp waves and the
 4-shard queries, and in train each trainer run, Fig 9 and glm4's grad
-step, in scale every grouped wave, in contention each traced join and
-the recorded wave; each path must have launched every kernel it runs.  The gradient checks' launches
+step, in scale every grouped wave and the figure, in contention each
+traced join and the recorded wave, in figures each figure's own run
+(fig2 a path of its own: cas_lock, the rank and the scatter); each path
+must have launched every kernel it runs.  The gradient checks' launches
 count on no path.  The shuffle microbench's launches are reported beside
 it and counted on no path.
 Then three lines: the per-kernel JSON record (launches summed over the
@@ -251,17 +265,21 @@ paths named in its "paths"), the card's name and power limit
                                                       # the sharded RRJ
     python3 chip_smoke.py --phases env,build,xattn    # VLM and whisper
     python3 chip_smoke.py --phases env,build,scale,contention   # under load
+    python3 chip_smoke.py --phases env,build,figures  # harness, examples
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
+import io
 import json
 import math
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -271,7 +289,8 @@ ROOT = Path(__file__).resolve().parent
 # tensor-core FLOP/s, float32 FLOP/s outside the tensor cores
 HBM_BYTES_PER_S = BF16_FLOP_PER_S = F32_FLOP_PER_S = TF32_FLOP_PER_S = None
 PHASES = ("env", "build", "kernels", "oltp", "olap", "fig6", "serve",
-          "moe", "xattn", "paged", "shards", "train", "scale", "contention")
+          "moe", "xattn", "paged", "shards", "train", "scale", "contention",
+          "figures")
 SERVE_ARCHS = {"glm4-9b": "flash_attention", "mamba2-370m": "ssd_scan"}
 MEMORY_ARCH = "glm4-9b"          # the dry-run's memory estimate, held to
 MEMORY_MIN_RATIO = 0.9           # at least this share of the measured peak
@@ -387,6 +406,43 @@ PAGED_CONFIGS = {"all_local": dict(hot_frac=1.0),      # paged engine runs
 PAGED_PLAIN = "async"            # the configuration also run on the plain
                                  # path (impl="plain")
 CHECK_TARGETS = 27               # fabric-check: the JAX package's targets
+# phase figures: bench/run.py's main in-process, --time --check --json, for
+# the figures no other phase runs; the rest come through run_figure in
+# phases train (fig9), paged (fig_serve), scale (fig_scale) and
+# contention (fig10), into the same directory
+FIGURES = ("fig2", "fig6", "fig7", "fig8a", "fig8b")
+# what each figure's own run launches (fig7 is analytic: nothing)
+FIGURE_KERNELS = {
+    "fig2": ("cas_lock", "radix_partition_rank", "radix_partition_scatter"),
+    "fig6": ("cas_lock", "radix_partition_rank", "radix_partition_scatter"),
+    "fig7": (),
+    "fig8a": ("radix_partition_rank", "radix_partition_scatter"),
+    "fig8b": ("radix_partition_rank", "radix_partition_scatter",
+              "grouped_sum_u32", "grouped_agg"),
+}
+# the JAX harness's BENCH_<figure>.json keys (benchmarks/run.py --time),
+# beside figure, profile, timed, rows and measured_s
+JAX_EXTRAS = {
+    "fig2": ("profiles",), "fig6": ("fabric", "modeled_wire_s"),
+    "fig7": ("crossover", "profiles"),
+    "fig8a": ("fabric", "modeled_wire_s", "overlap", "crossover"),
+    "fig8b": ("fabric", "modeled_wire_s", "crossover"),
+    "fig9": ("workers", "straggler_factor", "total_batches"),
+    "fig10": ("windows", "crossover", "replay", "fabric"),
+    "fig_scale": ("workers", "skews", "throughput", "abort_rate", "retries",
+                  "locality", "txn"),
+    "fig_serve": ("workload", "parity", "latency", "recovery", "configs"),
+}
+# the rows each figure measures: every one needs its measured_s
+MEASURED_ROWS = {
+    "fig2": r"fig2/(mem_copy_|fabric_)",
+    "fig6": r"fig6/measured_rsi_commit_local$",
+    "fig7": r"$^",
+    "fig8a": r"fig8a/(sel[0-9.]+_(ghj|ghj_bloom|rdma_ghj|rrj)|shuffle_)",
+    "fig8b": r"fig8b/(groups[0-9]+_(dist_agg|rdma_agg)|kernel_)",
+}
+EXAMPLE_TRAIN_STEPS = 10         # train_lm --tiny on the card
+_FIG_DIR = []                    # the temporary BENCH_<figure>.json folder
 # the kernels' f32 entries (flash_f32's causal and non-causal calls
 # apart): timed in phase kernels, launches counted where the f32 witnesses
 # and gradient checks run them
@@ -407,6 +463,47 @@ def smi() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
+
+
+def fig_dir() -> Path:
+    """The run's temporary folder of BENCH_<figure>.json files (made at
+    the first call, removed when main ends)."""
+    if not _FIG_DIR:
+        _FIG_DIR.append(Path(tempfile.mkdtemp(prefix="chip_smoke_bench_")))
+    return _FIG_DIR[0]
+
+
+def run_figure(name: str, *, device="cuda", **kw) -> dict:
+    """One figure through the harness's one-figure entry
+    (src/repro_torch/bench/run.py), timed, its JSON into fig_dir() and
+    its CSV rows nowhere: the payload."""
+    from repro_torch.bench import run as bench_run
+    return bench_run.run_figure(name, timed=True, device=device,
+                                json_to=fig_dir(), out=io.StringIO(), **kw)
+
+
+def payload_failures(name: str, payload: dict, *, checked: bool) -> list:
+    """What a BENCH_<figure>.json lacks: JAX's keys, a measured_s for each
+    measured row (every value a positive float), and, when ``checked``, a
+    check block with no violation."""
+    bad = []
+    want = {"figure", "profile", "timed", "rows", "measured_s",
+            *JAX_EXTRAS[name]} | ({"check"} if checked else set())
+    if set(want) - set(payload):
+        bad.append(f"{name}: no {sorted(set(want) - set(payload))}")
+    measured = payload.get("measured_s") or {}
+    if not measured or not all(isinstance(v, float) and v > 0
+                               for v in measured.values()):
+        bad.append(f"{name}: measured_s {measured}")
+    pat = re.compile(MEASURED_ROWS.get(name, r"$^"))
+    rows = [r["name"] for r in payload.get("rows", [])]
+    missing = [r for r in rows if pat.match(r) and r not in measured]
+    if missing:
+        bad.append(f"{name}: measured rows without measured_s {missing}")
+    if checked and (payload.get("check", {}).get("violations")
+                    or not payload.get("check", {}).get("targets")):
+        bad.append(f"{name}: fabric-check {payload.get('check')}")
+    return bad
 
 
 # ------------------------------------------------------------- timing ---
@@ -1978,7 +2075,7 @@ def phase_paged(quick: bool, record: dict):
     sizes on the card, with its asserts (a), (b) and (c).  The phase line
     is printed before a failure is raised."""
     import torch
-    from repro_torch.bench import fig_serve, serve
+    from repro_torch.bench import serve
     t0 = time.perf_counter()
     cfg = serve.config(PAGED_ARCH, 4 if quick else None)
     params = serve.weights(cfg, device="cuda")
@@ -2004,8 +2101,8 @@ def phase_paged(quick: bool, record: dict):
                                 kernel=False)
     tf = time.perf_counter()
     try:
-        rows, extras = fig_serve.run(timed=True, device="cuda")
-        fig = {"rows": rows, "recovery": extras["recovery"],
+        extras = run_figure("fig_serve")
+        fig = {"rows": extras["rows"], "recovery": extras["recovery"],
                "workload": extras["workload"],
                "record_s": extras["measured_s"],
                "counters": {k: v["counters"]
@@ -3392,8 +3489,10 @@ def phase_train(quick: bool, record: dict):
     # schedule and the counters, not on values, so they equal the CPU's
     from repro_torch.bench import fig9_ml
     ops.reset_launch_counts()
-    rows, extras = fig9_ml.run(timed=True, device=dev)
+    extras = run_figure("fig9", device=dev)
     fig9_launches = ops.launch_counts()
+    rows = [(r["name"], r["us_per_call"], r["derived"])
+            for r in extras["rows"]]
     cpu_rows, _ = fig9_ml.run(device="cpu")
     if rows != cpu_rows:
         failures.append("fig9 rows on the card differ from the CPU's")
@@ -3541,22 +3640,21 @@ def phase_scale(quick: bool, record: dict):
     t_equal = time.perf_counter() - t0
     econ = {sn: {W: kern[sn][W][:4] for W in workers} for sn in kern}
     del kern
-    rows = []
-    abort_rate = fs.economics_panel(econ, workers, rows)
+    # the figure through the harness on these economics: the panels and
+    # their asserts, the locality run and the timed grouped waves
     ts = time.perf_counter()
-    tput = fs.throughput_panel(econ, workers, profiles, rows)
     ops.reset_launch_counts()
-    loc = fs.run_economics(fs.LOCALITY_WORKERS, fs.SKEWS["zipf12"],
-                           shared=False, device="cuda")
-    loc_launches = ops.launch_counts()
-    _count(OLTP_KERNELS, loc_launches, record, "scale locality")
-    locality = fs.locality_panel(loc, profiles, rows)
-    emit("scale_jax_size", workers=list(workers), abort_rate=abort_rate,
-         throughput=tput, locality=locality, rows=rows,
-         plain_equal=True, cpu_equal=True,
-         launches={k: v for k, v in launches.items()
-                                     if v},
-         sim_host_s=time.perf_counter() - ts, equal_check_s=t_equal,
+    fig = run_figure("fig_scale", workers=workers, econ=econ)
+    fig_launches = ops.launch_counts()
+    _count(OLTP_KERNELS, fig_launches, record,
+           "scale figure (locality, timed waves)")
+    emit("scale_jax_size", workers=list(workers),
+         abort_rate=fig["abort_rate"], throughput=fig["throughput"],
+         locality=fig["locality"], rows=fig["rows"],
+         measured_s=fig["measured_s"], plain_equal=True, cpu_equal=True,
+         launches={k: v for k, v in launches.items() if v},
+         figure_launches={k: v for k, v in fig_launches.items() if v},
+         figure_s=time.perf_counter() - ts, equal_check_s=t_equal,
          seconds=time.perf_counter() - t0, gpu=smi())
 
     # the real size: the oltp phase's store
@@ -3640,10 +3738,11 @@ def phase_contention(quick: bool, record: dict):
     from repro_torch.configs import OLTP
     t0 = time.perf_counter()
     n = OLAP_QUICK_N if quick else OLAP_N
+    # the figure at the JAX benchmark's sizes through the harness: the
+    # window sweep, the planner's crossover, a recorded workload replayed
+    fig10 = run_figure("fig10")
+    windows = fig10["windows"]
     rows = []
-    windows = {p: {v: {str(w): t for w, t in c.items()}
-                   for v, c in f10.sweep_rows(p, rows).items()}
-               for p in f10.DEFAULT_PROFILES}
 
     rk, rv, sk, sv = fig8a_joins.relations(f10.JOIN_SEL, n, device="cuda")
     truth = fig8a_joins.ground_truth(sk, n)
@@ -3692,6 +3791,8 @@ def phase_contention(quick: bool, record: dict):
     del db, dbs
     torch.cuda.empty_cache()
     emit("contention", n=n, sel=f10.JOIN_SEL, windows=windows,
+         fig10={k: fig10[k] for k in ("rows", "crossover", "replay",
+                                      "measured_s")},
          crossover=crossover, replay=replay, joins=joins, rows=rows,
          fig8a_replay=fig8a_joins.replay_row(n), gpu=smi())
 
@@ -3735,6 +3836,133 @@ def phase_contention(quick: bool, record: dict):
         raise AssertionError(f"fabric-check on the card: {len(reports)} "
                              f"targets, {summ['violations']} "
                              f"{wave['violations']}")
+
+
+def phase_figures(quick: bool, record: dict):
+    """The benchmark harness of the port (src/repro_torch/bench/run.py):
+    its main, in this process, with --only F --time --check --json for
+    each of FIGURES on the card.  Each figure's own run (not its check)
+    is counted between a reset and a read and must launch exactly
+    FIGURE_KERNELS[F]: fig2 is a path of its own (the cas_lock kernel
+    through fabric.verbs.cas, the rank and the scatter through a 64K
+    route).  Every BENCH_<figure>.json of the run (these five and those
+    that phases train, paged, scale and contention wrote) must parse with
+    JAX's keys and a measured_s for each measured row; the five, 0
+    fabric-check violations; fig7's rows must equal a CPU run's, fig2's
+    modeled rows too.  Then the four example twins on the card at their
+    small sizes: quickstart (reduce_config), nam_oltp (10 000 products,
+    8 waves of T 512: commits + aborts == sessions), serve_lm (every
+    lock word 0 after release) and train_lm --tiny --steps 10 into a
+    temporary checkpoint folder, run twice (finite losses; the second
+    restores and resumes at step 10)."""
+    import torch
+    from repro_torch.bench import fig2_microbench
+    from repro_torch.bench import run as bench_run
+    from repro_torch.examples import nam_oltp, quickstart, serve_lm, train_lm
+    from repro_torch.kernels import ops
+    t0 = time.perf_counter()
+    counts, secs, failures = {}, {}, []
+
+    @contextlib.contextmanager
+    def around(name):
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        yield
+        torch.cuda.synchronize()
+        counts[name] = ops.launch_counts()
+
+    for name in FIGURES:
+        ts = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            try:
+                bench_run.main(["--only", name, "--time", "--check",
+                                "--json", str(fig_dir())], around=around)
+            except SystemExit as e:
+                failures.append(f"{name}: {e}")
+        secs[name] = time.perf_counter() - ts
+    payloads = {}
+    for path in sorted(fig_dir().glob("BENCH_*.json")):
+        name = path.stem[len("BENCH_"):]
+        payloads[name] = json.loads(path.read_text())
+        failures += payload_failures(name, payloads[name],
+                                     checked=name in FIGURES)
+    missing = set(FIGURES) - set(payloads)
+    if missing:
+        failures.append(f"no BENCH json for {sorted(missing)}")
+    cpu7 = bench_run.run_figure("fig7", device="cpu", out=io.StringIO())
+    if "fig7" in payloads and payloads["fig7"]["rows"] != cpu7["rows"]:
+        failures.append("fig7's rows differ from the CPU's")
+    cpu2, _ = fig2_microbench.run(device="cpu")
+    model2 = [{"name": r, "us_per_call": us, "derived": d}
+              for r, us, d in cpu2 if "/model_" in r]
+    if "fig2" in payloads and [r for r in payloads["fig2"]["rows"]
+                               if "/model_" in r["name"]] != model2:
+        failures.append("fig2's modeled rows differ from the CPU's")
+    for name in FIGURES:
+        got = {k: v for k, v in counts.get(name, {}).items() if v}
+        if set(got) != set(FIGURE_KERNELS[name]):
+            failures.append(f"{name} launched {got}, expected "
+                            f"{FIGURE_KERNELS[name]}")
+    emit("figures", seconds_by_figure=secs,
+         launches={n: {k: v for k, v in c.items() if v}
+                   for n, c in counts.items()},
+         files=sorted(payloads),
+         rows={n: len(p["rows"]) for n, p in payloads.items()},
+         measured_s={n: p.get("measured_s") for n, p in payloads.items()},
+         fig2_rows=payloads.get("fig2", {}).get("rows"),
+         violations={n: len(p.get("check", {}).get("violations", []))
+                     for n, p in payloads.items() if n in FIGURES},
+         cards=sorted({p.get("card") for p in payloads.values()} - {None}),
+         failures=failures, seconds=time.perf_counter() - t0, gpu=smi())
+    if failures:
+        raise AssertionError("figures: " + "; ".join(failures))
+    for name in FIGURES:
+        if FIGURE_KERNELS[name]:
+            _count(FIGURE_KERNELS[name], counts[name], record,
+                   f"figures {name}")
+        for k in FIGURE_KERNELS[name]:
+            record[k]["paths"] += ", fig2" if name == "fig2" else \
+                f", figures {name}"
+
+    # the example twins on the card
+    te = time.perf_counter()
+    out = {}
+    with contextlib.redirect_stdout(io.StringIO()) as printed, \
+            tempfile.TemporaryDirectory(prefix="train_lm_") as ckpt:
+        out["quickstart"] = quickstart.main([])
+        out["nam_oltp"] = nam_oltp.main([])
+        out["serve_lm"] = serve_lm.main([])
+        targs = ["--tiny", "--steps", str(EXAMPLE_TRAIN_STEPS),
+                 "--ckpt-dir", ckpt]
+        out["train_lm"] = train_lm.main(targs)
+        out["train_lm_resumed"] = train_lm.main(targs)
+    q, o, v = out["quickstart"], out["nam_oltp"], out["serve_lm"]
+    t1, t2 = out["train_lm"], out["train_lm_resumed"]
+    if not (math.isfinite(q["loss"]) and q["db"]["committed"]
+            and q["ps"]["epoch_after"] == q["ps"]["epoch_before"] + 1):
+        failures.append(f"quickstart {q}")
+    st = o["txn_stats"]
+    if st["commits"] + st["aborts"] != o["sessions"] or \
+            st["commits"] != o["committed"]:
+        failures.append(f"nam_oltp: {st} over {o['sessions']} sessions")
+    if any(v["slot_words"]) or len(v["outs"]) != 8:
+        failures.append(f"serve_lm: lock words {v['slot_words']}, "
+                        f"{len(v['outs'])} requests")
+    if not (t1["finite"] and t1["step"] == EXAMPLE_TRAIN_STEPS
+            and not t1["resumed"] and t1["log"]):
+        failures.append(f"train_lm: {t1}")
+    if not (t2["resumed"] and t2["start_step"] == EXAMPLE_TRAIN_STEPS):
+        failures.append(f"train_lm resumed: {t2}")
+    emit("figures_examples", quickstart={k: q[k] for k in (
+             "arch", "params", "loss", "grad_norm", "decoded", "db", "ps")},
+         nam_oltp={k: o[k] for k in ("sessions", "committed", "seconds",
+                                     "txn_stats", "read_timestamp")},
+         serve_lm=v, train_lm={"first": t1, "resumed": t2},
+         printed_lines=printed.getvalue().count("\n"),
+         seconds=time.perf_counter() - te, failures=failures,
+         phase_seconds=time.perf_counter() - t0, gpu=smi())
+    if failures:
+        raise AssertionError("figures: " + "; ".join(failures))
 
 
 def _leaves(tree):
@@ -3824,6 +4052,26 @@ def main(argv=None) -> int:
              "ssd_scan": "serve mamba2-370m prefill, moe jamba prefill"}
     for name, r in record.items():
         r.update(route="cuda", launches=0, paths=paths[name])
+    try:
+        run_phases(args, phases, record)
+    finally:
+        for d in _FIG_DIR:
+            shutil.rmtree(d, ignore_errors=True)
+    if any(F32.values()):
+        emit("f32_entries", **F32, gpu=smi())
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "paths")
+    print(json.dumps({"kernels": [
+        {k: ({"name": name, **r}).get(k) for k in keys}
+        for name, r in record.items()]}))
+    print(smi())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def run_phases(args, phases, record):
     if "env" in phases:
         phase_env()
     if "build" in phases:
@@ -3852,18 +4100,8 @@ def main(argv=None) -> int:
         phase_scale(args.quick, record)
     if "contention" in phases:
         phase_contention(args.quick, record)
-    if any(F32.values()):
-        emit("f32_entries", **F32, gpu=smi())
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "paths")
-    print(json.dumps({"kernels": [
-        {k: ({"name": name, **r}).get(k) for k in keys}
-        for name, r in record.items()]}))
-    print(smi())
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
-    return 0
+    if "figures" in phases:
+        phase_figures(args.quick, record)
 
 
 if __name__ == "__main__":

@@ -23,7 +23,9 @@ each asserted inline as in the JAX benchmark:
     replays exactly the analytic ``t_call`` sum.
 
 :func:`run` is the JAX benchmark's figure at its sizes (its rows equal
-the JAX benchmark's).  :func:`record_join` and :func:`replay_rows` trace
+the JAX benchmark's); under ``timed`` it adds the JAX benchmark's
+``measured_s``: the host seconds of a window sweep, of a replay of the
+recorded workload and of a contended-profile fit.  :func:`record_join` and :func:`replay_rows` trace
 one forced join of a loaded ``Database`` (at the paper's 128M tuples a
 relation on the card) and replay it on every profile.
 """
@@ -31,6 +33,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.bench import timing
 from repro_torch.db import Database
 from repro_torch.fabric import LocalTransport, netsim, sim
 
@@ -188,7 +191,7 @@ def record_join(db, q, variant: str):
     return tracer.events, res
 
 
-def run(profiles=None, *, device=None):
+def run(profiles=None, timed=False, *, device=None):
     """The whole figure at the JAX benchmark's sizes: (rows, extras)."""
     profiles = tuple(profiles) if profiles else DEFAULT_PROFILES
     rows: list = []
@@ -209,4 +212,17 @@ def run(profiles=None, *, device=None):
     replay_info = replay_rows(trace, profiles, rows)
     extras = {"windows": windows, "crossover": crossover,
               "replay": replay_info, "fabric": fabric_stats}
+    if timed:
+        # the simulator is host code: nothing to synchronize
+        prof0 = netsim.get_profile(profiles[0])
+        extras["measured_s"] = {
+            "fig10/sim_window_sweep": timing.device_time_s(
+                lambda: sim.window_sweep(prof0, verb="write",
+                                         op_bytes=OP_BYTES, n_ops=N_OPS,
+                                         windows=WINDOWS), warmup=1, k=3),
+            "fig10/sim_replay": timing.device_time_s(
+                lambda: sim.replay(trace, prof0, nodes=REPLAY_NODES,
+                                   window=2), warmup=1, k=3),
+            "fig10/contended_profile_fit": timing.device_time_s(
+                lambda: sim.contended_profile(prof0, 64), warmup=1, k=3)}
     return rows, extras

@@ -30,9 +30,15 @@ torch and launches no scatter kernel, the other runs the scatter kernel.
 on the contention simulator, as the JAX benchmark's ``replay`` row does.
 
 :func:`joins` runs the queries alone, :func:`shuffle_route_bench` one
-leg of the microbench, and :func:`run` the whole figure.
+leg of the microbench, and :func:`run` the whole figure.  :func:`figure`
+is the figure in the harness's form, at the JAX benchmark's N = 2**20:
+its rows and extras are the JAX benchmark's (the planner's pick per
+selectivity and profile, the crossover, the forced grid, the shuffle
+route's pair, the modeled wire), timed the harness's way
+(``bench/timing.py``).
 
     PYTHONPATH=src python -m repro_torch.bench.fig8a_joins --n 1048576 [--shards 4]
+    PYTHONPATH=src python -m repro_torch.bench.run --only fig8a [--device cpu]
 """
 from __future__ import annotations
 
@@ -43,7 +49,7 @@ import statistics
 import torch
 
 from repro_torch._bits import M32, np_u32, resolve_device, u32
-from repro_torch.bench import queries
+from repro_torch.bench import queries, timing
 from repro_torch.db import JOIN_VARIANTS, Database
 from repro_torch.fabric import LocalTransport, make_transport, netsim, sim
 
@@ -73,12 +79,10 @@ def ground_truth(sk: torch.Tensor, n: int) -> int:
     return int(torch.where(k <= n, k, 0).sum()) & M32
 
 
-def shuffle_route_bench(n_rows: int, *, device=None, overlap: bool = False,
-                        chunks: int = 1, seed: int = 0) -> float:
-    """Median seconds of 3 single routed exchanges of a (keys, vals) relation:
-    the motion ``_route_by_key`` performs inside every join, without the
-    local join work.  A fresh transport, so no join's counters move."""
-    dev = resolve_device(device)
+def _route_leg(n_rows: int, dev, *, overlap: bool, chunks: int, seed: int):
+    """One leg of the shuffle microbench as a call: a routed exchange of a
+    (keys, vals) relation of ``n_rows`` on a fresh transport, so no join's
+    counters move."""
     g = torch.Generator(device=dev).manual_seed(seed)
     ks = torch.randint(0, 1 << 30, (n_rows,), generator=g, device=dev,
                        dtype=torch.int32)
@@ -93,6 +97,16 @@ def shuffle_route_bench(n_rows: int, *, device=None, overlap: bool = False,
                               chunks=chunks, overlap=overlap)
         return res.fields["k"], res.fields["v"], res.dropped
 
+    return once
+
+
+def shuffle_route_bench(n_rows: int, *, device=None, overlap: bool = False,
+                        chunks: int = 1, seed: int = 0) -> float:
+    """Median seconds of 3 single routed exchanges of a (keys, vals) relation:
+    the motion ``_route_by_key`` performs inside every join, without the
+    local join work."""
+    dev = resolve_device(device)
+    once = _route_leg(n_rows, dev, overlap=overlap, chunks=chunks, seed=seed)
     once()                                               # warm-up
     return statistics.median(queries.time_call(once, dev)[1]
                              for _ in range(3))
@@ -197,6 +211,85 @@ def run(n: int, *, device=None, seed: int = 0, **kw) -> dict:
         "chunks": ROUTE_CHUNKS,
         "replay": replay_row(n, kw.get("profiles", DEFAULT_PROFILES))}
     return out
+
+
+def planner_rows(db, sel: float, profiles, rows: list):
+    """The figure's query at ``sel`` over R and S of ``db``, and its rows
+    of the planner's pick per profile (and, over several profiles, the
+    crossover row).  Returns (the query, {profile: chosen})."""
+    q = db.scan("R").join(db.scan("S").filter(sel=sel)).aggregate()
+    winners = queries.explain_rows(db, q, profiles, f"fig8a/sel{sel}", rows)
+    if len(profiles) > 1:
+        rows.append((f"fig8a/sel{sel}_crossover", 0.0,
+                     "|".join(f"{p}:{w}" for p, w in winners.items())))
+    return q, winners
+
+
+def figure(profiles=None, timed=False, *, device=None, n: int = 1 << 20):
+    """The figure in the harness's form: (rows, extras) with the JAX
+    benchmark's rows and extras at N tuples a relation.  Every forced join
+    is held to the ground truth with no dropped row.  The overlap pair is
+    reported, not asserted: a ``LocalTransport`` has no wire to hide."""
+    profiles = tuple(profiles) if profiles else DEFAULT_PROFILES
+    dev = resolve_device(device)
+    rows, measured = [], {}
+    db = Database(LocalTransport(device=dev), net=profiles[0])
+    db.create_table("R", n, payload_words=1, partitioning="hash")
+    db.create_table("S", n, payload_words=1, partitioning="hash")
+    crossover = {}
+    for sel in SELS:
+        rk, rv, sk, sv = relations(sel, n, device=dev)
+        truth = ground_truth(sk, n)
+        db.table("R").load(rk, rv)
+        db.table("S").load(sk, sv)
+        del rk, rv, sk, sv
+        q, crossover[sel] = planner_rows(db, sel, profiles, rows)
+
+        def check(res, sel=sel, truth=truth):
+            value = int(np_u32(res.value))
+            if value != truth or res.dropped != 0:
+                raise AssertionError(f"fig8a sel={sel}: value {value} "
+                                     f"(truth {truth}), dropped "
+                                     f"{res.dropped}")
+
+        base = None
+        for name in JOIN_VARIANTS:              # forced grid for the figure
+            us = queries.grid_us(db, q, name, timed=timed,
+                                 measured=measured,
+                                 name=f"fig8a/sel{sel}_{name}", check=check)
+            if name == "ghj":
+                base = us
+            rows.append((f"fig8a/sel{sel}_{name}", us,
+                         f"{base/us:.2f}x_vs_GHJ" if base else ""))
+    if len(profiles) > 1:
+        # the join-variant argmin must differ on >= 2 profiles
+        assert any(len(set(w.values())) > 1 for w in crossover.values()), \
+            f"no join-variant crossover across {profiles}"
+    # the shuffle microbench, overlap on (4 chunks) and off, each on a
+    # fresh transport so the counters price only the joins' traffic
+    on_s, off_s = (timing.device_time_s(
+        _route_leg(n, dev, overlap=ov, chunks=ch, seed=0), device=dev)
+        for ov, ch in ((True, ROUTE_CHUNKS), (False, 1)))
+    rows.append(("fig8a/shuffle_route_1M", on_s * 1e6,
+                 f"overlap_on_chunks{ROUTE_CHUNKS}"))
+    rows.append(("fig8a/shuffle_route_1M_overlap_off", off_s * 1e6,
+                 f"{off_s / on_s:.2f}x_slower_sync"))
+    measured["fig8a/shuffle_route_1M"] = on_s
+    measured["fig8a/shuffle_route_1M_overlap_off"] = off_s
+    overlap = {"on_s": on_s, "off_s": off_s, "chunks": ROUTE_CHUNKS,
+               "replay": replay_row(n, profiles)}
+    stats = db.fabric_stats()
+    modeled = {p: netsim.get_profile(p).modeled_time(stats)
+               for p in profiles}
+    for pname, s in modeled.items():
+        rows.append((f"fig8a/modeled_wire_{pname}", s * 1e6,
+                     "all_counted_traffic"))
+    extras = {"fabric": stats, "modeled_wire_s": modeled,
+              "overlap": overlap,
+              "crossover": {str(s): w for s, w in crossover.items()}}
+    if timed:
+        extras["measured_s"] = measured
+    return rows, extras
 
 
 def main(argv=None):

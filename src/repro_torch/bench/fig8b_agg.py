@@ -22,26 +22,32 @@ JAX benchmark's kernel row does, and holds it bit for bit to the counts
 directly, not through the facade.
 
 :func:`aggregations` runs the queries alone, :func:`kernel_row` the
-kernel row, and :func:`run` the whole figure.
+kernel row, and :func:`run` the whole figure.  :func:`figure` is the
+figure in the harness's form, at the JAX benchmark's N = 2**20 and group
+counts (1, 64, 4096, 262 144): its rows and extras are the JAX
+benchmark's, timed the harness's way (``bench/timing.py``).
 
     PYTHONPATH=src python -m repro_torch.bench.fig8b_agg --n 1048576 [--shards 4]
+    PYTHONPATH=src python -m repro_torch.bench.run --only fig8b [--device cpu]
 """
 from __future__ import annotations
 
 import argparse
 import json
 import statistics
+import time
 
 import torch
 
 from repro_torch._bits import resolve_device, to_i32, u32
-from repro_torch.bench import queries
+from repro_torch.bench import queries, timing
 from repro_torch.configs import OLAP
 from repro_torch.db import AGG_VARIANTS, Database
 from repro_torch.fabric import make_transport, netsim
 from repro_torch.kernels import ops
 
 GROUPS = OLAP.distinct_groups_sweep
+FIGURE_GROUPS = (1, 64, 4096, 262_144)   # the JAX benchmark's, at N = 2**20
 DEFAULT_PROFILES = ("rdma_fdr4x",)
 KERNEL_SLOTS = 2048
 
@@ -61,10 +67,9 @@ def ground_truth(keys: torch.Tensor, groups: int) -> torch.Tensor:
     return to_i32(torch.bincount(u32(keys) % groups, minlength=groups))
 
 
-def kernel_row(keys, vals, *, impl=None, iters: int = 3) -> dict:
-    """``ops.grouped_agg`` (f32) of the rows into KERNEL_SLOTS slots,
-    timed, and held bit for bit to the counts."""
-    dev = keys.device
+def _kernel_inputs(keys, vals, impl=None):
+    """The kernel row's (slot, f32 values), after one ``ops.grouped_agg``
+    held bit for bit to the counts."""
     slot = (u32(keys) % KERNEL_SLOTS).to(torch.int32)
     fv = vals.to(torch.float32)
     want = torch.bincount(slot.to(torch.int64),
@@ -73,6 +78,14 @@ def kernel_row(keys, vals, *, impl=None, iters: int = 3) -> dict:
     if not torch.equal(got, want):
         raise AssertionError("fig8b kernel row: grouped_agg differs from "
                              "the counts")
+    return slot, fv
+
+
+def kernel_row(keys, vals, *, impl=None, iters: int = 3) -> dict:
+    """``ops.grouped_agg`` (f32) of the rows into KERNEL_SLOTS slots,
+    timed, and held bit for bit to the counts."""
+    dev = keys.device
+    slot, fv = _kernel_inputs(keys, vals, impl)
     times = [queries.time_call(lambda: ops.grouped_agg(
         slot, fv, KERNEL_SLOTS, impl=impl), dev)[1] for _ in range(iters)]
     return {"rows": keys.shape[0], "slots": KERNEL_SLOTS,
@@ -134,6 +147,73 @@ def run(n: int, *, device=None, seed: int = 0, **kw) -> dict:
     out = aggregations(keys, vals, **kw)
     out["kernel_row"] = kernel_row(keys, vals)
     return out
+
+
+def planner_rows(db, groups: int, profiles, rows: list):
+    """The figure's query at ``groups`` over T of ``db``, and its rows of
+    the planner's pick per profile (and, over several profiles, the
+    crossover row).  Returns (the query, {profile: chosen})."""
+    q = db.scan("T").aggregate(groups=groups)
+    winners = queries.explain_rows(db, q, profiles,
+                                   f"fig8b/groups{groups}", rows)
+    if len(profiles) > 1:
+        rows.append((f"fig8b/groups{groups}_crossover", 0.0,
+                     "|".join(f"{p}:{w}" for p, w in winners.items())))
+    return q, winners
+
+
+def figure(profiles=None, timed=False, *, device=None, n: int = 1 << 20):
+    """The figure in the harness's form: (rows, extras) with the JAX
+    benchmark's rows and extras at N tuples.  Every forced aggregation is
+    held to the ground truth; the kernel row is the f32 ``grouped_agg``
+    entry on the card (its plain version on the CPU), held to the
+    counts."""
+    profiles = tuple(profiles) if profiles else DEFAULT_PROFILES
+    dev = resolve_device(device)
+    rows, measured = [], {}
+    db = Database(make_transport(1, device=dev), net=profiles[0])
+    keys, vals = table(n, device=dev)
+    db.load_table("T", keys, vals)
+    crossover = {}
+    for G in FIGURE_GROUPS:
+        q, crossover[G] = planner_rows(db, G, profiles, rows)
+        truth = ground_truth(keys, G)
+
+        def check(res, G=G, truth=truth):
+            if not torch.equal(res.value, truth):
+                raise AssertionError(f"fig8b groups={G}: the sums differ "
+                                     "from bincount(keys % G)")
+
+        for name in AGG_VARIANTS:               # forced grid for the figure
+            us = queries.grid_us(db, q, name, timed=timed,
+                                 measured=measured,
+                                 name=f"fig8b/groups{G}_{name}", check=check)
+            rows.append((f"fig8b/groups{G}_{name}", us, ""))
+    if len(profiles) > 1:
+        # the agg-scheme argmin must differ somewhere along the axis
+        assert any(len(set(w.values())) > 1 for w in crossover.values()), \
+            f"no agg-scheme crossover across {profiles}"
+    # kernel-level pre-aggregation (phase 1 hot loop)
+    slot, fv = _kernel_inputs(keys, vals)
+    timing.sync(dev)
+    t0 = time.perf_counter()
+    ops.grouped_agg(slot, fv, KERNEL_SLOTS)
+    timing.sync(dev)
+    rows.append((f"fig8b/kernel_grouped_agg_1M_{KERNEL_SLOTS}slots",
+                 (time.perf_counter() - t0) * 1e6,
+                 "cuda_kernel" if dev.type == "cuda" else "plain_torch"))
+    if timed:
+        measured[f"fig8b/kernel_grouped_agg_1M_{KERNEL_SLOTS}slots"] = \
+            timing.device_time_s(
+                lambda: ops.grouped_agg(slot, fv, KERNEL_SLOTS), device=dev)
+    stats = db.fabric_stats()
+    modeled = {p: netsim.get_profile(p).modeled_time(stats)
+               for p in profiles}
+    extras = {"fabric": stats, "modeled_wire_s": modeled,
+              "crossover": {str(g): w for g, w in crossover.items()}}
+    if timed:
+        extras["measured_s"] = measured
+    return rows, extras
 
 
 def main(argv=None):

@@ -46,7 +46,8 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.bench import checkout, workloads
+from repro_torch._bits import resolve_device
+from repro_torch.bench import checkout, timing, workloads
 from repro_torch.db import Database, assign_workers, home_shard, \
     local_fraction
 from repro_torch.db.database import BACKOFF_SLOT_S, backoff_slots
@@ -306,13 +307,20 @@ def locality_panel(loc_econ, profiles, rows: list, *,
     return out
 
 
-def run(profiles=None, *, workers=WORKERS, skews=None, device=None):
-    """The whole figure at the JAX benchmark's sizes: (rows, extras)."""
+def run(profiles=None, timed=False, *, workers=WORKERS, skews=None,
+        device=None, econ=None):
+    """The whole figure at the JAX benchmark's sizes: (rows, extras).
+    ``econ`` reuses the panel (a) economics of an earlier
+    :func:`run_economics` at these sizes on ``device`` ({skew: {W: its
+    first four results}}).  Under ``timed`` it adds the JAX benchmark's
+    ``measured_s``: one grouped wave at 32 workers, Zipf(1.2), and one
+    point of panel (b)'s simulated curve."""
     profiles = tuple(profiles) if profiles else DEFAULT_PROFILES
     skews = dict(skews or SKEWS)
     rows: list = []
-    econ = {sname: {W: run_economics(W, s, device=device) for W in workers}
-            for sname, s in skews.items()}
+    if econ is None:
+        econ = {sname: {W: run_economics(W, s, device=device)
+                        for W in workers} for sname, s in skews.items()}
     abort_rate = economics_panel(econ, workers, rows)
     retries = {sname: {str(W): econ[sname][W][0]["retries"]
                        for W in workers} for sname in skews}
@@ -326,6 +334,18 @@ def run(profiles=None, *, workers=WORKERS, skews=None, device=None):
               "retries": retries, "locality": locality,
               "txn": {k: v for k, v in txn.items()
                       if not isinstance(v, (list, np.ndarray))}}
+    if timed:
+        prof0 = netsim.get_profile(profiles[0])
+        st, sets, att, tids = econ["zipf12"][32][:4]
+        ident = assign_workers(32, 32, locality=True)
+        extras["measured_s"] = {
+            "fig_scale/grouped_commit_32w": timing.device_time_s(
+                lambda: run_economics(32, SKEWS["zipf12"], device=device),
+                warmup=1, k=3, device=resolve_device(device)),
+            "fig_scale/sim_curve_point": timing.device_time_s(
+                lambda: throughput(prof0, sets, att, tids, st["commits"],
+                                   shards=32, placement=ident),
+                warmup=1, k=3)}
     return rows, extras
 
 

@@ -6,7 +6,9 @@ forced variant executed a warm-up and some timed times (each between CUDA
 events on the card, on the host clock on the CPU) with every execution
 held to the same value, drop count and counters, the same query on a
 second database whose kernels run their plain versions, and one execution
-under ``torch.profiler``.
+under ``torch.profiler``.  :func:`explain_rows` and :func:`grid_us` give
+the JAX harness's rows of a figure: the planner's pick per profile and a
+forced variant's time.
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ import time
 
 import torch
 
+from repro_torch.bench import timing
 from repro_torch.kernels import ops
 
 
@@ -45,6 +48,45 @@ def planner_rows(db, q, profiles) -> dict:
                                     "feasible": a.feasible}
                                    for a in ex.alternatives]}
     return out
+
+
+def explain_rows(db, q, profiles, prefix: str, rows: list) -> dict:
+    """Append one row a profile, ``{prefix}_planner_{profile}``, derived
+    ``picked_<chosen>_<name>:<cost ms>|...`` as the JAX harness prints
+    ``db.explain``; returns {profile: chosen}."""
+    winners = {}
+    for pname in profiles:
+        ex = db.explain(q, profile=pname)
+        winners[pname] = ex.chosen
+        costs = "|".join(f"{a.name}:{a.cost_s * 1e3:.1f}ms"
+                         for a in ex.alternatives)
+        rows.append((f"{prefix}_planner_{pname}", 0.0,
+                     f"picked_{ex.chosen}_{costs}"))
+    return winners
+
+
+def grid_us(db, q, variant: str, *, timed: bool, measured: dict,
+            name: str, check=None) -> float:
+    """Microseconds of one forced execution, the JAX harness's way: under
+    ``timed`` the median of 3 after a warm-up (``timing.device_time_s``,
+    also recorded in ``measured[name]``), else the mean of 3.  A first
+    execution comes before either, held by ``check(result)`` if given."""
+    dev = db.device
+    first = db.execute(q, force_variant=variant)
+    if check is not None:
+        check(first)
+    if timed:
+        s = timing.device_time_s(
+            lambda: db.execute(q, force_variant=variant).value,
+            warmup=1, k=3, device=dev)
+        measured[name] = s
+        return s * 1e6
+    timing.sync(dev)
+    t0 = time.perf_counter()
+    for _ in range(3):
+        db.execute(q, force_variant=variant)
+    timing.sync(dev)
+    return (time.perf_counter() - t0) / 3 * 1e6
 
 
 def _counters(stats: dict) -> dict:

@@ -1,6 +1,6 @@
 """The port's data pipeline (``repro.data``): a deterministic, resumable
-synthetic token stream.  JAX's background ``Prefetcher`` is not ported:
-no caller needs it yet (ROADMAP queue 1)."""
-from repro_torch.data.pipeline import SyntheticLM
+synthetic token stream and a background prefetcher whose stream loses no
+batch."""
+from repro_torch.data.pipeline import Prefetcher, SyntheticLM
 
-__all__ = ["SyntheticLM"]
+__all__ = ["Prefetcher", "SyntheticLM"]

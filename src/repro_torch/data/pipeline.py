@@ -8,16 +8,21 @@ The numpy arithmetic is the JAX package's, uint64 wrap included, so the
 batches are equal to its batches bit for bit.  Batches are numpy arrays;
 the trainer moves them to its device.  The shards of a step's batch are
 work items of a :class:`~repro_torch.core.workqueue.WorkQueue` (the
-paper's §3.2 decentralized load balancing).
+paper's §3.2 decentralized load balancing).  :class:`Prefetcher` builds
+batches ahead on a background thread.
 """
 from __future__ import annotations
 
+import queue
 import threading
 from dataclasses import dataclass
 
 import numpy as np
 
 from repro_torch.core.workqueue import WorkQueue, run_workers
+
+#: seconds a put waits on a full queue before it looks at ``close`` again
+PUT_TIMEOUT_S = 1.0
 
 
 def _hash2d(step: int, rows, cols, seed: int, mod: int):
@@ -86,3 +91,42 @@ class SyntheticLM:
         parts = [results[i] for i in range(shards)]
         return {k: np.concatenate([p[k] for p in parts], axis=0)
                 for k in parts[0]}
+
+
+class Prefetcher:
+    """Background prefetch (depth-N): the storage manager's prefetching of
+    §3.2 applied to the input pipeline.
+
+    A thread calls ``it_fn()`` and puts each batch on a queue of ``depth``
+    batches.  A put that meets a full queue waits ``PUT_TIMEOUT_S`` and is
+    retried with the same batch, so the stream is ``it_fn``'s, in order,
+    with none lost however slowly it is consumed (JAX's loop builds a new
+    batch after a full queue, dropping the one it held).  :meth:`close`
+    stops the thread at its next put or build."""
+
+    def __init__(self, it_fn, depth: int = 2):
+        self._q = queue.Queue(maxsize=depth)
+        self._stop = threading.Event()
+
+        def loop():
+            while not self._stop.is_set():
+                batch = it_fn()
+                while not self._stop.is_set():
+                    try:
+                        self._q.put(batch, timeout=PUT_TIMEOUT_S)
+                        break
+                    except queue.Full:
+                        continue
+
+        self._t = threading.Thread(target=loop, daemon=True)
+        self._t.start()
+
+    def next(self, timeout=30):
+        return self._q.get(timeout=timeout)
+
+    def close(self) -> bool:
+        """Stop the thread and wait for it, at most two put timeouts;
+        returns whether it has ended."""
+        self._stop.set()
+        self._t.join(2 * PUT_TIMEOUT_S)
+        return not self._t.is_alive()

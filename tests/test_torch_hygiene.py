@@ -5,8 +5,8 @@
   * with no card present, every entry point that was not given
     ``device=`` (the database, the transport, a host mesh, the store, the
     model's parameters, the serving engine and its launcher, the parameter
-    server, the trainer and its launcher) raises instead of running on
-    the CPU;
+    server, the trainer and its launcher, the benchmark harness and the
+    example twins) raises instead of running on the CPU;
   * a kernel wrapper given a CPU tensor raises before it builds anything;
   * every device-kernel name a wrapper lists (``KERNELS``, which the
     profiling code reads) is a ``__global__`` function of the sources;
@@ -27,7 +27,9 @@ from repro_torch._bits import resolve_device
 from repro_torch.analytics import ParameterServer
 from repro_torch.core import rsi
 from repro_torch.configs import get_config, reduce_config
+from repro_torch.bench import run as bench_run
 from repro_torch.db import Database
+from repro_torch.examples import nam_oltp, quickstart, serve_lm, train_lm
 from repro_torch.kernels import (cas_lock, flash_attention, grouped_agg, ops,
                                  radix_partition, ssd_scan)
 from repro_torch.launch import serve as launch_serve
@@ -87,7 +89,11 @@ def test_port_files_found():
             "bench/fig_serve.py", "models/moe.py", "models/encdec.py",
             "sharding/__init__.py", "sharding/policy.py",
             "launch/mesh.py", "launch/roofline.py", "launch/dryrun.py",
-            "launch/report.py"} <= names
+            "launch/report.py", "bench/run.py", "bench/timing.py",
+            "bench/fig7_costmodel.py", "bench/fig2_microbench.py",
+            "tools/fabriccheck.py", "examples/quickstart.py",
+            "examples/nam_oltp.py", "examples/serve_lm.py",
+            "examples/train_lm.py"} <= names
     assert ROOT / "chip_smoke.py" in PORT_FILES
     assert len(list((ROOT / "src" / "repro_torch" / "kernels" / "csrc")
                     .glob("*.cu"))) == 5
@@ -125,6 +131,11 @@ def test_entry_points_raise_without_a_card(no_card):
         Trainer(cfg, TrainerConfig(steps=1))
     with pytest.raises(RuntimeError, match="CUDA"):
         launch_train.main(["--arch", "glm4-9b", "--smoke", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bench_run.main(["--only", "fig7"])
+    for example in (quickstart, nam_oltp, serve_lm, train_lm):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            example.main([])
     assert Database(device="cpu").device == torch.device("cpu")
     assert ServeEngine(cfg, params, device="cpu").device == \
         torch.device("cpu")
