@@ -8,10 +8,12 @@ exits non-zero:
            limit
   build    nvcc builds every kernel source in src/repro_torch/kernels/csrc
            for sm_90a, one process per source, all at once; the flash
-           library's SASS must hold HGMMA and UTMALDG (the bf16 body's
-           wgmma and TMA loads), and the SASS of flash_f32 and of
-           ssd_chunk_f32 HMMA (the f32 entries' mma.sync products), each
-           flash_f32 instance twice its P.V's (S on the tensor cores too)
+           library's SASS, and each flash_bf16 instance's (<64, 64>,
+           <128, 128>, <192, 128>) on its own, must hold HGMMA and UTMALDG
+           (the bf16 body's wgmma and TMA loads), and the SASS of
+           flash_f32 and of ssd_chunk_f32 HMMA (the f32 entries' mma.sync
+           products), each flash_f32 instance twice its P.V's (S on the
+           tensor cores too)
   kernels  each hand-written kernel held against its plain PyTorch
            version over a sweep of shapes (bit-exact; the scatter with the
            rank's counts, at row widths of every body: narrow, medium,
@@ -31,7 +33,17 @@ exits non-zero:
            CROSS_SWEEP, the VLM's cross layer, whisper's encoder and cross
            layers with T = 1601 and 1500 keys, ragged S and T on both bf16
            bodies and f32, each path shape with a dropped-tile control and
-           timed beside non-causal SDPA), radix_partition also at the
+           timed beside non-causal SDPA; the sweeps also hold the bf16
+           body's persistent schedule: S either side of the 64-wide
+           body's 192-row units and unit counts either side of a
+           multiple of 132 blocks, every output pre-filled with NaN;
+           each timed flash row also records its host issue, SDPA's
+           device time and the exponentials' own time, ex2_ms; with
+           --parent DIR the earlier tree's flash kernel, built from DIR,
+           is timed beside this one's at the five path rows, in turns:
+           the flash_parent line, and phases serve and xattn time each
+           flash model's prefill step on both kernels, in turns: its
+           prefill's parent_kernel), radix_partition also at the
            joins' A = 128 000 000 and its rank alone at 2^24 requests into
            8 and 64 buckets, then each timed at the
            main paths' shapes (per call between CUDA events, and its device
@@ -257,6 +269,8 @@ paths named in its "paths"), the card's name and power limit
 
     python3 chip_smoke.py            # everything, one card
     python3 chip_smoke.py --phases env,build,kernels --quick
+    python3 chip_smoke.py --parent build/parent   # also time the kernel
+                                                  # of an unpacked archive
     python3 chip_smoke.py --out smoke.jsonl   # also keep every phase line
     python3 chip_smoke.py --phases env,build,shards   # the n-shard fabric
     python3 chip_smoke.py --phases env,build,train    # training
@@ -621,8 +635,28 @@ def device_ops(fn, *, iters=10) -> dict:
     return {k: v / iters for k, v in names.items()}
 
 
+def all_device_ms(fn, *, iters=5) -> float:
+    """Mean device milliseconds per call of ``fn()`` over every device
+    operation it issues (:func:`device_events`): a library call's kernels,
+    whatever their names.  A trace that holds none is taken again, twice
+    at most."""
+    for _ in range(3):
+        us = sum(e.time_range.elapsed_us()
+                 for e in device_events(fn, iters=iters))
+        if us > 0:
+            return us / 1e3 / iters
+    raise AssertionError("the profiler saw no device operation, thrice")
+
+
 def bound_ms(nbytes: int) -> float:
     return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def ex2_ms(scores: int) -> float:
+    """The softmax's exponentials alone: one ex2 a score at 16 a clock an
+    SM (the MUFU's rate), the clock the bf16 peak's (4096 FLOP a clock an
+    SM).  Beside a flash row's bound, not in it."""
+    return scores / (BF16_FLOP_PER_S * 16 / 4096) * 1e3
 
 
 def launches_since(before: dict) -> dict:
@@ -697,6 +731,10 @@ def phase_build():
     # twice the HMMA of its P.V alone, or S left the tensor cores
     from repro_torch.kernels import flash_attention as fa
     flash_sass = sass_counts("flash_attention")
+    # each bf16 instance on its own: wgmma fed by TMA
+    bf16_sass = {f"flash_bf16<{dq}, {dv}>": sass_counts(
+        "flash_attention", fun=f"flash_bf16ILi{dq}ELi{dv}E")
+        for dq, dv in BF16_BODIES}
     f32_sass = {"ssd_chunk_f32": sass_counts("ssd_scan", ("HMMA",),
                                              fun="ssd_chunk_f32")}
     f32_need = {}
@@ -706,11 +744,16 @@ def phase_build():
                                      fun=f"flash_f32ILi{dp}E")
         f32_need[name] = 2 * 3 * (bk // 8) * (dp // 8)
     emit("build", seconds=secs, sources=list(report), ptxas=ptxas,
-         flash_sass=flash_sass, f32_sass=f32_sass, f32_hmma_needed=f32_need,
+         flash_sass=flash_sass, bf16_sass=bf16_sass, f32_sass=f32_sass,
+         f32_hmma_needed=f32_need,
          dir=str(build.BUILD_DIR.relative_to(ROOT)))
     if not all(flash_sass.values()):
         raise AssertionError(f"flash_attention's SASS lacks an instruction "
                              f"of its design: {flash_sass}")
+    short = {k: c for k, c in bf16_sass.items() if not all(c.values())}
+    if short:
+        raise AssertionError(f"a flash_bf16 instance's SASS lacks HGMMA or "
+                             f"UTMALDG: {short}")
     if not all(c["HMMA"] for c in f32_sass.values()):
         raise AssertionError(f"an f32 entry's SASS has no HMMA: {f32_sass}")
     short = {k: f32_sass[k]["HMMA"] for k, n in f32_need.items()
@@ -1264,7 +1307,13 @@ FLASH_SWEEP = (     # (B, S, T, H, KH, D, causal): tests/test_kernels.py:47-52,
     (1, 2048, 2048, 4, 2, 64, True),    # long: tiles far from the start,
     (1, 2048, 2048, 8, 2, 128, True),   # f32 held at 2e-5
     (2, 200, 330, 16, 2, 128, False),   # ragged across the bf16 body's
-    (1, 4096, 4096, 8, 1, 64, True),    # 128-row tiles; long at D = 64
+    (1, 4096, 4096, 8, 1, 64, True),    # 128-row tiles; long at D = 64;
+    (1, 191, 191, 4, 2, 64, True),      # then the persistent schedule: S
+    (1, 193, 193, 4, 2, 64, True),      # either side of the 64-wide
+    (1, 100, 100, 133, 7, 64, True),    # body's 192-row units, and units
+    (1, 150, 150, 263, 263, 64, False),  # either side of a multiple of 132
+    (1, 200, 200, 131, 131, 128, True),  # blocks (133, 263, 262, 266)
+    (1, 200, 300, 133, 7, 128, False),
 )
 SSD_SWEEP = (       # (B, S, H, hd, N): tests/test_kernels.py:70-74, then
     (2, 64, 8, 16, 16),                 # ragged S, N = 8 and 128, and the
@@ -1305,7 +1354,14 @@ CROSS_SWEEP = tuple(   # (B, S, T, H, KH, D, dtype), non-causal: the path
     (1, 129, 300, 4, 4, 128, "f32"),
     (1, 127, 1, 8, 8, 64, "f32"),
     (2, 1, 300, 4, 2, 128, "f32"),
+    (1, 191, 300, 8, 2, 64, "bf16"),     # the persistent schedule: S either
+    (1, 193, 129, 8, 2, 64, "bf16"),     # side of the 64-wide body's 192
+    (1, 100, 300, 133, 7, 64, "bf16"),   # rows, units either side of a
+    (1, 150, 150, 263, 263, 64, "bf16"),  # multiple of 132 blocks (133,
+    (2, 129, 200, 131, 131, 128, "bf16"),  # 263, 524, 266)
+    (1, 250, 100, 133, 19, 128, "bf16"),
 )
+BF16_BODIES = ((64, 64), (128, 128), (192, 128))   # flash_bf16<DQ, DV>
 MLA_PATH = (1, 8192, 128, 192, 128)     # deepseek prefill: B, S, H = KH,
                                         # D (q.k), Dv
 FLASH_PATH = (1, 8192, 32, 2, 128)      # glm4 prefill: B, S, H, KH, D
@@ -1317,12 +1373,23 @@ def _normal(g, shape, dtype, dev, scale=1.0):
     return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
 
 
+def _nan_out(q, v):
+    """An output for flash_attention's ``out=``, pre-filled with NaN: a
+    query tile the kernel's schedule skips stays NaN and fails the
+    check."""
+    import torch
+    B, S, H, _ = q.shape
+    return torch.full((B, S, H, v.shape[-1]), float("nan"), dtype=q.dtype,
+                      device=q.device)
+
+
 def check_flash(stats: dict):
     """flash_attention against ref.flash_attention over FLASH_SWEEP in f32
     (within 2e-5) and bf16 (within 2e-2), the tolerances of
     tests/test_kernels.py:62; in bf16 also each query row's rms difference
     within ROW_TOL of its rms (2e-2 is about the size of a late row's
-    values at long S, so it alone would not see a fault there)."""
+    values at long S, so it alone would not see a fault there).  Every
+    output is pre-filled with NaN (:func:`_nan_out`)."""
     import torch
     from repro_torch.bench.serve import row_rel_err
     from repro_torch.kernels import flash_attention as fa, ref
@@ -1334,9 +1401,11 @@ def check_flash(stats: dict):
             q = _normal(g, (B, S, H, D), dtype, dev)
             k = _normal(g, (B, T, KH, D), dtype, dev)
             v = _normal(g, (B, T, KH, D), dtype, dev)
-            got = fa.flash_attention(q, k, v, causal=causal).float()
+            got = fa.flash_attention(q, k, v, causal=causal,
+                                     out=_nan_out(q, v)).float()
             want = ref.flash_attention(q, k, v, causal=causal).float()
-            if not torch.allclose(got, want, atol=tol, rtol=tol):
+            if not (torch.isfinite(got).all()
+                    and torch.allclose(got, want, atol=tol, rtol=tol)):
                 raise AssertionError(
                     f"flash_attention outside {tol}: B={B} S={S} T={T} H={H} "
                     f"KH={KH} D={D} causal={causal} {dtype}: max "
@@ -1438,6 +1507,11 @@ def time_flash(record: dict) -> dict:
                       > nbytes / HBM_BYTES_PER_S else "bytes"),
          "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
              qt, kt, vt, is_causal=True, enable_gqa=True), iters=10),
+         "library_device_ms": all_device_ms(
+             lambda: F.scaled_dot_product_attention(
+                 qt, kt, vt, is_causal=True, enable_gqa=True)),
+         "host_ms": host_ms(lambda: fa.flash_attention(q, k, v), iters=20),
+         "ex2_ms": ex2_ms(B * H * S * (S + 1) // 2),
          "flops": flops, "bytes": nbytes, "path_max_abs_err": err,
          "path_row_err": row, "path_row_err_control": control,
          "shape": {"B": B, "S": S, "H": H, "KH": KH, "D": D,
@@ -1461,7 +1535,8 @@ def _attn_flops(B, S, H, D, Dv) -> int:
 def check_mla(stats: dict, record: dict) -> int:
     """The flash kernel's MLA entry (bf16, q.k width up to 192, v up to
     128): over MLA_SWEEP against ref.flash_attention within 2e-2 and each
-    row within ROW_TOL; the f32 body must refuse unequal widths; then at
+    row within ROW_TOL, outputs pre-filled with NaN; the f32 body must
+    refuse unequal widths; then at
     deepseek's layer (MLA_PATH, causal), held the same way with a
     dropped-tile control above ROW_TOL, timed beside its plain version and
     scaled_dot_product_attention on the same q, k, v (timed only: the port
@@ -1480,13 +1555,15 @@ def check_mla(stats: dict, record: dict) -> int:
         q = _normal(g, (B, S, H, D), torch.bfloat16, dev)
         k = _normal(g, (B, T, KH, D), torch.bfloat16, dev)
         v = _normal(g, (B, T, KH, Dv), torch.bfloat16, dev)
-        got = fa.flash_attention(q, k, v, causal=causal).float()
+        got = fa.flash_attention(q, k, v, causal=causal,
+                                 out=_nan_out(q, v)).float()
         want = ref.flash_attention(q, k, v, causal=causal).float()
         row = row_rel_err(got, want)
         where = f"B={B} S={S} T={T} H={H} KH={KH} D={D} Dv={Dv} " \
                 f"causal={causal}"
-        if got.shape != (B, S, H, Dv) or not torch.allclose(
-                got, want, atol=2e-2, rtol=2e-2) or row > ROW_TOL:
+        if got.shape != (B, S, H, Dv) or not torch.isfinite(got).all() \
+                or not torch.allclose(got, want, atol=2e-2, rtol=2e-2) \
+                or row > ROW_TOL:
             raise AssertionError(
                 f"flash MLA entry off: {where}: max "
                 f"{float((got - want).abs().max())}, row {row}")
@@ -1530,6 +1607,8 @@ def check_mla(stats: dict, record: dict) -> int:
          "bound_ms": max(bound_ms(nbytes), flops / BF16_FLOP_PER_S * 1e3),
          "bound_by": ("operations" if flops / BF16_FLOP_PER_S
                       > nbytes / HBM_BYTES_PER_S else "bytes"),
+         "host_ms": host_ms(lambda: fa.flash_attention(q, k, v), iters=20),
+         "ex2_ms": ex2_ms(B * H * S * (S + 1) // 2),
          "flops": flops, "bytes": nbytes, "path_max_abs_err": err,
          "path_row_err": row, "path_row_err_control": control,
          "sweep_cases": cases,
@@ -1545,6 +1624,9 @@ def check_mla(stats: dict, record: dict) -> int:
                 lambda: F.scaled_dot_product_attention(qt, kt, vt,
                                                        is_causal=True),
                 iters=10)
+            t["library_device_ms"] = all_device_ms(
+                lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                       is_causal=True))
     except RuntimeError as e:       # a yardstick only: no fused backend
         t["library_ms"] = None      # takes these widths
         t["library_error"] = str(e)[:300]
@@ -1559,10 +1641,13 @@ def check_mla(stats: dict, record: dict) -> int:
 def check_cross(stats: dict, record: dict) -> dict:
     """flash_attention's non-causal calls: over CROSS_SWEEP against
     ref.flash_attention (bf16 within 2e-2 and each row within ROW_TOL,
-    f32 within 2e-5); at the three path shapes (CROSS_PATHS) also a
-    dropped-tile control above ROW_TOL, and each timed beside its plain
-    version and non-causal scaled_dot_product_attention (timed only: the
-    port never calls it); f32 also timed at whisper's encoder shape (its
+    f32 within 2e-5; outputs pre-filled with NaN); at the three path
+    shapes (CROSS_PATHS) also a dropped-tile control above ROW_TOL, and
+    each timed beside its plain version and non-causal
+    scaled_dot_product_attention (timed only: the port never calls it;
+    per call and on the device), with the wrapper's host issue and the
+    exponentials' time (:func:`ex2_ms`); f32 also timed at whisper's
+    encoder shape (its
     f32 witness), beside f32 SDPA (:func:`_f32_flash_times`).  Bound: the
     larger of the operations, 4 B S T D H (every key of T read), at 989
     TFLOP/s and q, k, v, o once at 3.35 TB/s."""
@@ -1579,12 +1664,14 @@ def check_cross(stats: dict, record: dict) -> dict:
         q = _normal(g, (B, S, H, D), dtype, dev)
         k = _normal(g, (B, T, KH, D), dtype, dev)
         v = _normal(g, (B, T, KH, D), dtype, dev)
-        got = fa.flash_attention(q, k, v, causal=False).float()
+        got = fa.flash_attention(q, k, v, causal=False,
+                                 out=_nan_out(q, v)).float()
         want = ref.flash_attention(q, k, v, causal=False).float()
         err = float((got - want).abs().max())
         row = row_rel_err(got, want) if dt == "bf16" else 0.0
         where = f"B={B} S={S} T={T} H={H} KH={KH} D={D} {dt}"
-        if not torch.allclose(got, want, atol=tol, rtol=tol) \
+        if not torch.isfinite(got).all() \
+                or not torch.allclose(got, want, atol=tol, rtol=tol) \
                 or row > ROW_TOL:
             raise AssertionError(f"flash non-causal off: {where}: max "
                                  f"{err} (limit {tol}), row {row}")
@@ -1630,6 +1717,12 @@ def check_cross(stats: dict, record: dict) -> dict:
              "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
                  qt, kt, vt, is_causal=False, enable_gqa=H != KH),
                  iters=10),
+             "library_device_ms": all_device_ms(
+                 lambda: F.scaled_dot_product_attention(
+                     qt, kt, vt, is_causal=False, enable_gqa=H != KH)),
+             "host_ms": host_ms(lambda: fa.flash_attention(
+                 q, k, v, causal=False), iters=20),
+             "ex2_ms": ex2_ms(B * H * S * T),
              "flops": flops, "bytes": nbytes, "path_max_abs_err": err,
              "path_row_err": row, "path_row_err_control": control,
              "shape": {"B": B, "S": S, "T": T, "H": H, "KH": KH, "D": D,
@@ -1693,6 +1786,13 @@ def _f32_flash_times(q, k, v, causal: bool) -> dict:
                              flops / F32_FLOP_PER_S * 1e3),
          "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
              qt, kt, vt, is_causal=causal, enable_gqa=H != KH), iters=5),
+         "library_device_ms": all_device_ms(
+             lambda: F.scaled_dot_product_attention(
+                 qt, kt, vt, is_causal=causal, enable_gqa=H != KH),
+             iters=3),
+         "host_ms": host_ms(lambda: fa.flash_attention(q, k, v,
+                                                       causal=causal),
+                            iters=20),
          "max_abs_err": err, "flops": flops, "bytes": nbytes,
          "shape": {"B": B, "S": S, "T": T, "H": H, "KH": KH, "D": D,
                    "dtype": "f32", "causal": causal}}
@@ -1825,6 +1925,93 @@ def time_ssd(record: dict) -> dict:
     return t
 
 
+PARENT = {"dir": None, "lib": None}   # --parent, and its flash library
+
+
+def parent_lib():
+    """The --parent tree's flash library, built on first use (None without
+    --parent).  Its C entry takes the same arguments as this tree's."""
+    if PARENT["dir"] is not None and PARENT["lib"] is None:
+        from repro_torch.bench import flash_sched
+        PARENT["lib"] = flash_sched.build_parent(PARENT["dir"])._lib
+    return PARENT["lib"]
+
+
+def prefill_turns(cfg, params, batch: int, seq: int):
+    """With --parent: the prefill step with this tree's flash kernel and
+    with the parent's (the wrapper's library swapped), in turns (this,
+    parent, parent, this), each turn a warm-up and 2 steps between syncs;
+    the median of each.  Outside every path's counts.  None without
+    --parent."""
+    lib = parent_lib()
+    if lib is None:
+        return None
+    import torch
+    from repro_torch.bench import serve
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.train.train_step import build_prefill_step
+    dev = params["embed"].device
+    step = build_prefill_step(cfg)
+    batch_in = {"tokens": serve.prompt(cfg, batch, seq, dev),
+                "modality": serve.modality(cfg, batch, dev)}
+    libs = {"this": fa._load(), "parent": lib}
+    times = {"this": [], "parent": []}
+    try:
+        for m in ("this", "parent", "parent", "this"):
+            fa._lib = libs[m]
+            step(params, batch_in)
+            for _ in range(2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                step(params, batch_in)
+                torch.cuda.synchronize()
+                times[m].append(time.perf_counter() - t0)
+    finally:
+        fa._lib = libs["this"]
+    out = {f"{m}_s": statistics.median(v) for m, v in times.items()}
+    out["ratio"] = out["this_s"] / out["parent_s"]
+    return dict(out, times_s=times)
+
+
+def time_parent_flash(parent: str) -> dict:
+    """The flash kernel of an earlier tree (``--parent``: an unpacked
+    ``git archive`` of it), built from its source and run through its own
+    wrapper (:func:`repro_torch.bench.flash_sched.build_parent`), beside
+    this tree's at the five path rows of ``flash_sched.ROWS``, in turns
+    (parent, this, this, parent): per call, device and host issue, the
+    median of each, and this tree's over the parent's."""
+    import torch
+    from repro_torch.bench import flash_sched
+    from repro_torch.kernels import flash_attention as fa
+    t0 = time.perf_counter()
+    old = flash_sched.build_parent(parent)
+    built = time.perf_counter() - t0
+    PARENT["lib"] = old._lib
+    rows = {}
+    for i, (name, row) in enumerate(flash_sched.ROWS.items()):
+        q, k, v, causal = flash_sched.inputs(row, 60 + i)
+        fns = {"parent": lambda: old.flash_attention(q, k, v,
+                                                     causal=causal),
+               "this": lambda: fa.flash_attention(q, k, v, causal=causal)}
+        turns = {"parent": [], "this": []}
+        for m in ("parent", "this", "this", "parent"):
+            turns[m].append({
+                "ms": time_ms(fns[m], iters=10),
+                "device_ms": device_ms(fns[m], ("flash_bf16",), iters=5),
+                "host_ms": host_ms(fns[m], iters=20)})
+        med = {m: {key: statistics.median(t[key] for t in ts)
+                   for key in ("ms", "device_ms", "host_ms")}
+               for m, ts in turns.items()}
+        rows[name] = {**med, "turns": turns,
+                      "ratio_ms": med["this"]["ms"] / med["parent"]["ms"],
+                      "ratio_device_ms": med["this"]["device_ms"]
+                      / med["parent"]["device_ms"]}
+        del q, k, v
+        torch.cuda.empty_cache()
+    emit("flash_parent", parent=parent, build_s=built, rows=rows, gpu=smi())
+    return rows
+
+
 def phase_kernels(quick: bool, record: dict):
     emit("kernels", names=["radix_partition", "cas_lock", "grouped_agg",
                            "flash_attention", "ssd_scan"])
@@ -1856,6 +2043,8 @@ def phase_kernels(quick: bool, record: dict):
               "flash_attention_noncausal": cross,
               "ssd_scan": time_ssd(record),
               "f32_entries": time_f32_entries()}
+    if PARENT["dir"] is not None:
+        timing["flash_parent"] = time_parent_flash(PARENT["dir"])
     time_kernels(record)
     timing.update({k: {kk: v for kk, v in record[k].items() if kk not in (
         "source", "replaces", "route", "launches", "paths", "max_abs_err")}
@@ -2565,6 +2754,8 @@ def phase_serve(quick: bool, record: dict):
             layers["control"] = serve.layer_check(cfg, params, tokens,
                                                   groups=1)["max"]
         del tokens
+        if kernel == "flash_attention":
+            pre["parent_kernel"] = prefill_turns(cfg, params, batch, seq)
         eng = serve.engine(cfg, params)
         plain = serve.engine(cfg, params, impl="plain")
         del params
@@ -3118,6 +3309,7 @@ def phase_xattn(quick: bool, record: dict):
                       if kd == kind) for kind in sorted(set(got["kinds"]))}
         del tokens, mod, got
         torch.cuda.empty_cache()
+        pre["parent_kernel"] = prefill_turns(cfg, params, batch, seq)
         dec = serve.decode(cfg, params, batch=batch, steps=DECODE_STEPS)
         del params
         torch.cuda.empty_cache()
@@ -3984,8 +4176,13 @@ def main(argv=None) -> int:
                     "only)")
     ap.add_argument("--out", default=None,
                     help="also append every phase line to this file")
+    ap.add_argument("--parent", default=None,
+                    help="an unpacked git archive of an earlier tree: "
+                    "phase kernels times its flash kernel beside this "
+                    "tree's")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
+    PARENT["dir"] = args.parent
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)

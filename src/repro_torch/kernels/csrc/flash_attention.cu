@@ -23,37 +23,50 @@
 // = 550 GFLOP against 0.25 GB of q, k, v and o; a deepseek MLA layer:
 // 2 S^2 (D + Dv) H / 2 = 2.75 TFLOP against 1.3 GB).
 //
-//   bf16 (flash_bf16): one block of three warpgroups per (128-row query
-//     tile, head, batch).  Warpgroup 0 is the producer: one thread issues
-//     every load by TMA (Q once; K and V tiles of 128 keys into a ring of
-//     kStages stages, each with full and empty mbarriers) and the group
-//     gives up its registers (setmaxnreg).  Warpgroups 1 and 2 own 64
-//     query rows each and take those registers.  S = Q.K^T is one wgmma
-//     m64n128k16 per 16 columns of D, both operands read from shared
-//     memory through 128-byte-swizzle descriptors, the f32 scores left in
-//     registers (64 a thread).  The online softmax runs there: a row's max
-//     over the quad of lanes that holds it by two shuffles, exp2 with
-//     D^-0.5 log2(e) folded in, the masks only on the diagonal tile and
-//     on the ragged last tile.  P goes to bf16 in registers in wgmma's
-//     A-operand layout (the accumulator's layout is that layout), and
-//     O += P.V is a register-A wgmma with V read MN-major through the
-//     descriptor's transpose bit, so nothing transposes V.  O (64 f32 a
-//     thread), m and l stay in registers to the end.  Tensor maps carry
-//     the true widths, so TMA zero-fills columns D..DQ-1 of Q and K,
-//     Dv..DV-1 of V, and rows past S or T.  (DQ, DV), the padded widths,
-//     is (64, 64), (128, 128) or, the MLA entry, (192, 128): a 192-wide
-//     row is three 64-column boxes, S = Q.K^T takes 12 k-steps in place of
-//     8, and Q and two ring stages of K and V take 48 + 2 (48 + 32) = 208
-//     KB of shared memory (160 KB at (128, 128)); the S and O registers
-//     are those of (128, 128).  Query tiles run longest first (the causal
-//     tail).  Blocks take heads fastest when one batch row's K and V fit
-//     half the 50 MB L2 (glm4: 8.4 MB), so every head's longest tile
-//     starts first; else query tiles fastest, so the blocks in flight
-//     share one or two heads' K and V in L2 (MLA's 128 heads hold 671 MB:
-//     heads fastest re-read each head's K and V from HBM for every query
-//     tile, 21 GB a layer).
-//     Each consumer runs a tile's S, softmax and P.V in order, waiting on
-//     each product; the two consumers' phases interleave on the SM.
+//   bf16 (flash_bf16): persistent blocks, one an SM, that walk work units
+//     (a query tile, a head, a batch row): 128 query rows, or 192 in the
+//     64-wide body.  Warpgroup 0 is the producer: one thread claims the
+//     units from a counter with an atomic add, in the order a grid of one
+//     block a unit had (below), and issues every load by TMA (a unit's Q
+//     once; K and V tiles of 128 keys into a ring of stages, each with
+//     full and empty mbarriers), and the group gives up its registers
+//     (setmaxnreg).  The other warpgroups, the consumers (two; three in
+//     the 64-wide body), own 64 query rows of each unit and take those
+//     registers.  The consumers release a unit's Q after its last S, so
+//     the next unit's Q and first K and V tiles load while they finish
+//     the last P.V and store O: a block's start and end, which a short
+//     unit (12-13 key tiles at T = 1500-1601) paid alone before, run
+//     under its neighbours' work.  S = Q.K^T is one wgmma m64n128k16 per
+//     16 columns of D, both operands read from shared memory through
+//     128-byte-swizzle descriptors, the f32 scores left in registers (64
+//     a thread).  The online softmax runs there: a row's max over the
+//     quad of lanes that holds it by two shuffles, exp2 with D^-0.5
+//     log2(e) folded in, the masks only on the diagonal tile and on the
+//     ragged last tile.  P goes to bf16 in registers in wgmma's A-operand
+//     layout (the accumulator's layout is that layout), and O += P.V is a
+//     register-A wgmma with V read MN-major through the descriptor's
+//     transpose bit, so nothing transposes V.  A consumer issues S_j and
+//     P_j-1.V_j-1 together and waits for S_j alone, so the softmax of
+//     tile j (as many ex2 as the products' FLOP / 256: at D = 64 the
+//     MUFU's 16 a clock an SM take as long as the products) runs under
+//     P_j-1.V_j-1; it waits for that product only to rescale O and pack
+//     P_j (FlashAttention-3's intra-warpgroup overlap); the 64-wide
+//     body's three consumers take turns to issue (a token ring of named
+//     barriers).  O (DV / 2 f32 a thread), m and l stay in registers to
+//     the end of the unit.  Tensor
+//     maps carry the true widths, so TMA zero-fills columns D..DQ-1 of Q
+//     and K, Dv..DV-1 of V, and rows past S or T.  (DQ, DV), the padded
+//     widths, is (64, 64), (128, 128) or, the MLA entry, (192, 128): a
+//     192-wide row is three 64-column boxes, S = Q.K^T takes 12 k-steps in
+//     place of 8, and Q and two ring stages of K and V take 48 + 2 (48 +
+//     32) = 208 KB of shared memory (160 KB at (128, 128), 88 KB at (64,
+//     64) with its 192-row Q); the S and O registers are those of (128,
+//     128).  Query tiles run longest first (the causal tail).  Units take
+//     heads fastest when one batch row's K and V fit half the 50 MB L2
+//     (glm4: 8.4 MB), so every head's longest tile starts first; else
+//     query tiles fastest, so the units in flight share one or two heads'
+//     K and V in L2 (MLA's 128 heads hold 671 MB: heads fastest re-read
+//     each head's K and V from HBM for every query tile, 21 GB a layer).
 //   f32 (flash_f32): the same function in f32, both products on the
 //     tensor cores as three TF32 MMAs a product (the error-compensated
 //     "3xTF32" product): each operand x is split into hi = TF32(x) and lo
@@ -107,6 +120,8 @@
 #include <stdint.h>
 
 #include <cmath>
+#include <map>
+#include <utility>
 
 namespace {
 
@@ -117,30 +132,49 @@ constexpr unsigned kFull = 0xffffffffu;
 
 // ------------------------------------------- bf16, wgmma + TMA ring ------
 
-constexpr int kTile = 128;         // query rows a block, key rows a tile
-constexpr int kStages = 2;         // K/V ring depth
+constexpr int kTile = 128;         // key rows a tile
 constexpr int kWg = 128;           // threads a warpgroup
-constexpr int kBfThreads = 3 * kWg;
 constexpr int kHalf = kTile * 128; // bytes of 128 rows x 64 bf16 columns:
                                    // one TMA box, one 128-byte swizzle span
-constexpr int kProducerRegs = 40, kConsumerRegs = 232;
 constexpr long long kL2Bytes = 50ll << 20;   // H100's L2
-// 40 * 128 + 232 * 256 = 168 * 384: the registers at launch, redistributed
+
+constexpr int kStages = 2;         // K/V ring depth (3 and 4 measured no
+                                   // faster at D = 64)
+
+// Consumer warpgroups of 64 query rows in the body of q.k width DQ: three
+// in the 64-wide body, a 192-row unit (its softmax costs as much as its
+// products, and a third warpgroup's work hides more of either), two
+// elsewhere; and the block's threads with the producer's warpgroup.
+template <int DQ>
+constexpr int kConsumers = DQ == 64 ? 3 : 2;
+template <int DQ>
+constexpr int kBfThreads = (kConsumers<DQ> + 1) * kWg;
 
 template <int DQ, int DV>
 struct BfLayout {
+  static constexpr int consumers = kConsumers<DQ>;
+  static constexpr int rows = 64 * consumers;        // a unit's query rows
+  static constexpr int threads = kBfThreads<DQ>;
+  // registers a thread after setmaxnreg: 40 * 128 + 232 * 256 = 168 * 384
+  // and 32 * 128 + 160 * 384 = 128 * 512, the registers at launch
+  static constexpr int producer_regs = consumers == 2 ? 40 : 32;
+  static constexpr int consumer_regs = consumers == 2 ? 232 : 160;
   static constexpr int qk_halves = DQ / 64;
   static constexpr int v_halves = DV / 64;
-  static constexpr int qk_tile = qk_halves * kHalf;  // a Q or K tile
+  static constexpr int qk_tile = qk_halves * kHalf;  // a K tile
   static constexpr int v_tile = v_halves * kHalf;    // a V tile
+  static constexpr int q_tile = rows * 128 * qk_halves;
   static constexpr int q_off = 0;
-  static constexpr int k_off = q_off + qk_tile;
+  static constexpr int k_off = q_off + q_tile;
   static constexpr int v_off = k_off + kStages * qk_tile;
   static constexpr int bar_off = v_off + kStages * v_tile;
-  // q_full, then k_full, v_full, k_empty, v_empty: kStages each
-  static constexpr int bars = 1 + 4 * kStages;
+  // q_full, q_empty, then k_full, v_full, k_empty, v_empty: kStages each
+  static constexpr int bars = 2 + 4 * kStages;
+  static constexpr int unit_off = bar_off + 8 * bars;   // the unit's index
   // + 1024: the swizzle needs 1024-byte aligned tiles
-  static constexpr size_t bytes = bar_off + 8 * bars + 1024;
+  static constexpr size_t bytes = unit_off + 16 + 1024;
+  // S = Q.K^T steps through Q's and K's 64-column halves alike
+  static_assert(qk_halves == 1 || rows == kTile, "one Q half, or 128 rows");
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -484,47 +518,135 @@ __device__ __forceinline__ void issue_pv(float (&acc)[N], uint32_t (&pa)[32],
   pin(acc);
 }
 
-// The K/V ring in shared memory: stages of K and of V tiles, and after the
-// Q barrier, kStages each of full-K, full-V, empty-K and empty-V barriers.
+// Shared memory of a block: the Q tile, a ring of kStages stages of K and
+// of V tiles, and their barriers: q_full and q_empty, then kStages each of
+// full-K, full-V, empty-K and empty-V.
 struct Ring {
   uint32_t k, v, bars, k_tile, v_tile;
-  __device__ uint32_t k_full(int s) const { return bars + 8u * (1 + s); }
+  __device__ uint32_t q_full() const { return bars; }
+  __device__ uint32_t q_empty() const { return bars + 8u; }
+  __device__ uint32_t k_full(int s) const { return bars + 8u * (2 + s); }
   __device__ uint32_t v_full(int s) const {
-    return bars + 8u * (1 + kStages + s);
+    return bars + 8u * (2 + kStages + s);
   }
   __device__ uint32_t k_empty(int s) const {
-    return bars + 8u * (1 + 2 * kStages + s);
+    return bars + 8u * (2 + 2 * kStages + s);
   }
   __device__ uint32_t v_empty(int s) const {
-    return bars + 8u * (1 + 3 * kStages + s);
+    return bars + 8u * (2 + 3 * kStages + s);
   }
 };
 
-// One consumer step on tile j: S_j = Q.K_j^T, its masks (on the diagonal
-// tile and the ragged last one only) and the online softmax, O rescaled,
-// P_j packed, O += P_j.V_j.
-template <int DQ, int DV>
-__device__ __forceinline__ void tile_step(
-    int j, const Ring& ring, uint32_t qa, float (&sc)[64],
-    uint32_t (&pa)[32], float (&acc)[DV / 2], float (&m)[2], float (&l)[2],
-    int row0, int col0, int first_row, int T, int causal,
-    float scale_log2) {
-  const int s = j % kStages;
-  const uint32_t parity = (j / kStages) & 1;
-  mbar_wait(ring.k_full(s), parity);
-  issue_scores<DQ>(sc, qa, ring.k + s * ring.k_tile);
-  wg_wait<0>();
-  pin(sc);
-  mbar_arrive(ring.k_empty(s));
+// A work unit: the query tile of BM rows at q0 of head h of batch row b,
+// and its n_kt key tiles.  Unit u is block u (x fastest) of a grid of one
+// block a unit: the longest query tile first, heads fastest, or query
+// tiles fastest when one batch row's K and V pass half the L2
+// (tiles_fastest).  tests/test_torch_flash_sched.py mirrors this line by
+// line.
+struct Unit {
+  int q0, h, b, n_kt;
+};
+template <int BM>
+__device__ __forceinline__ Unit unit_at(int u, int n_qt, int H, int T,
+                                        int causal, int tiles_fastest) {
+  Unit w;
+  int qt;
+  if (tiles_fastest) {
+    qt = u % n_qt;
+    w.h = (u / n_qt) % H;
+    w.b = u / (n_qt * H);
+  } else {
+    w.h = u % H;
+    qt = (u / H) % n_qt;
+    w.b = u / (H * n_qt);
+  }
+  w.q0 = (n_qt - 1 - qt) * BM;
+  const int kv_end = causal ? min(T, w.q0 + BM) : T;
+  w.n_kt = (kv_end + kTile - 1) / kTile;
+  return w;
+}
+
+// Turns among three consumers (FlashAttention-3's scheduler barrier), a
+// token passed round the ring: consumer c issues its products after
+// bar.sync 1 + c and hands the turn on with bar.arrive at c + 1's, so the
+// consumers' softmaxes do not all meet on the MUFU at once.  Two
+// consumers take no turns: ping-pong measured slower there.
+template <int NC>
+__device__ __forceinline__ void take_turn(int c) {
+  if (NC > 2) asm volatile("bar.sync %0, 256;" ::"r"(1 + c) : "memory");
+}
+template <int NC>
+__device__ __forceinline__ void pass_turn(int c) {
+  if (NC > 2)
+    asm volatile("bar.arrive %0, 256;" ::"r"(1 + (c + 1) % NC) : "memory");
+}
+
+// The masks of key tile j: on the diagonal tile and the ragged last one
+// only.
+__device__ __forceinline__ void mask_if_needed(float (&sc)[64], int j,
+                                               int row0, int col0,
+                                               int first_row, int T,
+                                               int causal) {
   const int k0 = j * kTile;
   if (k0 + kTile > T || (causal && k0 + kTile - 1 > first_row))
     mask_tile(sc, k0, row0, col0, T, causal);
+}
+
+// One unit's key tiles, the softmax under the products
+// (FlashAttention-3's intra-warpgroup pipelining): S_j and O += P_j-1.V_j-1
+// are issued together, S_j is waited on alone, its masks (on the diagonal
+// tile and the ragged last one only) and online softmax run while
+// P_j-1.V_j-1 is in flight, and that product is waited on only where O is
+// rescaled and P_j is packed into its registers.  Ring slot of tile j: it
+// + j.  The issues take turns with the other consumers' (take_turn).
+// (Each product waited on as it was issued measured slower on every
+// path shape.)
+template <int DQ, int DV, int NC>
+__device__ __forceinline__ void run_unit(
+    const Ring& ring, int it, int n_kt, int c, uint32_t qa, float (&sc)[64],
+    uint32_t (&pa)[32], float (&acc)[DV / 2], float (&m)[2], float (&l)[2],
+    int row0, int col0, int first_row, int T, int causal, float scale_log2) {
   float corr[2];
-  softmax_step(sc, m, l, corr, scale_log2);
-  rescale(acc, corr);
-  pack_p(sc, pa);
-  mbar_wait(ring.v_full(s), parity);
+  {
+    const int s = it % kStages;
+    mbar_wait(ring.k_full(s), (it / kStages) & 1);
+    take_turn<NC>(c);
+    issue_scores<DQ>(sc, qa, ring.k + s * ring.k_tile);
+    pass_turn<NC>(c);
+    wg_wait<0>();
+    pin(sc);
+    mbar_arrive(ring.k_empty(s));
+    if (n_kt == 1) mbar_arrive(ring.q_empty());
+    mask_if_needed(sc, 0, row0, col0, first_row, T, causal);
+    softmax_step(sc, m, l, corr, scale_log2);    // O is 0: no rescale
+    pack_p(sc, pa);
+  }
+  for (int j = 1; j < n_kt; ++j) {
+    const int s = (it + j) % kStages, sp = (it + j - 1) % kStages;
+    mbar_wait(ring.k_full(s), ((it + j) / kStages) & 1);
+    mbar_wait(ring.v_full(sp), ((it + j - 1) / kStages) & 1);
+    take_turn<NC>(c);
+    issue_scores<DQ>(sc, qa, ring.k + s * ring.k_tile);
+    issue_pv(acc, pa, ring.v + sp * ring.v_tile);
+    pass_turn<NC>(c);
+    wg_wait<1>();                        // S_j; P_j-1.V_j-1 in flight
+    pin(sc);
+    mbar_arrive(ring.k_empty(s));
+    if (j == n_kt - 1) mbar_arrive(ring.q_empty());
+    mask_if_needed(sc, j, row0, col0, first_row, T, causal);
+    softmax_step(sc, m, l, corr, scale_log2);
+    wg_wait<0>();
+    pin(acc);
+    pin(pa);
+    mbar_arrive(ring.v_empty(sp));
+    rescale(acc, corr);
+    pack_p(sc, pa);
+  }
+  const int s = (it + n_kt - 1) % kStages;
+  mbar_wait(ring.v_full(s), ((it + n_kt - 1) / kStages) & 1);
+  take_turn<NC>(c);
   issue_pv(acc, pa, ring.v + s * ring.v_tile);
+  pass_turn<NC>(c);
   wg_wait<0>();
   pin(acc);
   pin(pa);
@@ -536,113 +658,153 @@ __device__ __forceinline__ void tile_step(
 // register 4j + 2i + e is row r + 8i, column 8j + 2 (t % 4) + e.  Its pairs
 // 4kk + {0, 1, 2, 3} (columns 16kk .. 16kk + 15) are, cast to bf16, the
 // register A operand of the k-step kk of the next product.
+//
+// A persistent block: one a card's SM (gridDim.x = min(units, SMs)).  The
+// producer's thread claims units from sched[0] (an atomic add) one ahead,
+// and for each writes the unit's index into shared memory and loads its
+// Q, then its K and V tiles through the ring; it loads a unit's Q once the
+// consumers have released the last one (q_empty, after their last S), so
+// the next unit's loads run under this unit's last P.V and stores.  An
+// index of -1 ends the block.  Each block makes one claim past the last
+// unit and then counts itself in sched[1]; the last to do so sets both
+// words back to 0, as the next launch on the stream finds them.
 template <int DQ, int DV>
-__global__ void __launch_bounds__(kBfThreads, 1)
+__global__ void __launch_bounds__(kBfThreads<DQ>, 1)
 flash_bf16(const __grid_constant__ CUtensorMap tq,
            const __grid_constant__ CUtensorMap tk,
            const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o,
            int S, int T, int H, int KH, int Dv, int causal,
-           float scale_log2, int tiles_fastest) {
+           float scale_log2, int tiles_fastest, int n_units,
+           unsigned* __restrict__ sched) {
   using L = BfLayout<DQ, DV>;
+  constexpr int NC = L::consumers, BM = L::rows;
   extern __shared__ unsigned char smem_raw[];
-  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
-  const uint32_t sq = base + L::q_off, sk = base + L::k_off,
-                 sv = base + L::v_off, bars = base + L::bar_off;
-  const uint32_t q_full = bars;
-  const Ring ring{sk, sv, bars, L::qk_tile, L::v_tile};
-
-  // longest query tile first, in each head (tiles_fastest) or across them
-  const int h = tiles_fastest ? blockIdx.y : blockIdx.x, b = blockIdx.z;
-  const int n_qt = tiles_fastest ? gridDim.x : gridDim.y;
-  const int q0 = (n_qt - 1 - (tiles_fastest ? blockIdx.x : blockIdx.y)) *
-                 kTile;
-  const int kh = h / (H / KH);
-  const int kv_end = causal ? min(T, q0 + kTile) : T;
-  const int n_kt = (kv_end + kTile - 1) / kTile;
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t sq = base + L::q_off;
+  const Ring ring{base + L::k_off, base + L::v_off, base + L::bar_off,
+                  L::qk_tile, L::v_tile};
+  volatile int* unit_slot = reinterpret_cast<volatile int*>(
+      smem_raw + (base - raw) + L::unit_off);
+  const int n_qt = (S + BM - 1) / BM;
 
   if (threadIdx.x == 0) {
-    mbar_init(q_full, 1);
+    mbar_init(ring.q_full(), 1);
+    mbar_init(ring.q_empty(), NC * kWg);
     for (int s = 0; s < kStages; ++s) {
       mbar_init(ring.k_full(s), 1);
       mbar_init(ring.v_full(s), 1);
-      mbar_init(ring.k_empty(s), 2 * kWg);
-      mbar_init(ring.v_empty(s), 2 * kWg);
+      mbar_init(ring.k_empty(s), NC * kWg);
+      mbar_init(ring.v_empty(s), NC * kWg);
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
 
   if (threadIdx.x < kWg) {
-    // ---- producer: one thread keeps the ring full ----
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(kProducerRegs));
+    // ---- producer: one thread claims the units and keeps the ring full ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(
+        L::producer_regs));
     if (threadIdx.x == 0) {
-      mbar_expect_tx(q_full, L::qk_tile);
-      for (int hf = 0; hf < L::qk_halves; ++hf)
-        tma_load(sq + hf * kHalf, &tq, q_full, 64 * hf, h, q0, b);
-      for (int j = 0; j < n_kt; ++j) {
-        const int s = j % kStages;
-        const uint32_t free_parity = ((j / kStages) & 1) ^ 1;
-        mbar_wait(ring.k_empty(s), free_parity);
-        mbar_expect_tx(ring.k_full(s), L::qk_tile);
+      unsigned u = atomicAdd(sched, 1u);
+      int it = 0;                        // key tiles loaded so far
+      for (int n = 0;; ++n) {
+        if (n > 0) mbar_wait(ring.q_empty(), (n - 1) & 1);
+        if (u >= (unsigned)n_units) {
+          *unit_slot = -1;
+          mbar_arrive(ring.q_full());
+          __threadfence();               // this block's claims, then its count
+          if (atomicAdd(sched + 1, 1u) == gridDim.x - 1) {
+            atomicExch(sched, 0u);       // every claim of the launch made
+            atomicExch(sched + 1, 0u);
+          }
+          break;
+        }
+        *unit_slot = (int)u;
+        const Unit w =
+            unit_at<BM>((int)u, n_qt, H, T, causal, tiles_fastest);
+        const int kh = w.h / (H / KH);
+        mbar_expect_tx(ring.q_full(), L::q_tile);
         for (int hf = 0; hf < L::qk_halves; ++hf)
-          tma_load(sk + s * L::qk_tile + hf * kHalf, &tk, ring.k_full(s),
-                   64 * hf, kh, j * kTile, b);
-        mbar_wait(ring.v_empty(s), free_parity);
-        mbar_expect_tx(ring.v_full(s), L::v_tile);
-        for (int hf = 0; hf < L::v_halves; ++hf)
-          tma_load(sv + s * L::v_tile + hf * kHalf, &tv, ring.v_full(s),
-                   64 * hf, kh, j * kTile, b);
+          tma_load(sq + hf * BM * 128, &tq, ring.q_full(), 64 * hf, w.h,
+                   w.q0, w.b);
+        u = atomicAdd(sched, 1u);        // the next, under these loads
+        for (int j = 0; j < w.n_kt; ++j, ++it) {
+          const int s = it % kStages;
+          const uint32_t free_parity = ((it / kStages) & 1) ^ 1;
+          mbar_wait(ring.k_empty(s), free_parity);
+          mbar_expect_tx(ring.k_full(s), L::qk_tile);
+          for (int hf = 0; hf < L::qk_halves; ++hf)
+            tma_load(ring.k + s * L::qk_tile + hf * kHalf, &tk,
+                     ring.k_full(s), 64 * hf, kh, j * kTile, w.b);
+          mbar_wait(ring.v_empty(s), free_parity);
+          mbar_expect_tx(ring.v_full(s), L::v_tile);
+          for (int hf = 0; hf < L::v_halves; ++hf)
+            tma_load(ring.v + s * L::v_tile + hf * kHalf, &tv,
+                     ring.v_full(s), 64 * hf, kh, j * kTile, w.b);
+        }
       }
     }
   } else {
-    // ---- consumers: 64 query rows each ----
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(kConsumerRegs));
+    // ---- consumers: 64 query rows of each unit each ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(
+        L::consumer_regs));
     const int c = threadIdx.x / kWg - 1;
     const int tid = threadIdx.x % kWg;
-    const int row0 = q0 + 64 * c + 16 * (tid / 32) + (tid % 32) / 4;
+    const int r_in = 64 * c + 16 * (tid / 32) + (tid % 32) / 4;
     const int col0 = 2 * (tid % 4);
-    const int first_row = q0 + 64 * c;
     // this consumer's 64 rows of Q: 64 * 128 bytes into each half
     const uint32_t qa = sq + 64 * c * 128;
 
     float sc[64];                 // scores, then p: 64 x 128 over the group
     uint32_t pa[32];              // p in bf16: the next product's A operand
     float acc[DV / 2];            // output, 64 x DV
+    // the last consumer hands consumer 0 the token first
+    if (NC > 2 && c == NC - 1)
+      asm volatile("bar.arrive 1, 256;" ::: "memory");
+    int it = 0;                   // key tiles consumed so far
+    for (int n = 0;; ++n) {
+      mbar_wait(ring.q_full(), n & 1);
+      const int u = *unit_slot;
+      if (u < 0) break;
+      const Unit w = unit_at<BM>(u, n_qt, H, T, causal, tiles_fastest);
+      const int row0 = w.q0 + r_in, first_row = w.q0 + 64 * c;
 #pragma unroll
-    for (int i = 0; i < DV / 2; ++i) acc[i] = 0.f;
-    float m[2] = {-INFINITY, -INFINITY};   // running max, log2 units
-    float l[2] = {0.f, 0.f};               // this thread's part of the sum
+      for (int i = 0; i < DV / 2; ++i) acc[i] = 0.f;
+      float m[2] = {-INFINITY, -INFINITY};   // running max, log2 units
+      float l[2] = {0.f, 0.f};               // this thread's part of the sum
+      run_unit<DQ, DV, NC>(ring, it, w.n_kt, c, qa, sc, pa, acc, m, l, row0,
+                           col0, first_row, T, causal, scale_log2);
+      it += w.n_kt;
 
-    // tile j lies in stage j % kStages, in its phase (j / kStages) & 1
-    mbar_wait(q_full, 0);
-    for (int j = 0; j < n_kt; ++j)
-      tile_step<DQ, DV>(j, ring, qa, sc, pa, acc, m, l, row0, col0,
-                        first_row, T, causal, scale_log2);
-
-    // o = acc / max(l, 1e-30), rows past S and columns past Dv not written
+      // o = acc / max(l, 1e-30), rows past S and columns past Dv not
+      // written
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      l[i] += __shfl_xor_sync(kFull, l[i], 1);
-      l[i] += __shfl_xor_sync(kFull, l[i], 2);
-      l[i] = fmaxf(l[i], 1e-30f);
-    }
-    const long long ld = (long long)H * Dv;
-    bf16* ob = o + (long long)b * S * ld + (long long)h * Dv;
+      for (int i = 0; i < 2; ++i) {
+        l[i] += __shfl_xor_sync(kFull, l[i], 1);
+        l[i] += __shfl_xor_sync(kFull, l[i], 2);
+        l[i] = fmaxf(l[i], 1e-30f);
+      }
+      const long long ld = (long long)H * Dv;
+      bf16* ob = o + (long long)w.b * S * ld + (long long)w.h * Dv;
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int row = row0 + 8 * i;
-      if (row < S) {
-        bf16* orow = ob + row * ld;
+      for (int i = 0; i < 2; ++i) {
+        const int row = row0 + 8 * i;
+        if (row < S) {
+          bf16* orow = ob + row * ld;
 #pragma unroll
-        for (int jj = 0; jj < DV / 8; ++jj) {
-          const int col = 8 * jj + col0;
-          if (col < Dv)
-            *reinterpret_cast<__nv_bfloat162*>(orow + col) =
-                __floats2bfloat162_rn(acc[4 * jj + 2 * i] / l[i],
-                                      acc[4 * jj + 2 * i + 1] / l[i]);
+          for (int jj = 0; jj < DV / 8; ++jj) {
+            const int col = 8 * jj + col0;
+            if (col < Dv)
+              *reinterpret_cast<__nv_bfloat162*>(orow + col) =
+                  __floats2bfloat162_rn(acc[4 * jj + 2 * i] / l[i],
+                                        acc[4 * jj + 2 * i + 1] / l[i]);
+          }
         }
       }
     }
+    // the token's last pass, to consumer 0, taken
+    if (NC > 2 && c == 0) asm volatile("bar.sync 1, 256;" ::: "memory");
   }
 }
 
@@ -1003,18 +1165,18 @@ EncodeTiled encoder() {
 constexpr int kMapError = 10000;   // + the CUresult of a refused encoding
 
 // A (B, rows, heads, D) bf16 tensor as dims (D, heads, rows, B), innermost
-// first; boxes of 64 columns x 1 head x 128 rows x 1 batch, 128-byte
+// first; boxes of 64 columns x 1 head x box_rows rows x 1 batch, 128-byte
 // swizzle.  The extent D is the true one: columns D .. 63 (or 127) of a
 // box, and rows past `rows`, read as zeros.
 int tensor_map(CUtensorMap* map, const void* ptr, int B, int rows, int heads,
-               int D) {
+               int D, int box_rows) {
   EncodeTiled encode = encoder();
   if (encode == nullptr) return kMapError;
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads,
                               (cuuint64_t)rows, (cuuint64_t)B};
   const cuuint64_t strides[3] = {2ull * D, 2ull * heads * D,
                                  2ull * rows * heads * D};
-  const cuuint32_t box[4] = {64, 1, kTile, 1};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)box_rows, 1};
   const cuuint32_t step[4] = {1, 1, 1, 1};
   const CUresult r = encode(
       map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
@@ -1024,17 +1186,40 @@ int tensor_map(CUtensorMap* map, const void* ptr, int B, int rows, int heads,
   return r == CUDA_SUCCESS ? 0 : kMapError + (int)r;
 }
 
+// The schedule's two words (next unit, blocks done) of a (card, stream):
+// allocated and zeroed on the stream once; each launch leaves them at 0.
+// Launches on one stream run in order, so each finds them so; a stream of
+// its own keeps concurrent launches apart.  Callers hold the wrapper's
+// lock.
+int sched_for(int dev, cudaStream_t st, unsigned** out) {
+  static std::map<std::pair<int, cudaStream_t>, unsigned*> table;
+  const auto key = std::make_pair(dev, st);
+  auto found = table.find(key);
+  if (found == table.end()) {
+    unsigned* words = nullptr;
+    cudaError_t e = cudaMalloc(&words, 2 * sizeof(unsigned));
+    if (e == cudaSuccess) e = cudaMemsetAsync(words, 0, 2 * sizeof(unsigned),
+                                              st);
+    if (e != cudaSuccess) return (int)e;
+    found = table.emplace(key, words).first;
+  }
+  *out = found->second;
+  return 0;
+}
+
 template <int DQ, int DV>
 int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
                 int S, int T, int H, int KH, int D, int Dv, int causal,
                 cudaStream_t st) {
+  using L = BfLayout<DQ, DV>;
   CUtensorMap mq, mk, mv;
-  int e = tensor_map(&mq, q, B, S, H, D);
-  if (e == 0) e = tensor_map(&mk, k, B, T, KH, D);
-  if (e == 0) e = tensor_map(&mv, v, B, T, KH, Dv);
+  int e = tensor_map(&mq, q, B, S, H, D, L::rows);
+  if (e == 0) e = tensor_map(&mk, k, B, T, KH, D, kTile);
+  if (e == 0) e = tensor_map(&mv, v, B, T, KH, Dv, kTile);
   if (e != 0) return e;
-  const size_t smem = BfLayout<DQ, DV>::bytes;
+  const size_t smem = L::bytes;
   static bool smem_allowed[64] = {};     // once per card and width
+  static int sms[64] = {};               // the card's SMs, read once
   int dev = 0;
   cudaError_t ce = cudaGetDevice(&dev);
   if (ce != cudaSuccess) return (int)ce;
@@ -1043,14 +1228,24 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
     if (ce != cudaSuccess) return (int)ce;
     if (dev < 64) smem_allowed[dev] = true;
   }
+  int n_sm = dev < 64 ? sms[dev] : 0;
+  if (n_sm == 0) {
+    ce = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+    if (ce != cudaSuccess) return (int)ce;
+    if (dev < 64) sms[dev] = n_sm;
+  }
+  unsigned* sched = nullptr;
+  e = sched_for(dev, st, &sched);
+  if (e != 0) return e;
   const float scale_log2 = (float)(1.4426950408889634 / sqrt((double)D));
-  const int n_qt = (S + kTile - 1) / kTile;
+  const int n_qt = (S + L::rows - 1) / L::rows;
+  const int n_units = n_qt * H * B;      // < 2^31: the wrapper checks
   const int tiles_fastest =
       2ll * KH * T * (D + Dv) > kL2Bytes / 2 ? 1 : 0;
-  const dim3 grid = tiles_fastest ? dim3(n_qt, H, B) : dim3(H, n_qt, B);
-  flash_bf16<DQ, DV><<<grid, kBfThreads, smem, st>>>(
+  const int grid = n_units < n_sm ? n_units : n_sm;
+  flash_bf16<DQ, DV><<<grid, L::threads, smem, st>>>(
       mq, mk, mv, (bf16*)o, S, T, H, KH, Dv, causal, scale_log2,
-      tiles_fastest);
+      tiles_fastest, n_units, sched);
   return (int)cudaGetLastError();
 }
 

@@ -83,19 +83,18 @@ def entry(d_qk: int, causal: bool = True) -> str:
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """Contiguous, with a 16-byte aligned start (the f32 body's copies are
-    16 bytes wide, and TMA reads the bf16 tensors from 16-byte aligned
-    addresses)."""
+    """t itself when contiguous with a 16-byte aligned start (the f32
+    body's copies are 16 bytes wide, and TMA reads the bf16 tensors from
+    16-byte aligned addresses), else such a copy."""
+    if t.is_contiguous() and t.data_ptr() % 16 == 0:
+        return t
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True) -> torch.Tensor:
-    """q (B, S, H, D), k (B, T, KH, D), v (B, T, KH, Dv), one dtype (f32
-    or bf16), H % KH == 0, (D, Dv) a pair :func:`takes_widths` accepts.
-    Returns (B, S, H, Dv) in q's dtype; head h reads kv head h // (H //
-    KH)."""
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> tuple:
+    """(B, S, T, H, KH, D, Dv) of a call the kernel takes; raises on any
+    other."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_cuda:
             raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
@@ -117,16 +116,56 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          "kernel takes multiples of 8, in bf16 q.k up to "
                          f"{MAX_QK_DIM} and v up to {MAX_HEAD_DIM}, in f32 "
                          f"one width up to {MAX_HEAD_DIM}")
-    if min(B, S, T) < 1 or max(B, H, -(-S // 128)) > 65535:
+    n_qt = -(-S // 128)
+    if min(B, S, T) < 1 or max(B, H, n_qt) > 65535 \
+            or B * H * n_qt >= 2 ** 31:
         raise ValueError(f"B={B}, S={S}, T={T}, H={H} out of the kernel's "
                          "range")
+    return B, S, T, H, KH, D, Dv
+
+
+# shapes, dtypes and devices of q, k, v that _check took, and its result:
+# a call like an earlier one is not checked again
+_checked: dict = {}
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, out=None) -> torch.Tensor:
+    """q (B, S, H, D), k (B, T, KH, D), v (B, T, KH, Dv), one dtype (f32
+    or bf16), H % KH == 0, (D, Dv) a pair :func:`takes_widths` accepts.
+    Returns (B, S, H, Dv) in q's dtype; head h reads kv head h // (H //
+    KH).  ``out``, if given, a contiguous, 16-byte aligned tensor of that
+    shape, dtype and device, is written and returned."""
+    sig = (q.shape, k.shape, v.shape, q.dtype, k.dtype, v.dtype,
+           q.get_device(), k.get_device(), v.get_device())
+    dims = _checked.get(sig)
+    if dims is None:
+        dims = _check(q, k, v)
+        if len(_checked) < 1024:
+            _checked[sig] = dims
+    B, S, T, H, KH, D, Dv = dims
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
-    out = q.new_empty((B, S, H, Dv))
-    with _lock, torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        _raise_on(_load().flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S,
+    if out is None:
+        out = q.new_empty((B, S, H, Dv))
+    elif (out.shape != (B, S, H, Dv) or out.dtype != q.dtype
+          or out.device != q.device or not out.is_contiguous()
+          or out.data_ptr() % 16):
+        raise ValueError(f"out must be a contiguous, 16-byte aligned "
+                         f"{(B, S, H, Dv)} {q.dtype} tensor on {q.device}")
+    lib = _lib or _load()
+    dev = sig[6]
+    # the raw handle of the current stream, as Triton's launcher reads it
+    # (torch.cuda.current_stream() builds an object a call)
+    stream = torch._C._cuda_getCurrentRawStream
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S,
             T, H, KH, D, Dv, int(bool(causal)),
-            int(q.dtype == torch.bfloat16), stream), "flash_attention launch")
+            int(q.dtype == torch.bfloat16))
+    with _lock:
+        if dev == torch.cuda.current_device():
+            rc = lib.flash_attention_fwd(*args, stream(dev))
+        else:
+            with torch.cuda.device(dev):
+                rc = lib.flash_attention_fwd(*args, stream(dev))
+        _raise_on(rc, "flash_attention launch")
         launches[entry(D, causal)] += 1
     return out

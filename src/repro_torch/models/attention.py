@@ -14,7 +14,9 @@ and takes the kernel's MLA entry.  Every other case (decode against a
 cache with ``kv_len``, cross-attention decode against the memory's cache,
 explicit positions, causal T != S) keeps the chunked plain path; MLA
 decode is JAX's absorbed form, attention in the compressed latent space,
-in plain torch.
+in plain torch.  Under a sharding policy whose 'model' axis exceeds a GQA
+model's KV heads, K and V heads are replicated as JAX's are
+(:func:`kv_heads_eff`); decode caches keep the raw KV heads.
 """
 from __future__ import annotations
 
@@ -22,14 +24,45 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.models.common import apply_rope, rmsnorm, rope_angles
+from repro_torch.sharding import constrain, current_policy
 
 NEG_INF = -1e30
 
 
+def tp_size() -> int:
+    """The 'model' axis of the calling thread's policy: 1 with no policy
+    or no mesh."""
+    pol = current_policy()
+    if pol is None or pol.mesh is None:
+        return 1
+    return pol.mesh.shape.get("model", 1)
+
+
 def kv_heads_eff(cfg) -> int:
-    """KV heads after replication for tensor parallelism.  The port runs
-    on one card (tp = 1), where no head is replicated."""
-    return cfg.num_kv_heads
+    """KV heads after replication for tensor parallelism (Megatron-style
+    KV-head replication when num_kv_heads < tp): the largest multiple of
+    num_kv_heads that both divides num_heads and is <= tp.  With no
+    policy (tp = 1) no head is replicated."""
+    tp = tp_size()
+    kv, h = cfg.num_kv_heads, cfg.num_heads
+    if kv >= tp:
+        return kv
+    best = kv
+    m = kv
+    while m <= tp:
+        if h % m == 0:
+            best = m
+        m += kv
+    return best
+
+
+def _repeat_kv_weight(w, kv: int, kv_eff: int):
+    """A K or V projection (d, kv, hd) with each head repeated kv_eff / kv
+    times in place, as JAX's ``jnp.repeat`` on axis 1: head j of the
+    result is head j // (kv_eff / kv) of w."""
+    if kv_eff == kv:
+        return w
+    return torch.repeat_interleave(w, kv_eff // kv, dim=1)
 
 
 def build_gqa(cfg, mk):
@@ -127,13 +160,18 @@ def apply_gqa(cfg, p, x, *, positions=None, causal=True, kv_x=None,
     (and self-attention keys') positions, 0..S-1 if None; given, they go
     to the chunked path as JAX's ``q_pos``."""
     B, S, D = x.shape
-    h, hd = cfg.num_heads, cfg.hd
+    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
     kve = kv_heads_eff(cfg)
     G = h // kve
     src = x if kv_x is None else kv_x
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
-    k = torch.einsum("btd,dhk->bthk", src, p["wk"].to(x.dtype))
-    v = torch.einsum("btd,dhk->bthk", src, p["wv"].to(x.dtype))
+    wk = _repeat_kv_weight(p["wk"], kv, kve).to(x.dtype)
+    wv = _repeat_kv_weight(p["wv"], kv, kve).to(x.dtype)
+    k = torch.einsum("btd,dhk->bthk", src, wk)
+    v = torch.einsum("btd,dhk->bthk", src, wv)
+    q = constrain(q, "batch", None, "heads", None)
+    k = constrain(k, "batch", None, "kv_heads", None)
+    v = constrain(v, "batch", None, "kv_heads", None)
     if kv_x is None and cfg.rope_theta > 0:
         pos = positions if positions is not None else torch.arange(
             S, dtype=torch.int32, device=x.device)
@@ -170,14 +208,16 @@ def apply_gqa_decode(cfg, p, x, cache, pos, *, cross: bool = False):
     memory's K and V, filled once (``lm._precompute_cross``); no rope, no
     update, every one of its T rows attended.  The cache is returned."""
     B = x.shape[0]
-    h, hd = cfg.num_heads, cfg.hd
+    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
     T, kve = cache["k"].shape[1], cache["k"].shape[2]
     G = h // kve
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
     kv_len = None
     if not cross:
-        knew = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(x.dtype))
-        vnew = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(x.dtype))
+        wk = _repeat_kv_weight(p["wk"], kv, kve).to(x.dtype)
+        wv = _repeat_kv_weight(p["wv"], kv, kve).to(x.dtype)
+        knew = torch.einsum("bsd,dhk->bshk", x, wk)
+        vnew = torch.einsum("bsd,dhk->bshk", x, wv)
         if cfg.rope_theta > 0:
             cos, sin = rope_angles(pos.reshape(1), hd, cfg.rope_theta)
             q = apply_rope(q, cos, sin)

@@ -2,7 +2,9 @@
 against JAX's ``repro.kernels.ref.flash_attention``.
 
 ``flash_bf16`` (``src/repro_torch/kernels/csrc/flash_attention.cu``) walks
-key tiles of 128 rows for query tiles of 128 rows, keeps the running max in
+key tiles of 128 rows for query tiles of 128 rows (192 in the 64-wide
+body, three consumer warpgroups of 64 rows; causal, a query tile reads the
+key tiles up to its last row), keeps the running max in
 log2 units and takes ``exp2`` with ``D^-0.5 log2(e)`` folded in, rounds p
 to bf16 against the running max before P.V, rescales O by ``corr`` on
 every tile, and reads D zero-padded to DP (64 or 128; the MLA entry
@@ -18,11 +20,14 @@ emulation is held against JAX's reference on the same numpy inputs:
   limit the card holds it to;
 * a control with one key tile dropped reads above both limits;
 * the MLA entry's widths (q.k 192, v 128; and 136 / 72, padded into it)
-  hold the same two limits.
+  hold the same two limits;
+* the 64-wide body's 192-row query tiles, at S and T either side of 192
+  and 384, hold both limits, and a dropped tile reads above both.
 """
 import functools
 import importlib.util
 import math
+import re
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -35,6 +40,10 @@ from repro_torch.bench.serve import row_rel_err
 
 ROOT = Path(__file__).resolve().parents[1]
 TILE = 128
+SRC = ROOT / "src" / "repro_torch" / "kernels" / "csrc" / "flash_attention.cu"
+# query rows of the 64-wide body's unit: 64 a consumer warpgroup
+ROWS_64 = 64 * int(re.search(r"kConsumers = DQ == 64 \? (\d+) : 2;",
+                             SRC.read_text()).group(1))
 
 
 def _row_tol() -> float:
@@ -50,13 +59,25 @@ ROW_TOL = _row_tol()
 
 def emulate(q, k, v, *, causal=True, bf16=False, drop_tile=None):
     """flash_bf16's arithmetic on (B, S, H, D) q, (B, T, KH, D) k and (B,
-    T, KH, Dv) v (f32 tensors holding the inputs' values).  ``bf16``
+    T, KH, Dv) v (f32 tensors holding the inputs' values), a query tile
+    at a time (ROWS_64 rows in the 64-wide body, else 128).  ``bf16``
     rounds p before P.V and the output at the end; ``drop_tile`` skips
     one key tile."""
     B, S, H, D = q.shape
     T, KH, Dv = k.shape[1], k.shape[2], v.shape[3]
     DP, DV = ((64, 64) if max(D, Dv) <= 64 else (128, 128)
               if max(D, Dv) <= 128 else (192, 128))
+    rows = ROWS_64 if DP == 64 else TILE
+    return torch.cat([_emulate_tile(q[:, q0:q0 + rows], k, v, q0, DP, DV,
+                                    causal, bf16, drop_tile)
+                      for q0 in range(0, S, rows)], dim=1)
+
+
+def _emulate_tile(q, k, v, q0, DP, DV, causal, bf16, drop_tile):
+    """One query tile, rows q0 .. q0 + S - 1, over its key tiles: every
+    one, or causal those up to its last row."""
+    B, S, H, D = q.shape
+    T, KH, Dv = k.shape[1], k.shape[2], v.shape[3]
     pad = (0, DP - D)
     qh = torch.nn.functional.pad(q, pad).transpose(1, 2)       # B H S DP
     kh = torch.nn.functional.pad(k, pad).repeat_interleave(H // KH, 2)
@@ -68,8 +89,9 @@ def emulate(q, k, v, *, causal=True, bf16=False, drop_tile=None):
     m = torch.full((B, H, S), -math.inf)
     l = torch.zeros((B, H, S))
     acc = torch.zeros((B, H, S, DV))
-    qpos = torch.arange(S)[:, None]
-    for j in range(-(-T // TILE)):
+    qpos = q0 + torch.arange(S)[:, None]
+    kv_end = min(T, q0 + S) if causal else T
+    for j in range(-(-kv_end // TILE)):
         if j == drop_tile:
             continue
         k0 = j * TILE
@@ -168,6 +190,34 @@ def test_mla_tile_arithmetic_matches_jax(S, T, H, KH, D, Dv, causal):
     assert (emulate(*arrs, causal=causal, drop_tile=drop)
             - want).abs().max() > 2e-5
     arrs, want = _case(S, T, H, KH, D, causal, True, Dv)
+    got = emulate(*arrs, causal=causal, bf16=True)
+    assert torch.isfinite(got).all()
+    assert row_rel_err(got, want) <= ROW_TOL
+    assert row_rel_err(emulate(*arrs, causal=causal, bf16=True,
+                               drop_tile=drop), want) > ROW_TOL
+
+
+# (S, T, H, KH, D, causal): the 64-wide body's 192-row query tiles, S and
+# T either side of one and two tiles, D 40 padded to 64
+WIDE_CASES = [(191, 191, 2, 1, 64, True), (193, 193, 2, 2, 64, True),
+              (385, 385, 2, 1, 40, True), (383, 300, 4, 2, 64, False),
+              (193, 129, 4, 4, 40, False)]
+WIDE_IDS = [f"S{s}-T{t}-H{h}-KH{kh}-D{d}-{'causal' if c else 'full'}"
+            for s, t, h, kh, d, c in WIDE_CASES]
+
+
+@pytest.mark.parametrize("S,T,H,KH,D,causal", WIDE_CASES, ids=WIDE_IDS)
+def test_192_row_query_tiles_match_jax(S, T, H, KH, D, causal):
+    """f32 within 2e-5; bf16 rows within ROW_TOL; a dropped key tile
+    above both."""
+    assert ROWS_64 == 192
+    arrs, want = _case(S, T, H, KH, D, causal, False)
+    torch.testing.assert_close(emulate(*arrs, causal=causal), want,
+                               atol=2e-5, rtol=2e-5)
+    drop = -(-T // TILE) // 2
+    assert (emulate(*arrs, causal=causal, drop_tile=drop)
+            - want).abs().max() > 2e-5
+    arrs, want = _case(S, T, H, KH, D, causal, True)
     got = emulate(*arrs, causal=causal, bf16=True)
     assert torch.isfinite(got).all()
     assert row_rel_err(got, want) <= ROW_TOL
