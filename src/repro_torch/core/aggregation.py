@@ -22,6 +22,7 @@ import torch
 
 from repro_torch._bits import to_i32, u32
 from repro_torch.kernels import ops
+from repro_torch.spans import span
 
 
 def segment_sum_by_key(keys, vals, num_slots: int, *, impl=None):
@@ -41,10 +42,12 @@ def dist_agg(transport, num_groups: int):
     (num_groups,) u32 sums (group = key hash)."""
 
     def body(keys, vals):
-        local = segment_sum_by_key(keys, vals, num_groups,
-                                   impl=transport.impl)        # phase 1
+        with span("agg.preagg"):                              # phase 1
+            local = segment_sum_by_key(keys, vals, num_groups,
+                                       impl=transport.impl)
         # global union + post-aggregation on every node
-        return transport.psum(local)                          # phase 2
+        with span("agg.flush"):                               # phase 2
+            return transport.psum(local)
 
     return lambda keys, vals: transport.run(body, (keys, vals),
                                             out_reps=True)
@@ -68,19 +71,24 @@ def rdma_agg(transport, num_groups: int, *, chunks: int = 4):
         # phase 1: per-chunk pre-aggregation into the owner layout — one
         # (n, gsz) partition table per chunk, ONE scatter-add whose slot
         # (ci * n + owner) * gsz + slot % gsz the kernel computes per key
-        part = ops.grouped_sum_u32_by_key(keys, vals, num_groups,
-                                          chunks=chunks, n=n,
-                                          impl=transport.impl)
+        with span("agg.preagg"):
+            part = ops.grouped_sum_u32_by_key(keys, vals, num_groups,
+                                              chunks=chunks, n=n,
+                                              impl=transport.impl)
         # background flush: route each chunk's n owner tables (dest = owner,
         # cap = chunks, chunked exchange pipelines the transfer)
-        tabs = part.view(chunks * n, gsz)
-        dest = torch.arange(n, dtype=torch.int32,
-                            device=keys.device).repeat(chunks)
-        res = transport.route({"tab": tabs}, dest, cap=chunks, chunks=chunks)
+        with span("agg.flush"):
+            tabs = part.view(chunks * n, gsz)
+            dest = torch.arange(n, dtype=torch.int32,
+                                device=keys.device).repeat(chunks)
+            res = transport.route({"tab": tabs}, dest, cap=chunks,
+                                  chunks=chunks)
         # phase 2: post-aggregation of my slice only, wrapping at 2**32
-        live = (res.valid > 0)[:, None]
-        mine = to_i32(torch.where(live, u32(res.fields["tab"]), 0).sum(0))
-        return transport.all_gather(mine)[:num_groups]
+        with span("agg.post"):
+            live = (res.valid > 0)[:, None]
+            mine = to_i32(torch.where(live, u32(res.fields["tab"]),
+                                      0).sum(0))
+            return transport.all_gather(mine)[:num_groups]
 
     return lambda keys, vals: transport.run(body, (keys, vals),
                                             out_reps=True)

@@ -21,6 +21,7 @@ import torch
 
 from repro_torch._bits import mul32, to_i32, u32
 from repro_torch.core import bloom as bloom_mod
+from repro_torch.spans import span
 
 MISS = -1                   # 0xFFFFFFFF as int32: filtered / empty slot
 JOIN_VARIANTS = ("ghj", "ghj_bloom", "rdma_ghj", "rrj")
@@ -104,13 +105,14 @@ def _route_by_key(transport, keys, vals, cap: int, chunks: int = 1):
     """Shuffle (keys, vals) to owner shard ``key % n`` through the router;
     MISS keys are filtered, empty slots come back as MISS.
     Returns (keys, vals, dropped) — dropped = rows lost to cap overflow."""
-    n = transport.n
-    dest = (u32(keys) % n).to(torch.int32)
-    dest = torch.where(keys == MISS, n, dest)          # filtered, not dropped
-    res = transport.route({"k": keys, "v": vals}, dest, cap=cap,
-                          chunks=chunks)
-    k = torch.where(res.valid > 0, res.fields["k"], MISS)
-    return k, res.fields["v"], res.dropped
+    with span("join.route"):
+        n = transport.n
+        dest = (u32(keys) % n).to(torch.int32)
+        dest = torch.where(keys == MISS, n, dest)      # filtered, not dropped
+        res = transport.route({"k": keys, "v": vals}, dest, cap=cap,
+                              chunks=chunks)
+        k = torch.where(res.valid > 0, res.fields["k"], MISS)
+        return k, res.fields["v"], res.dropped
 
 
 def make_distributed_join(transport, variant: str, *,
@@ -141,10 +143,11 @@ def make_distributed_join(transport, variant: str, *,
                                          chunks=chunks)
         sk2, sv2, drop_s = _route_by_key(transport, sk, sv, cap_s,
                                          chunks=chunks)
-        if variant == "rrj":
-            agg = rrj_local(rk2, rv2, sk2, sv2, num_blocks=num_parts)
-        else:
-            agg = ghj_local(rk2, rv2, sk2, sv2, num_parts=num_parts)
+        with span("join.local"):
+            if variant == "rrj":
+                agg = rrj_local(rk2, rv2, sk2, sv2, num_blocks=num_parts)
+            else:
+                agg = ghj_local(rk2, rv2, sk2, sv2, num_parts=num_parts)
         return transport.psum(agg), transport.psum(drop_r + drop_s)
 
     def f(rk, rv, sk, sv):

@@ -47,6 +47,7 @@ from repro_torch.db.plan import Plan
 from repro_torch.db.planner import Planner
 from repro_torch.db.session import Session
 from repro_torch.db.table import Table, TableSchema
+from repro_torch.spans import span
 
 # modeled cluster size when running the single-shard degenerate case: the
 # paper's §5.4 deployment, so planner choices match the target NAM cluster
@@ -528,49 +529,54 @@ class Database:
         (kernel builds excluded) minus the variant's modeled compute share,
         so later plans are priced with the measured wire rate; the result
         carries the second run's time."""
-        kind, alts, inputs = self._analyze(plan,
-                                           self._planner_for(profile, load))
-        variant = force_variant or Planner.chosen(alts)
-        if force_variant:
-            known = {a.name for a in alts}
-            if force_variant not in known:
-                raise ValueError(f"{force_variant!r} not in {sorted(known)}")
-        if kind == "join_agg":
-            join = plan.children[0]
-            rtab = self.table(join.children[0].scan_table())
-            stab = self.table(join.children[1].scan_table())
-            f = shuffle.make_distributed_join(
-                self.transport, variant, capacity_factor=capacity_factor,
-                return_stats=True)
-            args = rtab.scan_arrays() + stab.scan_arrays()
-        else:
-            tab = self.table(plan.children[0].scan_table())
-            mk = (aggregation.dist_agg if variant == "dist_agg"
-                  else aggregation.rdma_agg)
-            f = mk(self.transport, plan.groups)
-            args = tab.scan_arrays()
-        before = self._stats_totals()
-        out, elapsed = self._timed(f, args)
-        stats = self._stats_delta(before)
-        if calibrate:
+        with span("db.execute"):
+            with span("db.plan"):
+                kind, alts, inputs = self._analyze(
+                    plan, self._planner_for(profile, load))
+                variant = force_variant or Planner.chosen(alts)
+                if force_variant:
+                    known = {a.name for a in alts}
+                    if force_variant not in known:
+                        raise ValueError(f"{force_variant!r} not in "
+                                         f"{sorted(known)}")
+            if kind == "join_agg":
+                join = plan.children[0]
+                rtab = self.table(join.children[0].scan_table())
+                stab = self.table(join.children[1].scan_table())
+                f = shuffle.make_distributed_join(
+                    self.transport, variant, capacity_factor=capacity_factor,
+                    return_stats=True)
+                args = rtab.scan_arrays() + stab.scan_arrays()
+            else:
+                tab = self.table(plan.children[0].scan_table())
+                mk = (aggregation.dist_agg if variant == "dist_agg"
+                      else aggregation.rdma_agg)
+                f = mk(self.transport, plan.groups)
+                args = tab.scan_arrays()
+            before = self._stats_totals()
             out, elapsed = self._timed(f, args)
-            if stats:
-                self.planner.calibrate(
-                    stats, elapsed,
-                    compute_s=self.planner.compute_share(kind, variant,
-                                                         inputs))
-        value, dropped = out if kind == "join_agg" else (out, None)
-        return QueryResult(value=value, variant=variant,
-                           alternatives=tuple(alts), plan=plan,
-                           elapsed_s=elapsed, stats=stats,
-                           dropped=None if dropped is None else int(dropped))
+            stats = self._stats_delta(before)
+            if calibrate:
+                out, elapsed = self._timed(f, args)
+                if stats:
+                    self.planner.calibrate(
+                        stats, elapsed,
+                        compute_s=self.planner.compute_share(kind, variant,
+                                                             inputs))
+            value, dropped = out if kind == "join_agg" else (out, None)
+            return QueryResult(
+                value=value, variant=variant, alternatives=tuple(alts),
+                plan=plan, elapsed_s=elapsed, stats=stats,
+                dropped=None if dropped is None else int(dropped))
 
     def _timed(self, f, args):
         """(f(*args), seconds until the device has finished it)."""
         t0 = time.perf_counter()
-        out = f(*args)
+        with span("db.run"):
+            out = f(*args)
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            with span("db.sync"):
+                torch.cuda.synchronize(self.device)
         return out, time.perf_counter() - t0
 
     # ------------------------------------------------------- observability --

@@ -39,6 +39,7 @@ from repro_torch._bits import resolve_device
 from repro_torch.fabric import netsim
 from repro_torch.fabric import router as _router
 from repro_torch.fabric import verbs as _verbs
+from repro_torch.spans import span
 
 
 def _row_bytes(arr) -> int:
@@ -238,22 +239,24 @@ class Transport:
 
     def _route_counted(self, fields, dest, *, cap, chunks, plan, mask,
                        window, overlap):
-        n = self.n
-        if plan is not None:
-            cap = plan.cap
-            if window is None:
-                window = plan.window
-        elif cap is None:
-            raise ValueError("route needs cap= (or a plan=)")
-        nbytes = n * cap * _router.WORD_BYTES * _router.packed_row_words(
-            fields)
-        self._count("route", n * chunks, nbytes,
-                    window=int(window or 0), collective=True)
-        exchange = (self._make_exchange(cap // chunks, 1) if overlap
-                    else self._make_exchange(cap, chunks))
-        return _router.route(fields, dest, n=n, cap=cap, chunks=chunks,
-                             exchange=exchange, plan=plan, mask=mask,
-                             window=window, overlap=overlap, impl=self.impl)
+        with span("fabric.route"):
+            n = self.n
+            if plan is not None:
+                cap = plan.cap
+                if window is None:
+                    window = plan.window
+            elif cap is None:
+                raise ValueError("route needs cap= (or a plan=)")
+            nbytes = n * cap * _router.WORD_BYTES * \
+                _router.packed_row_words(fields)
+            self._count("route", n * chunks, nbytes,
+                        window=int(window or 0), collective=True)
+            exchange = (self._make_exchange(cap // chunks, 1) if overlap
+                        else self._make_exchange(cap, chunks))
+            return _router.route(fields, dest, n=n, cap=cap, chunks=chunks,
+                                 exchange=exchange, plan=plan, mask=mask,
+                                 window=window, overlap=overlap,
+                                 impl=self.impl)
 
     def route(self, fields, dest=None, *, cap: Optional[int] = None,
               chunks: int = 1, plan=None, mask=None,

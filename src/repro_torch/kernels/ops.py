@@ -28,6 +28,7 @@ from repro_torch.kernels import radix_partition as _rp
 from repro_torch.kernels import ref
 from repro_torch.kernels._region import region
 from repro_torch.kernels import ssd_scan as _ssd
+from repro_torch.spans import span
 
 IMPLS = ("kernel", "plain")
 
@@ -65,7 +66,7 @@ def reset_launch_counts():
 
 def rank(dest, n: int, cap: int, *, impl=None):
     """(slot, keep, overflow, counts) of ``dest`` into n buckets of cap."""
-    with region("rank") as r:
+    with span("kernel.rank"), region("rank") as r:
         d = dest.to(torch.int32).contiguous()
         out = (_rp.rank(d, n, cap) if resolve_impl(d, impl) == "kernel"
                else ref.rank(d, n, cap))
@@ -77,7 +78,7 @@ def scatter_rows(rows, slot, num_slots: int, *, counts, mask=None,
                  impl=None):
     """int32 ``rows`` into the (num_slots, w + 1) wire buffer, the valid
     lane appended; ``slot`` and ``counts`` are :func:`rank`'s."""
-    with region("scatter") as r:
+    with span("kernel.scatter"), region("scatter") as r:
         args = (rows, slot, counts, mask)
         rows = rows.contiguous()
         slot = slot.to(torch.int32).contiguous()
@@ -135,16 +136,17 @@ def grouped_sum_u32_by_key(keys, vals, groups: int, *, chunks: int = 1,
     from the u32 ``keys`` (int32 bit patterns): ``key % groups``, or with
     ``chunks``/``n`` RDMA-AGG's phase-1 (chunk, owner, group) layout
     (``grouped_agg.grouped_sum_u32_by_key``)."""
-    for name, t in (("keys", keys), ("vals", vals)):
-        if t.dtype != torch.int32:
-            raise TypeError(f"grouped_sum_u32_by_key takes u32 {name} as "
-                            f"int32 bit patterns, got {t.dtype}")
-    keys, vals = keys.contiguous(), vals.contiguous()
-    if resolve_impl(keys, impl) == "kernel":
-        return _ga.grouped_sum_u32_by_key(keys, vals, groups, chunks=chunks,
+    with span("kernel.grouped_agg"):
+        for name, t in (("keys", keys), ("vals", vals)):
+            if t.dtype != torch.int32:
+                raise TypeError(f"grouped_sum_u32_by_key takes u32 {name} "
+                                f"as int32 bit patterns, got {t.dtype}")
+        keys, vals = keys.contiguous(), vals.contiguous()
+        if resolve_impl(keys, impl) == "kernel":
+            return _ga.grouped_sum_u32_by_key(keys, vals, groups,
+                                              chunks=chunks, n=n)
+        return ref.grouped_sum_u32_by_key(keys, vals, groups, chunks=chunks,
                                           n=n)
-    return ref.grouped_sum_u32_by_key(keys, vals, groups, chunks=chunks,
-                                      n=n)
 
 
 # the profiler's label of a backward's plain recompute
