@@ -45,7 +45,9 @@ exits non-zero:
            flash model's prefill step on both kernels, in turns: its
            prefill's parent_kernel), radix_partition also at the
            joins' A = 128 000 000 and its rank alone at 2^24 requests into
-           8 and 64 buckets, then each timed at the
+           8 and 64 buckets, the hash join (ops.join_sum) bit-exact
+           against the plain sort-probe on a join's routed relations at
+           A = 128 000 000 and timed there by pass, then each timed at the
            main paths' shapes (per call between CUDA events, and its device
            time from torch.profiler) beside its plain version, the nearest
            single PyTorch call and its bound (the larger of bytes / 3.35
@@ -324,7 +326,7 @@ PROFILE_GROUPS = (64, 67_108_864)  # ... and per aggregation scheme here
 OLTP_KERNELS = ("radix_partition_rank", "radix_partition_scatter",
                 "cas_lock")
 OLAP_KERNELS = ("radix_partition_rank", "radix_partition_scatter",
-                "grouped_sum_u32")
+                "grouped_sum_u32", "hash_join")
 KERNEL_ROW_KERNELS = ("grouped_agg",)
 SHARDS = 4                       # the paper's 3 storage and 4 client nodes
                                  # as one n
@@ -349,7 +351,8 @@ SCALE_TXNS = 64          # fig_scale at the oltp store: transactions a
                          # worker, so T = 4096 at W = 64 (the oltp wave)
 SCALE_QUICK = (65_536, 16, 16)   # --quick: records, payload words, txns
 CONTENTION_VARIANTS = ("ghj", "rrj")
-JOIN_KERNELS = ("radix_partition_rank", "radix_partition_scatter")
+JOIN_KERNELS = ("radix_partition_rank", "radix_partition_scatter",
+                "hash_join")
 # phase moe: arch -> (layers, reduce_config?, what a prefill step launches)
 MOE_ARCHS = {
     "llama4-maverick-400b-a17b": (2, False, {"flash_attention": 2,
@@ -430,7 +433,8 @@ FIGURE_KERNELS = {
     "fig2": ("cas_lock", "radix_partition_rank", "radix_partition_scatter"),
     "fig6": ("cas_lock", "radix_partition_rank", "radix_partition_scatter"),
     "fig7": (),
-    "fig8a": ("radix_partition_rank", "radix_partition_scatter"),
+    "fig8a": ("radix_partition_rank", "radix_partition_scatter",
+              "hash_join"),
     "fig8b": ("radix_partition_rank", "radix_partition_scatter",
               "grouped_sum_u32", "grouped_agg"),
 }
@@ -1180,6 +1184,59 @@ def time_radix_join(quick: bool) -> dict:
     del rows, wide, buf, kslot, slot
     torch.cuda.empty_cache()
     return out
+
+
+def time_hash_join(quick: bool) -> dict:
+    """The local join (``ops.join_sum``) at a join's shape: R and S of A
+    rows (the benchmark's draw at sel 0.5) routed as RRJ routes them (one
+    shard, cap 2A, 4 chunks): 2A slots a relation, half of them empty.
+    The kernel, checked against the plain sort-probe, per call, on the
+    device by pass, its host time to launch, and the bound: the four
+    routed int32 columns read once."""
+    import torch
+    from repro_torch.core import shuffle
+    from repro_torch.fabric import LocalTransport
+    from repro_torch.kernels import hash_join as hj, ref
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(19)
+    A = OLAP_QUICK_N if quick else OLAP_N
+    rk = (torch.randperm(A, generator=g, device=dev) + 1).to(torch.int32)
+    sk = torch.where(torch.rand(A, generator=g, device=dev) < 0.5,
+                     torch.randint(1, A + 1, (A,), generator=g, device=dev,
+                                   dtype=torch.int32),
+                     torch.randint(A + 1, 2 * A, (A,), generator=g,
+                                   device=dev, dtype=torch.int32))
+    ones = torch.ones((A,), dtype=torch.int32, device=dev)
+    tr = LocalTransport(device=dev)
+    r = shuffle._route_by_key(tr, rk, rk, 2 * A, chunks=4)[:2]
+    s = shuffle._route_by_key(tr, sk, ones, 2 * A, chunks=4)[:2]
+    del rk, sk, ones
+    torch.cuda.empty_cache()
+    args = (*r, *s)
+    got = hj.join_sum(*args)
+    want = ref.join_sum(*args)
+    if not torch.equal(got, want):
+        raise AssertionError(f"hash_join at A={A}: {int(got)} against the "
+                             f"plain {int(want)}")
+    p = hj.plan(2 * A)
+    by_pass = {k: device_ms(lambda: hj.join_sum(*args), (k,), iters=5)
+               for k in hj.KERNELS["hash_join"]}
+    t = {"ms": time_ms(lambda: hj.join_sum(*args), iters=10),
+         "device_ms": device_ms(lambda: hj.join_sum(*args),
+                                hj.KERNELS["hash_join"], iters=5),
+         "device_ms_by_kernel": by_pass,
+         "host_ms": host_ms(lambda: hj.join_sum(*args), iters=20),
+         "plain_ms": time_ms(lambda: ref.join_sum(*args), iters=3,
+                             warmup=1),
+         "bound_ms": bound_ms(4 * 2 * A * 4), "bound_by": "bytes",
+         "library_ms": None,
+         "shape": {"A": A, "slots": 2 * A, "parts": p.parts,
+                   "passes": 2 if p.lo_bits else 1, "table": p.table},
+         "peak_bytes": torch.cuda.max_memory_allocated(), "gpu": smi()}
+    t["bound_share"] = t["bound_ms"] / t["ms"]
+    del args, r, s
+    torch.cuda.empty_cache()
+    return {"hash_join@join": t}
 
 
 def time_kernels(record: dict):
@@ -2051,6 +2108,7 @@ def phase_kernels(quick: bool, record: dict):
         for k in OLTP_KERNELS})
     timing.update(time_grouped(quick, record))
     timing.update(time_radix_join(quick))
+    timing.update(time_hash_join(quick))
     emit("kernels_checked", flash_cases=nf,
          flash_mla_cases=mla["sweep_cases"],
          flash_noncausal_cases=cross["sweep_cases"], ssd_cases=ns,
@@ -2521,7 +2579,7 @@ def phase_shards(quick: bool, record: dict):
     shards_fig6(quick)
     shards_olap(quick, record)
     for name in ("radix_partition_rank", "radix_partition_scatter",
-                 "cas_lock", "grouped_sum_u32"):
+                 "cas_lock", "grouped_sum_u32", "hash_join"):
         record[name]["paths"] += ", shards"
     emit("shards", shards=SHARDS, max_abs_err=errs,
          seconds=time.perf_counter() - t0, gpu=smi())
@@ -4227,6 +4285,10 @@ def main(argv=None) -> int:
         "ssd_scan": {
             "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
             "replaces": "src/repro/kernels/ssd_scan.py:55"},
+        "hash_join": {
+            "source": "src/repro_torch/kernels/csrc/hash_join.cu",
+            "replaces": "none (jnp.sort + searchsorted in "
+                        "src/repro/core/shuffle.py)"},
     }
     paths = {"radix_partition_rank": "oltp, olap, moe prefill (expert "
                                      "packing), moe deepseek-v2-236b mesh "
@@ -4246,7 +4308,8 @@ def main(argv=None) -> int:
                                           "prefill (encoder and cross "
                                           "layers)",
              "flash_attention_mla": "moe deepseek-v2-236b prefill",
-             "ssd_scan": "serve mamba2-370m prefill, moe jamba prefill"}
+             "ssd_scan": "serve mamba2-370m prefill, moe jamba prefill",
+             "hash_join": "olap (every join's local join), contention"}
     for name, r in record.items():
         r.update(route="cuda", launches=0, paths=paths[name])
     try:

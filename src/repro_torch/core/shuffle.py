@@ -2,12 +2,17 @@
 PyTorch.
 
 The port of ``repro.core.shuffle``.  All four share the same local
-building blocks (radix partition + sort-probe join), so measured
-differences isolate the shuffle strategy, as in the paper's Fig 8(a).  The
-shuffle itself is ``transport.route()``: on the card its slot assignment
-and its scatter are the hand-written ``radix_partition`` kernels.  The RDMA
-variants route with ``chunks = 4``.  The local radix passes keep their
-stable-sort form (``torch.sort(stable=True)``).
+building block, so measured differences isolate the shuffle strategy, as
+in the paper's Fig 8(a).  The shuffle itself is ``transport.route()``: on
+the card its slot assignment and its scatter are the hand-written
+``radix_partition`` kernels.  The RDMA variants route with ``chunks = 4``.
+On the card the local join and its aggregate are one hand-written
+partitioned hash join (``ops.join_sum``, ``kernels/csrc/hash_join.cu``):
+RRJ's one radix pass into cache-sized buffers is the kernel's own pass
+into shared-memory-sized partitions, and GHJ runs its radix passes first.
+On the CPU, and with the transport's ``impl="plain"``, the local radix
+passes keep their stable-sort form (``torch.sort(stable=True)``) and the
+join is the sort-probe below, its answer from :func:`join_agg`.
 
 Relations are (keys, values) of u32 words carried as int32 bit patterns
 (:mod:`repro_torch._bits`); R is the unique-key build side.  Keys are
@@ -21,6 +26,7 @@ import torch
 
 from repro_torch._bits import mul32, to_i32, u32
 from repro_torch.core import bloom as bloom_mod
+from repro_torch.kernels import ops
 from repro_torch.spans import span
 
 MISS = -1                   # 0xFFFFFFFF as int32: filtered / empty slot
@@ -74,9 +80,12 @@ def join_agg(hit, rv, sv) -> torch.Tensor:
 # -------------------------------------------------------- single-node -----
 
 def ghj_local(rk, rv, sk, sv, *, num_parts: int = 32,
-              use_bloom: bool = False, bloom_bits: int = 1 << 20):
+              use_bloom: bool = False, bloom_bits: int = 1 << 20,
+              impl=None):
     """Grace hash join on one shard (partition -> per-partition join).
-    With use_bloom, S is pre-filtered by a Bloom filter on R's keys."""
+    With use_bloom, S is pre-filtered by a Bloom filter on R's keys.  On
+    the card (``impl`` as in :mod:`repro_torch.kernels.ops`) the join
+    after the radix passes is the hash-join kernel."""
     if use_bloom:
         bits = bloom_mod.build(rk, bloom_bits)
         keep = bloom_mod.query(bits, sk)
@@ -86,13 +95,19 @@ def ghj_local(rk, rv, sk, sv, *, num_parts: int = 32,
     orderS = _radix_order(sk, num_parts)
     rk2, rv2 = _cache_blocks(rk[orderR], rv[orderR], num_parts)
     sk2, sv2 = _cache_blocks(sk[orderS], sv[orderS], num_parts)
+    if ops.resolve_impl(rk, impl) == "kernel":
+        return ops.join_sum(rk2, rv2, sk2, sv2, impl=impl)
     hit, rvals = local_join(rk2, rv2, sk2, sv2)
     return join_agg(hit, rvals, sv2)
 
 
-def rrj_local(rk, rv, sk, sv, *, num_blocks: int = 64):
+def rrj_local(rk, rv, sk, sv, *, num_blocks: int = 64, impl=None):
     """RRJ collapses GHJ's network partition + radix pass into ONE radix
-    pass straight into cache-sized remote buffers (paper §5.2)."""
+    pass straight into cache-sized remote buffers (paper §5.2).  On the
+    card that pass is the hash-join kernel's own, into partitions sized
+    for shared memory from |R| (``num_blocks`` is then unused)."""
+    if ops.resolve_impl(rk, impl) == "kernel":
+        return ops.join_sum(rk, rv, sk, sv, impl=impl)
     orderR = _radix_order(rk, num_blocks)
     orderS = _radix_order(sk, num_blocks)
     hit, rvals = local_join(rk[orderR], rv[orderR], sk[orderS], sv[orderS])
@@ -145,9 +160,11 @@ def make_distributed_join(transport, variant: str, *,
                                          chunks=chunks)
         with span("join.local"):
             if variant == "rrj":
-                agg = rrj_local(rk2, rv2, sk2, sv2, num_blocks=num_parts)
+                agg = rrj_local(rk2, rv2, sk2, sv2, num_blocks=num_parts,
+                                impl=transport.impl)
             else:
-                agg = ghj_local(rk2, rv2, sk2, sv2, num_parts=num_parts)
+                agg = ghj_local(rk2, rv2, sk2, sv2, num_parts=num_parts,
+                                impl=transport.impl)
         return transport.psum(agg), transport.psum(drop_r + drop_s)
 
     def f(rk, rv, sk, sv):

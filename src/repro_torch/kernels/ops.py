@@ -24,6 +24,7 @@ import torch
 from repro_torch.kernels import cas_lock as _cas
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import grouped_agg as _ga
+from repro_torch.kernels import hash_join as _hj
 from repro_torch.kernels import radix_partition as _rp
 from repro_torch.kernels import ref
 from repro_torch.kernels._region import region
@@ -53,7 +54,8 @@ def launch_counts() -> dict:
             "flash_attention": _fa.launches["flash"],
             "flash_attention_noncausal": _fa.launches["flash_noncausal"],
             "flash_attention_mla": _fa.launches["mla"],
-            "ssd_scan": _ssd.launches["ssd"]}
+            "ssd_scan": _ssd.launches["ssd"],
+            "hash_join": _hj.launches["hash_join"]}
 
 
 def reset_launch_counts():
@@ -62,6 +64,7 @@ def reset_launch_counts():
     _ga.launches.update(f32=0, u32=0)
     _fa.launches.update(flash=0, flash_noncausal=0, mla=0)
     _ssd.launches.update(ssd=0)
+    _hj.launches.update(hash_join=0)
 
 
 def rank(dest, n: int, cap: int, *, impl=None):
@@ -147,6 +150,23 @@ def grouped_sum_u32_by_key(keys, vals, groups: int, *, chunks: int = 1,
                                               chunks=chunks, n=n)
         return ref.grouped_sum_u32_by_key(keys, vals, groups, chunks=chunks,
                                           n=n)
+
+
+def join_sum(rk, rv, sk, sv, *, impl=None):
+    """The local join and its aggregate in one call: the u32 sum mod 2**32
+    (0-dim int32) over S's rows whose key is in R of ``rv[match] * sv``,
+    R's keys unique, a ``MISS`` key no row on either side
+    (``hash_join.join_sum``; the plain version is the sort-probe)."""
+    with span("kernel.join"), region("join_sum") as r:
+        for name, t in (("rk", rk), ("rv", rv), ("sk", sk), ("sv", sv)):
+            if t.dtype != torch.int32:
+                raise TypeError(f"join_sum takes u32 {name} as int32 bit "
+                                f"patterns, got {t.dtype}")
+        args = [t.contiguous() for t in (rk, rv, sk, sv)]
+        out = (_hj.join_sum if resolve_impl(args[0], impl) == "kernel"
+               else ref.join_sum)(*args)
+        r.io(rk, rv, sk, sv, out=out)
+    return out
 
 
 # the profiler's label of a backward's plain recompute

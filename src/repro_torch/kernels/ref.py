@@ -10,7 +10,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch._bits import LOCK_BIT, put_rows, to_i32, u32
+from repro_torch._bits import LOCK_BIT, M32, mul32, put_rows, to_i32, u32
 
 _IMAX = 2 ** 31 - 1
 
@@ -190,6 +190,23 @@ def grouped_sum_u32_by_key(keys, vals, groups: int, *, chunks: int = 1,
     built in torch (:func:`key_slot`), then :func:`grouped_sum_u32`."""
     slot, S = key_slot(keys, groups, chunks=chunks, n=n)
     return grouped_sum_u32(slot, vals, S)
+
+
+def join_sum(rk, rv, sk, sv):
+    """Plain twin of ``hash_join.join_sum``, the sort-probe: R's keys
+    sorted as u32 (a ``MISS`` key as 2**32, after every u32 key), each S
+    key searched among them, and the u32 products of the matched values
+    summed exactly in int64 and wrapped once.  A ``MISS`` key (0xFFFFFFFF)
+    is no row on either side.  A 0-dim int32 bit pattern."""
+    if rk.shape[0] == 0 or sk.shape[0] == 0:
+        return torch.zeros((), dtype=torch.int32, device=rk.device)
+    keys = torch.where(rk == -1, M32 + 1, u32(rk))
+    rks, order = torch.sort(keys)
+    sk64 = u32(sk)
+    pos = torch.searchsorted(rks, sk64).clamp(max=rks.shape[0] - 1)
+    hit = (rks[pos] == sk64) & (sk != -1)
+    prod = mul32(u32(rv[order[pos]]), u32(sv))
+    return to_i32(torch.where(hit, prod, 0).sum())
 
 
 NEG_INF = -1e30

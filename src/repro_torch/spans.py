@@ -39,6 +39,7 @@ NAMES = (
     "kernel.rank",
     "kernel.scatter",
     "kernel.grouped_agg",
+    "kernel.join",      # the local join and its sum (ops.join_sum)
 )
 
 OFF = contextlib.nullcontext()     # every span while no profiler runs

@@ -30,8 +30,8 @@ from repro_torch.configs import get_config, reduce_config
 from repro_torch.bench import run as bench_run
 from repro_torch.db import Database
 from repro_torch.examples import nam_oltp, quickstart, serve_lm, train_lm
-from repro_torch.kernels import (cas_lock, flash_attention, grouped_agg, ops,
-                                 radix_partition, ssd_scan)
+from repro_torch.kernels import (cas_lock, flash_attention, grouped_agg,
+                                 hash_join, ops, radix_partition, ssd_scan)
 from repro_torch.launch import serve as launch_serve
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.launch import train as launch_train
@@ -95,10 +95,10 @@ def test_port_files_found():
             "bench/fig7_costmodel.py", "bench/fig2_microbench.py",
             "tools/fabriccheck.py", "examples/quickstart.py",
             "examples/nam_oltp.py", "examples/serve_lm.py",
-            "examples/train_lm.py"} <= names
+            "examples/train_lm.py", "kernels/hash_join.py"} <= names
     assert ROOT / "chip_smoke.py" in PORT_FILES
     assert len(list((ROOT / "src" / "repro_torch" / "kernels" / "csrc")
-                    .glob("*.cu"))) == 5
+                    .glob("*.cu"))) == 6
 
 
 @pytest.fixture
@@ -171,6 +171,10 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         grouped_agg.grouped_sum_u32(d, d, 4)
     with pytest.raises(ValueError, match="kernel"):
         ops.grouped_sum_u32(d, d, 4, impl="kernel")
+    with pytest.raises(ValueError, match="CUDA"):
+        hash_join.join_sum(d, d, d, d)
+    with pytest.raises(ValueError, match="kernel"):
+        ops.join_sum(d, d, d, d, impl="kernel")
     q = torch.zeros((1, 4, 2, 8))
     with pytest.raises(ValueError, match="CUDA"):
         flash_attention.flash_attention(q, q, q)
@@ -185,13 +189,14 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     before = ops.launch_counts()
     ops.cas(d.clone(), d, d, d + 1, d)            # plain on the CPU
     ops.grouped_agg(d, d.float(), 4)
+    ops.join_sum(d, d, d, d)
     ops.flash_attention(q, q, q)
     ops.ssd_scan(x, bc, bc, dt, torch.zeros(2))
     assert ops.launch_counts() == before
 
 
 WRAPPERS = (radix_partition, cas_lock, grouped_agg, flash_attention,
-            ssd_scan)
+            ssd_scan, hash_join)
 _GLOBAL = re.compile(r"__global__\s+(?:void\s+)?(?:__launch_bounds__\([^)]*\)"
                      r"\s*)?(?:void\s+)?(\w+)\s*\(")
 
